@@ -1,0 +1,48 @@
+"""Mask → contiguous compaction: the plain-tensor compress-store.
+
+``mask → inclusive prefix sum → scatter at positions``, with non-qualifying
+and overflowing lanes parked in an extra column ``cap`` that is dropped —
+the same positions, order and overflow semantics as the reference's
+``core/compaction.py``.  The fused select kernel (``kernels/csrc``) computes
+the same positions with a block-wide scan instead.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _scatter_compact(arrays, mask: torch.Tensor, cap: int, fill: int):
+    """Compact each (B, M) tensor of ``arrays`` under one mask into ``cap``
+    slots (positions computed once).  Returns (outs, count, overflow) with
+    count the per-row qualifying total (may exceed cap)."""
+    mask = mask.to(torch.bool)
+    b, m = mask.shape
+    pos = torch.cumsum(mask, dim=1) - 1                     # inclusive-1 scan
+    pos = torch.where(mask, pos, cap).clamp_(max=cap)       # park invalid and
+                                                            # overflowing lanes
+    outs = []
+    for vals in arrays:
+        if tuple(vals.shape) != (b, m):
+            raise ValueError(f"values must be {(b, m)}, got "
+                             f"{tuple(vals.shape)}")
+        out = torch.full((b, cap + 1), fill, dtype=vals.dtype,
+                         device=vals.device)
+        out.scatter_(1, pos, torch.where(mask, vals, fill).to(vals.dtype))
+        outs.append(out[:, :cap].contiguous())   # kernels take dense rows
+    count = mask.sum(dim=1, dtype=torch.int32)
+    return outs, count, count > cap
+
+
+def compact_rows(vals: torch.Tensor, mask: torch.Tensor, cap: int,
+                 fill: int = -1):
+    """Row-wise compaction of ``vals`` where ``mask`` into ``cap`` slots.
+
+    vals: (B, M) int32, mask: (B, M) bool →
+      out: (B, cap) compacted values (fill-padded),
+      count: (B,) number of qualifying entries (may exceed cap),
+      overflow: (B,) bool — True where entries were dropped.
+    """
+    if vals.ndim != 2:
+        raise ValueError("compact_rows expects (B, M)")
+    (out,), count, ovf = _scatter_compact((vals,), mask, cap, fill)
+    return out, count, ovf

@@ -1,0 +1,265 @@
+"""Spec-driven BFS traversal engine — the level loop every R-tree operator
+shares (the reference's ``core/traversal.py``).
+
+  ``OperatorSpec``       — static description of an operator: its score
+                           stage kind, its per-level dispatch
+                           ``StageModel``, its caps policy, its builder and
+                           serve metadata, kept in a registry so the fleet
+                           and the serve launcher resolve operators by name.
+  ``make_mask_engine``   — the level loop of the mask operators: score →
+                           compress-store compaction → descend.  Eager
+                           PyTorch: one Python iteration per tree level,
+                           every step a tensor op on the tree's device.
+  ``make_escalating_engine`` — the two-tier overflow-escalating runner.
+
+This slice registers the select spec only; the distance engine (kNN),
+browse and the mesh engine arrive with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .compaction import _scatter_compact
+from .counters import OCC_STEPS, Counters, StageModel, occupancy_zeros
+
+
+def _occ_record(occ_live, occ_padded, *, step: int, valid, width: int,
+                batch: int):
+    """Fold one level's frontier occupancy into the per-step vectors (in
+    place): ``valid`` is the (B, width) liveness mask of the frontier the
+    level scored; padded slots are the allocated-but-empty remainder."""
+    slot = min(step, OCC_STEPS - 1)
+    live = valid.sum(dtype=torch.int32)
+    occ_live[slot] += live
+    occ_padded[slot] += batch * width - live
+
+
+# ---------------------------------------------------------------------------
+# Operator specs + registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OperatorSpec:
+    """Static description of one traversal operator.
+
+    ``kind`` selects the engine ('mask': boolean qualify + compress-store
+    emission).  ``stage_model`` is the per-level dispatch accounting the
+    engine charges.  ``builder`` is the public factory (the ``make_*_bfs``
+    function), so ``build(name, ...)`` and the factory are one code path.
+    ``caps_policy`` is the default frontier-caps function, ``query_width``
+    the columns per query row, and ``leaf_enqueue`` marks operators whose
+    leaf emission counts into ``Counters.enqueued``.
+    """
+    name: str
+    kind: str
+    stage_model: StageModel
+    builder: Callable
+    caps_policy: Optional[Callable] = None
+    query_width: Optional[int] = None
+    leaf_enqueue: bool = False
+    description: str = ""
+
+
+_REGISTRY: Dict[str, OperatorSpec] = {}
+
+# modules that register specs on import — imported lazily so the registry
+# is complete whenever it is consulted, without import cycles
+_OPERATOR_MODULES = (
+    "repro_torch.core.select_vector",
+)
+
+
+def register(spec: OperatorSpec) -> OperatorSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def _ensure_registered() -> None:
+    for mod in _OPERATOR_MODULES:
+        importlib.import_module(mod)
+
+
+def get_spec(name: str) -> OperatorSpec:
+    _ensure_registered()
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown operator spec {name!r}; registered: "
+            f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def spec_names() -> Tuple[str, ...]:
+    _ensure_registered()
+    return tuple(sorted(_REGISTRY))
+
+
+def build(name: str, *trees, **params):
+    """Generic engine entry point: build operator ``name`` over ``trees``
+    with the spec's builder (identical to calling it directly)."""
+    return get_spec(name).builder(*trees, **params)
+
+
+# ---------------------------------------------------------------------------
+# Mask-kind engine (range select)
+# ---------------------------------------------------------------------------
+
+def _apply_delta(acc: dict, delta: Optional[dict], *, fcnt, f, stages, hits):
+    """Fold one level's score-stage counter contributions into ``acc``.
+
+    ``delta=None`` selects the dense model (every frontier node evaluates
+    all F lanes over ``stages`` compare stages); a spec whose score stage
+    models pruned work returns its own partial tallies instead.
+    """
+    if delta is None:
+        n = fcnt.sum(dtype=torch.int32)
+        acc["nodes_visited"] = acc["nodes_visited"] + n
+        acc["predicates"] = acc["predicates"] + n * (f * stages)
+        acc["vector_ops"] = acc["vector_ops"] + n * stages
+        acc["masked_waste"] = acc["masked_waste"] + n * f - hits
+    else:
+        for key, val in delta.items():
+            acc[key] = acc[key] + val
+
+
+def make_mask_engine(spec: OperatorSpec, *, height: int,
+                     caps: Sequence[int], result_cap: int, score,
+                     fused_level=None):
+    """Build the level loop for a mask operator.
+
+    ``score(ctx, li, frontier, qargs)`` → (mask (B, M) bool, values — a
+    tuple of (B, M) int32 to compact under the mask, f, stages, delta).
+    ``fused_level(ctx, li, frontier, qargs, cap)`` → the whole-level
+    alternative: (values — tuple of (B, cap), qcnt (B,), overflow (B,), f,
+    stages, delta); the engine then only routes compacted frontiers.
+    Returns ``run(ctx, *qargs)`` → (values, counts, Counters).  The loop
+    reads nothing back to the host.
+    """
+    caps = tuple(caps)
+    sm = spec.stage_model
+
+    def run(ctx, *qargs):
+        q = qargs[0]
+        b, dev = q.shape[0], q.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        frontier = (torch.zeros((b, 1), **i32),)        # root
+        acc = {k: torch.zeros((), **i32) for k in
+               ("nodes_visited", "predicates", "vector_ops", "masked_waste",
+                "pruned_outer", "pruned_inner")}
+        enq = torch.zeros((), **i32)
+        disp = 0
+        ovf = torch.zeros((b,), dtype=torch.bool, device=dev)
+        counts = torch.zeros((b,), **i32)
+        occ_live = occupancy_zeros(dev)
+        occ_padded = occupancy_zeros(dev)
+        res = None
+        for li in range(height - 1, -1, -1):
+            leaf = li == 0
+            cap = result_cap if leaf else caps[height - 1 - li]
+            fvalid = frontier[0] >= 0
+            fcnt = fvalid.sum(dim=1, dtype=torch.int32)
+            _occ_record(occ_live, occ_padded, step=height - 1 - li,
+                        valid=fvalid, width=frontier[0].shape[1], batch=b)
+            if fused_level is not None:
+                vals, qcnt, o, f, stages, delta = fused_level(
+                    ctx, li, frontier, qargs, cap)
+                hits = qcnt.sum(dtype=torch.int32)
+                disp += sm.fused
+                if leaf:
+                    counts = qcnt
+                    res = vals
+                    if spec.leaf_enqueue:
+                        enq = enq + hits
+                else:
+                    frontier = vals
+                    enq = enq + hits
+                ovf = ovf | o
+            else:
+                mask, values, f, stages, delta = score(ctx, li, frontier,
+                                                       qargs)
+                hits = mask.sum(dtype=torch.int32)
+                disp += sm.leaf if leaf else sm.inner
+                outs, qcnt, o = _scatter_compact(values, mask, cap, -1)
+                if leaf:
+                    counts = qcnt
+                    res = tuple(outs)
+                    if spec.leaf_enqueue:
+                        enq = enq + hits
+                else:
+                    frontier = tuple(outs)
+                    enq = enq + hits
+                ovf = ovf | o
+            _apply_delta(acc, delta, fcnt=fcnt, f=f, stages=stages,
+                         hits=hits)
+        ctr = Counters(enqueued=enq, overflow=ovf.any().to(torch.int32),
+                       dispatches=torch.tensor(disp, **i32),
+                       lanes_live=occ_live, lanes_padded=occ_padded, **acc)
+        return res, counts, ctr
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Two-tier overflow-escalating engines
+# ---------------------------------------------------------------------------
+
+def make_escalating_engine(build, tight_caps: Sequence[int],
+                           full_caps: Sequence[int], *,
+                           stick_after: int = 3):
+    """Wrap an operator's engine builder into a two-tier overflow-escalating
+    runner.
+
+    ``build(caps)`` returns the operator's runner (``run(*args, **kw) →
+    (..., Counters)``) for the given frontier caps.  The tight tier (the
+    occupancy-adaptive caps) is built immediately; the full static-caps
+    tier the first time a batch escalates.  Every batch runs on the tight
+    tier first; its ``Counters.overflow`` flag is read back to the host
+    (one ``.item()`` device sync per batch, counted by ``host_syncs()``)
+    and an overflowed batch is re-run on the full tier, whose result *is*
+    the static-caps result, with ``Counters.escalations`` bumped.  After
+    ``stick_after`` consecutive escalations the runner pins itself to the
+    full tier (``stuck()``).
+    """
+    tight_caps = tuple(int(c) for c in tight_caps)
+    full_caps = tuple(int(c) for c in full_caps)
+    tight = build(tight_caps)
+    state = {"full": None, "escalations": 0, "streak": 0, "syncs": 0}
+
+    def escalated(out):
+        ctr = dataclasses.replace(out[-1],
+                                  escalations=out[-1].escalations + 1)
+        state["escalations"] += 1
+        return out[:-1] + (ctr,)
+
+    def run(*args, **kw):
+        if state["streak"] >= stick_after:
+            return escalated(state["full"](*args, **kw))
+        out = tight(*args, **kw)
+        state["syncs"] += 1
+        if out[-1].overflow.item():
+            if state["full"] is None:
+                state["full"] = build(full_caps)
+            state["streak"] += 1
+            return escalated(state["full"](*args, **kw))
+        state["streak"] = 0
+        return out
+
+    run.tight_caps = tight_caps
+    run.full_caps = full_caps
+    run.escalation_count = lambda: state["escalations"]
+    run.stuck = lambda: state["streak"] >= stick_after
+    run.host_syncs = lambda: state["syncs"]
+    return run
+
+
+def maybe_escalating(build, tight_caps, full_caps):
+    """``make_escalating_engine`` unless the two tiers coincide — then the
+    single-tier engine is returned directly."""
+    tight_caps = tuple(int(c) for c in tight_caps)
+    full_caps = tuple(int(c) for c in full_caps)
+    if tight_caps == full_caps:
+        return build(tight_caps)
+    return make_escalating_engine(build, tight_caps, full_caps)

@@ -1,0 +1,166 @@
+"""Distributed spatial query processing, host fan-out path: partition the
+dataset spatially, build one R-tree per partition on the device, fan
+queries out, merge results on the host (the reference's
+``distributed/spatial_shard.py``, host path).
+
+Partitioning follows the STR idea one level up: sort by x into vertical
+slabs, then by y within each slab — every partition is a contiguous spatial
+tile holding ~N/P rects, so most range queries touch few partitions (the
+partition MBRs act as a replicated, tiny "root router" level).  Select rows
+merge by sorted global id, an order with no dependence on partition
+placement.
+
+The single-program mesh path arrives with the fleet slice (ROADMAP A11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core import rtree, traversal
+from ..core.geometry import intersects as np_intersects
+from ..core.layouts import layout_lanes
+
+
+@dataclasses.dataclass
+class Partition:
+    tree: "rtree.RTree"
+    mbr: np.ndarray            # (4,)
+    offset: int                # partition index
+    ids: np.ndarray            # (n_local,) global rect ids
+
+
+class SpatialShards:
+    def __init__(self, partitions: List[Partition], fanout: int,
+                 layout: str = "d1"):
+        layout_lanes(layout)           # validate the name early
+        self.partitions = partitions
+        self.fanout = fanout
+        # fleet-wide node layout, injected into every engine build; the
+        # engines' backend is 'auto': kernels for trees on the card
+        self.layout = layout
+        self.router_mbrs = np.stack([p.mbr for p in partitions])
+        # one engine cache for every operator, keyed by (spec name,
+        # partition, build params) through the spec registry
+        self._engines = {}
+        # summed Counters of the last batch over the partitions it touched
+        self.last_counters = None
+
+    @classmethod
+    def build(cls, rects: np.ndarray, n_partitions: int, fanout: int = 64,
+              sort_key: Optional[str] = None, layout: str = "d1",
+              device="cuda") -> "SpatialShards":
+        n = len(rects)
+        cx = (rects[:, 0] + rects[:, 2]) / 2
+        cy = (rects[:, 1] + rects[:, 3]) / 2
+        slabs = int(np.ceil(np.sqrt(n_partitions)))
+        per_slab = int(np.ceil(n_partitions / slabs))
+        order = np.argsort(cx, kind="stable")
+        slab_size = int(np.ceil(n / slabs))
+        parts: List[Partition] = []
+        for si in range(slabs):
+            sl = order[si * slab_size:(si + 1) * slab_size]
+            if len(sl) == 0:
+                continue
+            sl = sl[np.argsort(cy[sl], kind="stable")]
+            tile = int(np.ceil(len(sl) / per_slab))
+            for ti in range(per_slab):
+                ids = sl[ti * tile:(ti + 1) * tile]
+                if len(ids) == 0:
+                    continue
+                sub = rects[ids]
+                tree = rtree.build_rtree(sub, fanout=fanout,
+                                         sort_key=sort_key, device=device)
+                mbr = np.array([sub[:, 0].min(), sub[:, 1].min(),
+                                sub[:, 2].max(), sub[:, 3].max()],
+                               rects.dtype)
+                parts.append(Partition(tree=tree, mbr=mbr, offset=len(parts),
+                                       ids=ids))
+        return cls(parts, fanout, layout=layout)
+
+    # ------------------------------------------------------------------
+    # routing + per-partition engines
+    # ------------------------------------------------------------------
+
+    def route(self, queries: np.ndarray) -> np.ndarray:
+        """(B, 4) queries → (B, P) bool routing matrix from partition MBRs
+        (the replicated root-router step)."""
+        q = queries
+        m = self.router_mbrs
+        return np_intersects(q[:, None, 0], q[:, None, 1], q[:, None, 2],
+                             q[:, None, 3], m[None, :, 0], m[None, :, 1],
+                             m[None, :, 2], m[None, :, 3])
+
+    def engine_for(self, op: str, pi: int, **params):
+        """The engine of registered operator ``op`` for partition ``pi``,
+        built through the spec registry (traversal.build) and cached per
+        build params."""
+        params = dict(params, layout=self.layout)
+        key = (op, pi, tuple(sorted(params.items())))
+        if key not in self._engines:
+            self._engines[key] = traversal.build(
+                op, self.partitions[pi].tree, **params)
+        return self._engines[key]
+
+    @staticmethod
+    def _bucket(queries: np.ndarray) -> np.ndarray:
+        """Pad a query subset to its next power-of-two row count so a
+        partition sees at most log2(max batch)+1 batch shapes.  Pads with
+        copies of a real query, not zeros: the overflow flag is any() over
+        all rows, and an all-zeros row could overflow the frontier caps when
+        no real query does."""
+        b = len(queries)
+        bucket = 1 << (b - 1).bit_length()
+        if bucket > b:
+            pad = np.repeat(queries[:1], bucket - b, axis=0)
+            queries = np.concatenate([queries, pad], axis=0)
+        return queries
+
+    def range_select(self, queries: np.ndarray, result_cap: int = 4096
+                     ) -> List[np.ndarray]:
+        """Batched distributed select → per-query sorted global rect ids."""
+        queries = np.asarray(queries, np.float32)
+        routing = self.route(queries)
+        results = [[] for _ in range(len(queries))]
+        acc = None
+        for pi, part in enumerate(self.partitions):
+            hit = np.nonzero(routing[:, pi])[0]
+            if len(hit) == 0:
+                continue
+            sel = self.engine_for("select", pi, result_cap=result_cap)
+            ids, counts, ctr = sel(self._bucket(queries[hit]))
+            acc = ctr if acc is None else acc + ctr
+            ids = ids.cpu().numpy()
+            counts = counts.cpu().numpy()
+            for qi, local_q in enumerate(hit):
+                found = ids[qi, :counts[qi]]
+                results[local_q].append(part.ids[found])
+        if acc is not None:
+            self.last_counters = acc
+        return [np.sort(np.concatenate(r)) if r else
+                np.empty((0,), np.int64) for r in results]
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+
+    def warm(self, op: str, batch: int, result_cap: int = 4096) -> None:
+        """Build operator ``op``'s engines and run each once at every
+        power-of-two bucket up to ``batch`` (routed subsets can land in any
+        bucket ≤ the full batch's), so a serving loop pays no kernel build
+        or first-launch cost."""
+        spec = traversal.get_spec(op)        # select is the one ported op
+        buckets = []
+        bucket = 1 << (max(batch, 1) - 1).bit_length()
+        while bucket >= 1:
+            buckets.append(bucket)
+            bucket //= 2
+        for pi in range(len(self.partitions)):
+            fn = self.engine_for(op, pi, result_cap=result_cap)
+            for bk in buckets:
+                fn(np.zeros((bk, spec.query_width), np.float32))
+        if self.partitions and self.partitions[0].tree.device.type == "cuda":
+            torch.cuda.synchronize(self.partitions[0].tree.device)
