@@ -21,7 +21,25 @@ Phases, each of which fails the run loudly:
    force; both kernels' launch counts must grow; ms per 64-query batch;
 5. serve: ``repro_torch.launch.serve.main`` over 2M rects in 8 partitions
    on cuda (the main path); B1's launch count must grow; one batch against
-   brute force; q/s.
+   brute force; q/s;
+6. join kernels: the 2M-point fleet and 200,000 probes (half-extent
+   0.002), all ``sort_key="lx"`` as the join serve runner builds them; on
+   every level of the centre partition's join, B3
+   (``join_pair_masks_cuda``) and B4 (``join_level_fused_cuda``) against
+   their twins, exact, on pair frontiers from a real descent (shuffled,
+   10% of slots -1) with the pruning bounds from the pre-pass (O3/O4-O5
+   off and on) and random, plus a B4 cap that overflows; CUDA-event times
+   of kernel and twin at the leaf step beside the bound;
+7. join engine: ``make_join_bfs(result_cap=1048576)`` over the centre
+   partition in the four cells {O3/O4 off, on} × {unfused, fused} against
+   the twin engine on the card (pairs, count, every counter) and against
+   the reference's numbers for this input (720,914 pairs; occupancy; the
+   O3/O4 tallies); 256 sampled probes against brute force; ms per join
+   and peak device memory per cell;
+8. join serve: ``serve.main(["--mode", "join", ...])`` at 2M points with
+   ``--join-cap 1048576`` on cuda; B3's launch count must grow, nothing
+   may overflow, 256 sampled probes against brute force; joins/s and the
+   host merge's share.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -44,6 +62,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 N_RECTS, FANOUT, BATCH, SELECTIVITY, RESULT_CAP = 2_000_000, 64, 64, 1e-3, 4096
 SEED = 0
+JOIN_CAP, QUERY_EPS, CENTRE = 1 << 20, 0.002, 4
+# the reference's numbers for the centre partition's join at this size
+# (the JAX package's make_join_bfs over the same fleet and probes)
+JOIN_PAIRS, JOIN_LIVE = 720_914, [1, 110, 8045]
+JOIN_O34 = dict(predicates=33_317_712, pruned_outer=170_740,
+                pruned_inner=14_086_858)
 
 
 def fail(msg: str) -> None:
@@ -65,10 +89,16 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup_s: float = 0.05) -> float:
+    """CUDA-event ms per call of ``fn`` over ``iters`` calls, after at
+    least two warm-up calls and ``warmup_s`` of them: a card that was idle
+    raises its clocks only under load."""
     import torch
-    for _ in range(warmup):
+    n, t0 = 0, time.perf_counter()
+    while n < 2 or time.perf_counter() - t0 < warmup_s:
         fn()
+        torch.cuda.synchronize()
+        n += 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -123,9 +153,13 @@ def profile_batches(fn, iters: int = 3, top: int = 6) -> str:
 def assert_equal(a, b, what: str) -> int:
     """Fail unless kernel output ``a`` equals twin output ``b`` exactly;
     returns the largest absolute difference (0)."""
-    a, b = a.cpu().numpy(), b.cpu().numpy()
+    import torch
     check(a.shape == b.shape and a.dtype == b.dtype,
-          f"{what}: shape/dtype {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+          f"{what}: shape/dtype {tuple(a.shape)} {a.dtype} vs "
+          f"{tuple(b.shape)} {b.dtype}")
+    if torch.equal(a, b):               # on the card: no GB-sized copies
+        return 0
+    a, b = a.cpu().numpy(), b.cpu().numpy()
     err = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max(
         initial=0))
     check(err == 0, f"{what}: kernel and twin differ in "
@@ -302,6 +336,206 @@ def phase_serve(kern, serve):
     return launches, out["qps"]
 
 
+def sample_probes_equal_brute_force(torch, dev, pairs, probes, rects, what,
+                                    n_sample: int = 256) -> None:
+    """Fail unless, for ``n_sample`` probes drawn from a seed, the data ids
+    that ``pairs`` ((K, 2) probe id, data id) join them with equal a brute
+    force over all of ``rects``, computed on ``dev`` in chunks."""
+    rng = np.random.default_rng(SEED + 11)
+    sample = np.sort(rng.choice(len(probes), n_sample, replace=False))
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    r = torch.from_numpy(np.ascontiguousarray(rects)).to(dev)
+    for lo in range(0, n_sample, 64):
+        qs = sample[lo:lo + 64]
+        q = torch.from_numpy(probes[qs]).to(dev)
+        m = ((q[:, None, 0] <= r[None, :, 2])
+             & (q[:, None, 2] >= r[None, :, 0])
+             & (q[:, None, 1] <= r[None, :, 3])
+             & (q[:, None, 3] >= r[None, :, 1]))
+        for qi, row in zip(qs, m):
+            want = torch.nonzero(row).flatten().cpu().numpy()
+            a, b = np.searchsorted(pairs[:, 0], [qi, qi + 1])
+            got = pairs[a:b, 1]
+            check(np.array_equal(got, want),
+                  f"{what}: probe {qi} joins {len(got)} ids, brute force "
+                  f"{len(want)}")
+
+
+def phase_join_kernels(torch, lo, li_, pair_caps, jkern, ref, ops):
+    """Phase 6: B3 and B4 ≡ their twins on every level of a real descent;
+    times at the leaf step."""
+    dev = lo[0].coords.device
+    h = len(lo)
+    rng = np.random.default_rng(SEED + 9)
+    i32 = dict(dtype=torch.int32, device=dev)
+    o, i = torch.zeros((1,), **i32), torch.zeros((1,), **i32)
+    frontiers = {}
+    for lvl in range(h - 1, -1, -1):            # the O3/O4 descent
+        frontiers[lvl] = (o, i)
+        if lvl:
+            ac, fm = ops.join_prune_metadata(o, i, lo[lvl].coords,
+                                             li_[lvl].coords, to=8)
+            o, i, _, _ = ref.join_level_fused_ref(
+                o, i, ac, fm, lo[lvl].coords, li_[lvl].coords, lo[lvl].ptr,
+                li_[lvl].ptr, cap=pair_caps[h - 1 - lvl])
+    err = {"join_pair_masks": 0, "join_level_fused": 0}
+
+    def hold(name, got, want, what):
+        for k, (g, w) in enumerate(zip(got, want)):
+            err[name] = max(err[name], assert_equal(g, w, f"{what} [{k}]"))
+
+    for lvl, (o, i) in frontiers.items():
+        perm = torch.from_numpy(rng.permutation(o.numel())).to(dev)
+        o, i = o[perm].contiguous(), i[perm].contiguous()
+        drop = torch.from_numpy(rng.random(o.numel())).to(dev)
+        o = torch.where(drop < 0.05, -1, o)
+        i = torch.where((drop >= 0.05) & (drop < 0.1), -1, i)
+        oc, icr = lo[lvl].coords, li_[lvl].coords
+        ptrs = (lo[lvl].ptr, li_[lvl].ptr)
+        p = o.numel()
+        bounds = {f"o3={a} o45={b}": ops.join_prune_metadata(
+            o, i, oc, icr, to=8, o3=a, o45=b)
+            for a, b in ((False, False), (True, True))}
+        bounds["random"] = (
+            torch.from_numpy(rng.integers(-1, FANOUT + 3, p).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-1, FANOUT + 3, (p, FANOUT // 8))
+                             .astype(np.int32)).to(dev))
+        cap = pair_caps[h - 1 - lvl] if lvl else JOIN_CAP
+        for tag, (ac, fm) in bounds.items():
+            args = (o, i, ac, fm, oc, icr)
+            hold("join_pair_masks", [jkern.join_pair_masks_cuda(*args)],
+                 [ref.join_pair_masks_ref(*args)], f"B3 level {lvl} {tag}")
+            hold("join_level_fused",
+                 jkern.join_level_fused_cuda(*args, *ptrs, cap=cap),
+                 ref.join_level_fused_ref(*args, *ptrs, cap=cap),
+                 f"B4 level {lvl} {tag}")
+        print(f"  level {lvl}: pair frontier {p}, "
+              f"{int(((o >= 0) & (i >= 0)).sum())} live pairs — B3, B4 "
+              f"exact with pre-pass bounds (O3/O4 off, on) and random ones",
+              flush=True)
+    # overflow: the leaf step's live pairs into a cap of 4096
+    ac, fm = ops.join_prune_metadata(*frontiers[0], lo[0].coords,
+                                     li_[0].coords, to=8)
+    args = (*frontiers[0], ac, fm, lo[0].coords, li_[0].coords, lo[0].ptr,
+            li_[0].ptr)
+    got = jkern.join_level_fused_cuda(*args, cap=4096)
+    hold("join_level_fused", got, ref.join_level_fused_ref(*args, cap=4096),
+         "B4 overflow")
+    check(bool(got[3]), "the cap-4096 B4 case did not overflow")
+    print(f"  overflow case: cap 4096, count {int(got[2])} — B4 exact")
+
+    # times at the leaf step of the unshuffled descent
+    o, i = frontiers[0]
+    oc, icr, optr, iptr = lo[0].coords, li_[0].coords, lo[0].ptr, li_[0].ptr
+    p, fo, fi = o.numel(), oc.shape[2], icr.shape[2]
+    live = (o >= 0) & (i >= 0)
+    n_live = int(live.sum())
+    uo = int(torch.unique(o[live]).numel())
+    ui = int(torch.unique(i[live]).numel())
+    # both id streams for every slot; alive_cnt and flip_max for the live
+    # pairs only (a pair with a negative id is decided by its ids)
+    meta = p * 4 * 2 + n_live * 4 * (1 + fm.shape[1])
+    b3_bytes = meta + (uo * fo + ui * fi) * 16 + p * fo * fi * 4
+    b4_bytes = meta + (uo * fo + ui * fi) * 20 + 2 * JOIN_CAP * 4 + 4 + 1
+    ops_ = n_live * fo * fi * 6       # 4 compares and 2 tile tests a lane
+    out = []
+    for name, line, kfn, tfn, nbytes in (
+            ("join_pair_masks", "src/repro/kernels/rtree_join.py:73",
+             lambda: jkern.join_pair_masks_cuda(*args[:6]),
+             lambda: ref.join_pair_masks_ref(*args[:6]), b3_bytes),
+            ("join_level_fused", "src/repro/kernels/rtree_join.py:129",
+             lambda: jkern.join_level_fused_cuda(*args, cap=JOIN_CAP),
+             lambda: ref.join_level_fused_ref(*args, cap=JOIN_CAP),
+             b4_bytes)):
+        ms = cuda_ms(kfn, 20)
+        plain_ms = cuda_ms(tfn, 3)
+        bound_ms, bound_by = bound(nbytes, ops_)
+        print(f"  {name}: leaf step (P={p}, F={fo}x{fi}, {n_live} live "
+              f"pairs, {uo}+{ui} distinct nodes): kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes "
+              f"at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)", flush=True)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/rtree_join.cu",
+                        replaces=line, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None, max_abs_err=err[name]))
+    return out
+
+
+def phase_join_engine(torch, probe_tree, part, probes, jkern, join_vector):
+    """Phase 7: the four join engine cells ≡ the twin engine and the
+    reference's numbers; sampled probes ≡ brute force."""
+    jkern.reset_launch_counts()
+    cells = {}
+    for o34 in (False, True):
+        for fused in (False, True):
+            cell = f"o3o4={'on' if o34 else 'off'}/" \
+                   f"{'fused' if fused else 'unfused'}"
+            kw = dict(result_cap=JOIN_CAP, o3=o34, o4=o34, fused=fused)
+            fn = join_vector.make_join_bfs(probe_tree, part.tree, **kw)
+            twin = join_vector.make_join_bfs(probe_tree, part.tree,
+                                             backend="torch", **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pairs, n, ctr = fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            tpairs, tn, tctr = twin()
+            assert_equal(pairs, tpairs, f"join engine {cell} pairs")
+            assert_equal(n, tn, f"join engine {cell} count")
+            d, td = ctr.asdict(), tctr.asdict()
+            check(d == td, f"join engine {cell} counters: {d} vs {td}")
+            check(int(n) == JOIN_PAIRS and d["overflow"] == 0,
+                  f"join engine {cell}: {int(n)} pairs (overflow "
+                  f"{d['overflow']}), the reference has {JOIN_PAIRS}")
+            check(d["lanes_live"][:3] == JOIN_LIVE,
+                  f"join engine {cell}: lanes_live {d['lanes_live']}")
+            if o34:
+                for k, v in JOIN_O34.items():
+                    check(d[k] == v, f"join engine {cell}: {k} {d[k]}, the "
+                          f"reference has {v}")
+            cells[cell] = (fn, twin, peak, d)
+    launches = jkern.launch_counts()
+    print(f"  four cells ≡ twin engine (pairs, count, counters) and the "
+          f"reference ({JOIN_PAIRS} pairs, lanes_live {JOIN_LIVE}, "
+          f"{JOIN_O34}); launches {launches}", flush=True)
+    check(launches["join_pair_masks"] > 0 and
+          launches["join_level_fused"] > 0, "a join kernel was not launched")
+    p = pairs[:int(n)].cpu().numpy().astype(np.int64)
+    sample_probes_equal_brute_force(torch, part.tree.device, p, probes,
+                                    part.tree.rects.cpu().numpy(),
+                                    "join engine")
+    print("  256 sampled probes ≡ brute force over the partition's rects")
+    d = cells["o3o4=on/unfused"][3]
+    print(f"  counters (O3/O4 on): {d}")
+    for cell, (fn, twin, peak, _) in cells.items():
+        print(f"  {cell}: {host_ms(fn, 3):.3f} ms per join (twin engine "
+              f"{host_ms(twin, 1):.3f} ms), peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        print(f"    {profile_batches(fn, iters=2)}", flush=True)
+    return launches
+
+
+def phase_join_serve(torch, dev, jkern, serve):
+    """Phase 8: the served join through the CLI entry point."""
+    argv = ["--mode", "join", "--n", str(N_RECTS), "--join-cap",
+            str(JOIN_CAP), "--query-eps", str(QUERY_EPS), "--batches", "3"]
+    jkern.reset_launch_counts()
+    out = serve.main(argv)
+    launches = jkern.launch_counts()
+    print(f"  serve launches {launches}")
+    check(launches["join_pair_masks"] > 0,
+          "join serve did not launch join_pair_masks")
+    check(not out["overflow"], "the served join overflowed")
+    rects, probes = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    sample_probes_equal_brute_force(torch, dev, out["last_pairs"], probes,
+                                    rects, "join serve")
+    print(f"  last served join: {len(out['last_pairs'])} pairs; 256 sampled "
+          f"probes ≡ brute force over all {N_RECTS} rects")
+    return launches, out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -309,8 +543,12 @@ def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
-    from repro_torch.core import rtree, select_vector
-    from repro_torch.kernels import _build, ref
+    from repro_torch.core import join_vector, rtree, select_vector
+    from repro_torch.core.join_scalar import elevate
+    from repro_torch.core.layouts import tree_layout
+    from repro_torch.distributed.spatial_shard import SpatialShards
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import rtree_join as jkern
     from repro_torch.kernels import rtree_select as kern
     from repro_torch.launch import serve
 
@@ -346,11 +584,51 @@ def main() -> None:
     serve_launches, qps = phase_serve(kern, serve)
     print(f"  served {qps:,.1f} q/s on {name} ({smi})", flush=True)
 
-    # launches: B1 from the served main path; B2, which serve does not
-    # drive, from the fused engine cells of phase 4 (counts reset before)
+    t0 = time.time()
+    rects, probes = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    shards = SpatialShards.build(rects, 8, fanout=FANOUT, sort_key="lx",
+                                 device=dev)
+    part = shards.partitions[CENTRE]
+    probe_tree = rtree.build_rtree(probes, fanout=FANOUT, sort_key="lx",
+                                   device=dev)
+    h = max(probe_tree.height, part.tree.height)
+    to, ti = elevate(probe_tree, h), elevate(part.tree, h)
+    lo, li_ = tree_layout(to, "d1"), tree_layout(ti, "d1")
+    pair_caps = join_vector.default_pair_caps(h, FANOUT, JOIN_CAP)
+    pc = join_vector.reachable_pair_counts(to, ti)
+    tight = join_vector.default_pair_caps(h, FANOUT, JOIN_CAP,
+                                          level_sizes=(pc[0],) + pc[:-1],
+                                          policy="adaptive")
+    check(tight == pair_caps, f"adaptive pair caps {tight} differ from the "
+          f"static {pair_caps}")
+    print(f"[6] join fleet: {len(shards.partitions)} partitions, "
+          f"{len(probes)} probes; centre partition {len(part.ids)} rects, "
+          f"probe levels {[l.ptr.shape[0] for l in lo]}, data levels "
+          f"{[l.ptr.shape[0] for l in li_]}; pair caps {pair_caps} in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    kernels += phase_join_kernels(torch, lo, li_, pair_caps, jkern, ref, ops)
+
+    print("[7] join engine", flush=True)
+    join_eng_launches = phase_join_engine(torch, probe_tree, part, probes,
+                                          jkern, join_vector)
+    del shards, part, probe_tree, to, ti, lo, li_
+
+    print("[8] join serve", flush=True)
+    join_serve_launches, jout = phase_join_serve(torch, dev, jkern, serve)
+    print(f"  served {jout['joins_per_s']:.3f} joins/s on {name} ({smi}); "
+          f"host merge {jout['merge_s']:.2f} s of 3 joins", flush=True)
+
+    # launches: B1 and B3 from the served paths (phases 5 and 8); B2 and B4,
+    # which serve does not drive, from the fused engine cells (phases 4 and
+    # 7); every count was reset just before its phase
+    path_launches = {
+        "select_level_masks": serve_launches,
+        "select_level_fused": eng_launches,
+        "join_pair_masks": join_serve_launches,
+        "join_level_fused": join_eng_launches,
+    }
     for k in kernels:
-        k["launches"] = serve_launches[k["name"]] if \
-            k["name"] == "select_level_masks" else eng_launches[k["name"]]
+        k["launches"] = path_launches[k["name"]][k["name"]]
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,8 +1,9 @@
-"""Frontier-capacity policy of the select operator (the reference's
-``core/caps.py``: ``geometric_caps``, ``adaptive_caps`` and
-``select_frontier_caps``).  Pure integer code, copied so the port imports
-nothing of the JAX package; the caps decide overflow and escalation, so
-they must equal the reference's on the same tree.
+"""Frontier-capacity policies of the select and join operators (the
+reference's ``core/caps.py``: ``geometric_caps``, ``adaptive_caps``,
+``select_frontier_caps`` and ``join_pair_caps``).  Pure integer code,
+copied so the port imports nothing of the JAX package; the caps decide
+overflow and escalation, so they must equal the reference's on the same
+tree.
 
 ``geometric_caps``
     The **static** policy (the escalation fallback): fixed ``min_cap``
@@ -155,3 +156,26 @@ def select_frontier_caps(tree, result_cap: int, slack: int = 4,
     return geometric_caps(
         tree.height - 1, tree.fanout, result_cap, slack=slack,
         min_cap=min_cap, level_sizes=sizes, lanes=lanes, final="boost")
+
+
+def join_pair_caps(height: int, fanout: int, result_cap: int,
+                   base: int = 1024,
+                   level_sizes: Optional[Sequence[int]] = None,
+                   policy: str = "static") -> Tuple[int, ...]:
+    """Pair-frontier capacity after each join descent step (last = result
+    pairs).  Pair frontiers are flat (P,) buffers consumed tile-wise, so
+    they skip the lane round-up.
+
+    ``level_sizes`` for the adaptive tier are the **reachable pair counts**
+    per level (outer node count × inner node count of the chain-elevated
+    trees, coarse level last — the same ``e`` indexing as node counts);
+    the final result-pair step buffers rect pairs and is exempt."""
+    if policy == "adaptive":
+        return adaptive_caps(
+            height, fanout, result_cap, slack=4,
+            level_sizes=level_sizes, max_cap=4 * result_cap,
+            lane_round=False, final="target",
+            floor=lane_floor(fanout))
+    return geometric_caps(
+        height, fanout, result_cap, slack=4, min_cap=base,
+        max_cap=4 * result_cap, lane_round=False, final="target")

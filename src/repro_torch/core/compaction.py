@@ -3,8 +3,9 @@
 ``mask → inclusive prefix sum → scatter at positions``, with non-qualifying
 and overflowing lanes parked in an extra column ``cap`` that is dropped —
 the same positions, order and overflow semantics as the reference's
-``core/compaction.py``.  The fused select kernel (``kernels/csrc``) computes
-the same positions with a block-wide scan instead.
+``core/compaction.py``.  The fused kernels (``kernels/csrc``) compute the
+same positions with block-wide scans instead.  Positions are int64, so a
+flat pair-lane index past 2**31 stays exact.
 """
 from __future__ import annotations
 
@@ -17,9 +18,12 @@ def _scatter_compact(arrays, mask: torch.Tensor, cap: int, fill: int):
     count the per-row qualifying total (may exceed cap)."""
     mask = mask.to(torch.bool)
     b, m = mask.shape
-    pos = torch.cumsum(mask, dim=1) - 1                     # inclusive-1 scan
-    pos = torch.where(mask, pos, cap).clamp_(max=cap)       # park invalid and
-                                                            # overflowing lanes
+    # int64 positions (inclusive scan - 1), updated in place because the
+    # join's leaf step scans 2**28 lanes; non-qualifying and overflowing
+    # lanes park in the dropped column ``cap``
+    pos = torch.cumsum(mask, dim=1)
+    pos -= 1
+    pos.masked_fill_(~mask, cap).clamp_(max=cap)
     outs = []
     for vals in arrays:
         if tuple(vals.shape) != (b, m):
@@ -46,3 +50,17 @@ def compact_rows(vals: torch.Tensor, mask: torch.Tensor, cap: int,
         raise ValueError("compact_rows expects (B, M)")
     (out,), count, ovf = _scatter_compact((vals,), mask, cap, fill)
     return out, count, ovf
+
+
+def compact_1d(vals: torch.Tensor, mask: torch.Tensor, cap: int,
+               fill: int = -1):
+    """1-D compaction (single queue): (M,) → (cap,), count, overflow."""
+    out, count, ovf = compact_rows(vals[None], mask[None], cap, fill)
+    return out[0], count[0], ovf[0]
+
+
+def compact_pairs(a: torch.Tensor, b_: torch.Tensor, mask: torch.Tensor,
+                  cap: int, fill: int = -1):
+    """Compact two parallel (B, M) id arrays under one mask (join pairs)."""
+    (oa, ob), count, ovf = _scatter_compact((a, b_), mask, cap, fill)
+    return oa, ob, count, ovf

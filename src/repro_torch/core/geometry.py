@@ -48,3 +48,13 @@ def brute_force_select(rects, query):
     qlx, qly, qhx, qhy = query
     m = (qlx <= hx) & (qhx >= lx) & (qly <= hy) & (qhy >= ly)
     return np.nonzero(m)[0]
+
+
+def brute_force_join(rects_a, rects_b):
+    """Oracle: all intersecting (i, j) id pairs between two rect sets
+    (numpy), sorted lexicographically.  O(N*M); for small instances."""
+    alx, aly, ahx, ahy = (rects_a[:, k, None] for k in range(4))
+    blx, bly, bhx, bhy = (rects_b[None, :, k] for k in range(4))
+    m = (alx <= bhx) & (ahx >= blx) & (aly <= bhy) & (ahy >= bly)
+    ii, jj = np.nonzero(m)
+    return np.stack([ii, jj], axis=1)

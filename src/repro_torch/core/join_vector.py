@@ -1,0 +1,275 @@
+"""Vectorized nested-index spatial join (paper §4): the *join spec* of the
+engine (the reference's ``core/join_vector.py``).
+
+The unit of work is a *pair frontier*: (outer node, inner node) id pairs
+at the same (chain-elevated) level, descended level-synchronously by the
+shared mask engine (core/traversal.py) with two id streams.  For every
+pair the child predicate is an (F_out × F_in) tile:
+
+  unfused     — per level, ``kernels/ops.join_pair_masks`` (kernel B3 on
+                the card) writes the (P, F_out, F_in) mask, and
+                ``compaction._scatter_compact`` packs the qualifying
+                (outer child, inner child) pairs;
+  ``fused``   — per level, one ``kernels/ops.join_level_fused`` call
+                (kernel B4 on the card) evaluates the predicate AND
+                compress-stores the qualifying pairs in flat order.
+
+Both take the O3/O4/O5 tile-skip bounds of ``ops.join_prune_metadata``.
+Sorted-key optimizations (``sort_key='lx'`` trees): O3 slices trailing
+outer children once ``out.low_x > max(in.high_x)``; O4/O5 shrink the inner
+node to ``flip`` entries per outer child.  They change the counters (the
+work modelled as skipped), never the results.  O5's flip indices come
+either densely (``flip_indices_dense``) or from the paper's gather/blend
+binary search (``flip_indices_gather``); both are equal.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels import ops
+from . import caps as caps_policy
+from . import traversal
+from .counters import StageModel
+from .join_scalar import elevate
+from .layouts import LevelD1, tree_layout
+from .rtree import RTree
+
+
+def _gather_children(layer, ids: torch.Tensor):
+    """(P,) node ids → per-child (lx, ly, hx, hy, ptr) each (P, F) +
+    stages.  D1 only."""
+    if not isinstance(layer, LevelD1):
+        raise NotImplementedError(
+            f"join over {type(layer).__name__} is not ported yet (ROADMAP "
+            f"item A9); ported layouts: d1")
+    safe = ids.clamp(min=0).long()
+    c = layer.coords[safe]
+    return (c[:, 0], c[:, 1], c[:, 2], c[:, 3], layer.ptr[safe]), 4
+
+
+def flip_indices_dense(i_lx: torch.Tensor, o_hx: torch.Tensor) -> torch.Tensor:
+    """flip[p, a] = #{b : inner_lx[p, b] <= outer_hx[p, a]} via one masked
+    reduction over the tile."""
+    return (i_lx[:, None, :] <= o_hx[:, :, None]).sum(dim=-1,
+                                                      dtype=torch.int32)
+
+
+def flip_indices_gather(i_lx: torch.Tensor,
+                        o_hx: torch.Tensor) -> torch.Tensor:
+    """The paper's Figure-6 mechanism: per-lane binary search over the
+    sorted inner ``low_x`` using gather + compare + two blends per
+    iteration, log2(F)+1 iterations."""
+    f = i_lx.shape[1]
+    iters = int(math.ceil(math.log2(max(f, 2)))) + 1
+    low = torch.zeros_like(o_hx, dtype=torch.int32)
+    high = torch.full_like(low, f)
+    for _ in range(iters):
+        mid = (low + high) // 2
+        val = torch.gather(i_lx, 1, mid.clamp(0, f - 1).long())
+        ok = (val <= o_hx) & (mid < f)
+        low = torch.where(ok, mid + 1, low)          # masked add
+        high = torch.where(ok, high, mid)            # blend
+    return low
+
+
+def default_pair_caps(height: int, fanout: int, result_cap: int,
+                      base: int = 1024, level_sizes=None,
+                      policy: str = "static") -> Tuple[int, ...]:
+    """Pair-frontier capacity after each descent step (last = result pairs)
+    — the unified policy (core/caps.py).  ``policy='adaptive'`` selects the
+    occupancy-adaptive tight tier, clamped to ``level_sizes`` — the
+    reachable pair counts per level."""
+    return caps_policy.join_pair_caps(height, fanout, result_cap, base=base,
+                                      level_sizes=level_sizes, policy=policy)
+
+
+def reachable_pair_counts(to: RTree, ti: RTree) -> Tuple[int, ...]:
+    """Per-level reachable pair count for two chain-elevated equal-height
+    trees, leaf level first: no pair frontier can hold more distinct pairs
+    than the product of the two levels' node counts."""
+    return tuple(o.n_nodes * i.n_nodes
+                 for o, i in zip(to.levels, ti.levels))
+
+
+def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
+                  result_cap: int = 65536,
+                  pair_caps: Optional[Sequence[int]] = None,
+                  o3: bool = False, o4: bool = False,
+                  o5: Optional[str] = None, backend: str = "auto",
+                  fused: bool = False, caps_mode: str = "adaptive"):
+    """Build the pair-frontier join: () → (pairs (R, 2) int32, n, Counters).
+
+    ``o5``: None | 'dense' | 'gather' — how flip indices are computed (both
+    imply the O4-style inner shrink accounting).  ``backend``: 'auto' runs
+    the CUDA kernels when the trees lie on a CUDA device and their plain
+    PyTorch twins on the CPU; 'cuda' demands the kernels; 'torch' runs the
+    twins anywhere.  ``fused=True``: one fused whole-level step per level —
+    no (P, F_out, F_in) mask is materialized, and every result but
+    ``Counters.dispatches`` is unchanged.  ``caps_mode`` as in
+    ``make_select_bfs``.
+    """
+    sorted_ok = tree_o.sort_key == "lx" and tree_i.sort_key == "lx"
+    if (o3 or o4 or o5) and not sorted_ok:
+        raise ValueError("O3/O4/O5 require trees built with sort_key='lx'")
+    ops.resolve_backend(backend, tree_o.rects)
+    h = max(tree_o.height, tree_i.height)
+    to, ti = elevate(tree_o, h), elevate(tree_i, h)
+    ctx = (tree_layout(to, layout), tree_layout(ti, layout))
+    o45 = bool(o4 or o5)
+
+    def _score_stage_counters(o_ids, i_ids, gathered, stages, m):
+        """Shared O3/O4/O5 counter modelling for the unfused and fused
+        paths; returns (delta, masked tile or None)."""
+        (olx, oly, ohx, ohy, optr), (ilx, ily, ihx, ihy, iptr) = gathered
+        pair_valid = (o_ids >= 0) & (i_ids >= 0)
+        o_valid = (optr >= 0) & pair_valid[:, None]
+        i_valid = (iptr >= 0) & pair_valid[:, None]
+        ca = o_valid.sum(dim=1)
+        cb = i_valid.sum(dim=1)
+        base_preds = (ca * cb).sum()
+        alive = o_valid
+        po = pi = torch.zeros((), dtype=torch.int64, device=o_ids.device)
+        if o3:
+            max_ihx = ihx.amax(dim=1)           # padding hi = -PAD
+            alive = o_valid & (olx <= max_ihx[:, None])
+            if m is not None:
+                # counter modelling only — the intersect predicate already
+                # implies ``alive`` (olx <= max ihx)
+                m = m & alive[:, :, None]
+            po = o_valid.sum() - alive.sum()
+        if o45:
+            flip = (flip_indices_gather(ilx, ohx) if o5 == "gather"
+                    else flip_indices_dense(ilx, ohx))
+            considered = torch.minimum(flip, cb[:, None])
+            pi = torch.where(alive, cb[:, None] - considered, 0).sum()
+            eff_preds = torch.where(alive, considered, 0).sum()
+        else:
+            eff_preds = (alive.sum(dim=1) * cb).sum()
+        n_pairs = pair_valid.sum()
+        delta = dict(nodes_visited=2 * n_pairs,
+                     predicates=eff_preds * stages,
+                     masked_waste=base_preds - eff_preds,
+                     vector_ops=n_pairs * stages,
+                     pruned_outer=po, pruned_inner=pi)
+        return {k: v.to(torch.int32) for k, v in delta.items()}, m
+
+    def _metadata(lo, li_, o_ids, i_ids):
+        oc, icr = lo.coords, li_.coords
+        to_ = 8 if oc.shape[2] % 8 == 0 else oc.shape[2]
+        ac, fm = ops.join_prune_metadata(o_ids, i_ids, oc, icr, to=to_,
+                                         o3=o3, o45=o45)
+        return oc, icr, to_, ac, fm
+
+    def score(ctx_, li, frontier, qargs):
+        layers_o, layers_i = ctx_
+        o_ids, i_ids = frontier[0][0], frontier[1][0]   # (P,)
+        go, stages = _gather_children(layers_o[li], o_ids)
+        gi, _ = _gather_children(layers_i[li], i_ids)
+        optr, iptr = go[4], gi[4]
+        pair_valid = (o_ids >= 0) & (i_ids >= 0)
+        o_valid = (optr >= 0) & pair_valid[:, None]
+        i_valid = (iptr >= 0) & pair_valid[:, None]
+        oc, icr, to_, ac, fm = _metadata(layers_o[li], layers_i[li], o_ids,
+                                         i_ids)
+        m = ops.join_pair_masks(o_ids, i_ids, ac, fm, oc, icr, to=to_,
+                                ti=min(128, icr.shape[2]),
+                                backend=backend).to(torch.bool)
+        m = m & o_valid[:, :, None] & i_valid[:, None, :]
+        delta, m = _score_stage_counters(o_ids, i_ids, (go, gi), stages, m)
+        p, fo = optr.shape
+        fi = iptr.shape[1]
+        a_vals = optr[:, :, None].expand(p, fo, fi)
+        b_vals = iptr[:, None, :].expand(p, fo, fi)
+        return (m.reshape(1, -1),
+                (a_vals.reshape(1, -1), b_vals.reshape(1, -1)),
+                fo, stages, delta)
+
+    def fused_level(ctx_, li, frontier, qargs, cap):
+        layers_o, layers_i = ctx_
+        o_ids, i_ids = frontier[0][0], frontier[1][0]
+        go, stages = _gather_children(layers_o[li], o_ids)
+        gi, _ = _gather_children(layers_i[li], i_ids)
+        # counter inputs are the (P, F) child gathers, never a
+        # (P, F_out, F_in) mask
+        delta, _ = _score_stage_counters(o_ids, i_ids, (go, gi), stages,
+                                         None)
+        oc, icr, to_, ac, fm = _metadata(layers_o[li], layers_i[li], o_ids,
+                                         i_ids)
+        oa, ob, n_pairs, f_ovf = ops.join_level_fused(
+            o_ids, i_ids, ac, fm, oc, icr, layers_o[li].ptr,
+            layers_i[li].ptr, cap=cap, to=to_, backend=backend)
+        return ((oa[None], ob[None]), n_pairs[None], f_ovf[None],
+                go[0].shape[1], stages, delta)
+
+    def build(pair_caps_):
+        pair_caps_ = tuple(pair_caps_)
+        if len(pair_caps_) != h:
+            raise ValueError(f"need {h} pair caps, got {len(pair_caps_)}")
+        run = traversal.make_mask_engine(
+            JOIN_SPEC, height=h, caps=pair_caps_[:-1],
+            result_cap=pair_caps_[-1], score=score,
+            fused_level=fused_level if fused else None, n_streams=2,
+            device=to.device)
+
+        def fn():
+            res, counts, ctr = run(ctx)
+            pairs = torch.stack([res[0][0], res[1][0]], dim=1)
+            return pairs, counts[0], ctr
+        return fn
+
+    if pair_caps is not None:
+        return build(pair_caps)
+    fanout = max(to.fanout, ti.fanout)
+    full = default_pair_caps(h, fanout, result_cap)
+    if caps_mode == "static":
+        return build(full)
+    # pair_caps[i] bounds the pair frontier at level h-2-i (the children of
+    # the level scored at step i), so the adaptive clamp at e = h-1-i needs
+    # the pair count one level finer: sizes[e] = pairs(e-1); the final
+    # e = 0 step is the result-pair buffer, exempt from the clamp
+    pc = reachable_pair_counts(to, ti)
+    sizes = (pc[0],) + pc[:-1]
+    tight = default_pair_caps(h, fanout, result_cap, level_sizes=sizes,
+                              policy="adaptive")
+    return traversal.maybe_escalating(build, tight, full)
+
+
+JOIN_SPEC = traversal.register(traversal.OperatorSpec(
+    name="join", kind="mask",
+    stage_model=StageModel(inner=4, leaf=4, fused=2),
+    builder=make_join_bfs, caps_policy=default_pair_caps, query_width=None,
+    leaf_enqueue=True,
+    description="nested-index spatial join: pair-frontier tile predicate "
+                "with O3/O4/O5 sorted-key pruning, pair compress-store "
+                "emission"))
+
+
+def join_instruction_model(fanout: int, n_pairs: int, alive_outer: int,
+                           flip_sum: int, inner_count_sum: int,
+                           w: int = 16, stages: int = 4) -> dict:
+    """Modeled SIMD-instruction counts for the paper's two join approaches
+    (paper §4.2 cost analysis), parametric in vector width W.
+
+    one-to-many : per pair, ``n_out,c`` broadcasts and
+                  ``n_out,c * ceil(n_in,c / W)`` compares per stage.
+    many-to-many: ``ceil(n_out,c / W) * (log2 F + 1)`` compares (+ a gather
+                  and two blends each) for the first stage, then the
+                  remaining stages on flip-qualified entries only.
+    """
+    log_f = int(math.ceil(math.log2(max(fanout, 2)))) + 1
+    o2m_compares = alive_outer * -(-fanout // w) * stages
+    o2m_broadcasts = alive_outer * stages
+    o2m_o4_compares = -(-flip_sum // w) * stages  # lower bound, batched rows
+    m2m_first = n_pairs * -(-fanout // w) * log_f
+    m2m_rest = -(-flip_sum // w) * (stages - 1)
+    return dict(
+        o2m_compares=int(o2m_compares),
+        o2m_broadcasts=int(o2m_broadcasts),
+        o2m_o4_compares=int(o2m_o4_compares + o2m_broadcasts),
+        m2m_compares=int(m2m_first + m2m_rest),
+        m2m_gathers=int(m2m_first),
+        m2m_blends=int(2 * m2m_first),
+    )

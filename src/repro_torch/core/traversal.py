@@ -12,7 +12,7 @@ shares (the reference's ``core/traversal.py``).
                            every step a tensor op on the tree's device.
   ``make_escalating_engine`` — the two-tier overflow-escalating runner.
 
-This slice registers the select spec only; the distance engine (kNN),
+The select and join specs are registered; the distance engine (kNN),
 browse and the mesh engine arrive with their slices.
 """
 from __future__ import annotations
@@ -70,6 +70,7 @@ _REGISTRY: Dict[str, OperatorSpec] = {}
 # is complete whenever it is consulted, without import cycles
 _OPERATOR_MODULES = (
     "repro_torch.core.select_vector",
+    "repro_torch.core.join_vector",
 )
 
 
@@ -104,7 +105,7 @@ def build(name: str, *trees, **params):
 
 
 # ---------------------------------------------------------------------------
-# Mask-kind engine (range select)
+# Mask-kind engine (range select, spatial join)
 # ---------------------------------------------------------------------------
 
 def _apply_delta(acc: dict, delta: Optional[dict], *, fcnt, f, stages, hits):
@@ -127,25 +128,33 @@ def _apply_delta(acc: dict, delta: Optional[dict], *, fcnt, f, stages, hits):
 
 def make_mask_engine(spec: OperatorSpec, *, height: int,
                      caps: Sequence[int], result_cap: int, score,
-                     fused_level=None):
+                     fused_level=None, n_streams: int = 1,
+                     device=None):
     """Build the level loop for a mask operator.
 
-    ``score(ctx, li, frontier, qargs)`` → (mask (B, M) bool, values — a
-    tuple of (B, M) int32 to compact under the mask, f, stages, delta).
-    ``fused_level(ctx, li, frontier, qargs, cap)`` → the whole-level
-    alternative: (values — tuple of (B, cap), qcnt (B,), overflow (B,), f,
-    stages, delta); the engine then only routes compacted frontiers.
-    Returns ``run(ctx, *qargs)`` → (values, counts, Counters).  The loop
-    reads nothing back to the host.
+    ``score(ctx, li, frontier, qargs)`` → (mask (B, M) bool, values — an
+    ``n_streams``-tuple of (B, M) int32 to compact under the mask, f,
+    stages, delta).  ``fused_level(ctx, li, frontier, qargs, cap)`` → the
+    whole-level alternative: (values — tuple of (B, cap), qcnt (B,),
+    overflow (B,), f, stages, delta); the engine then only routes
+    compacted frontiers.  Returns ``run(ctx, *qargs)`` → (values, counts,
+    Counters).  A query-less operator (the join) calls ``run(ctx)``: the
+    batch is then 1 and the engine works on ``device``.  The loop reads
+    nothing back to the host.
     """
     caps = tuple(caps)
     sm = spec.stage_model
 
     def run(ctx, *qargs):
-        q = qargs[0]
-        b, dev = q.shape[0], q.device
+        if qargs:
+            b, dev = qargs[0].shape[0], qargs[0].device
+        elif device is None:
+            raise ValueError("a query-less mask engine needs its device")
+        else:
+            b, dev = 1, device
         i32 = dict(dtype=torch.int32, device=dev)
-        frontier = (torch.zeros((b, 1), **i32),)        # root
+        frontier = tuple(torch.zeros((b, 1), **i32)
+                         for _ in range(n_streams))     # root
         acc = {k: torch.zeros((), **i32) for k in
                ("nodes_visited", "predicates", "vector_ops", "masked_waste",
                 "pruned_outer", "pruned_inner")}

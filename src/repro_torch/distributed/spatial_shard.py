@@ -8,14 +8,16 @@ slabs, then by y within each slab — every partition is a contiguous spatial
 tile holding ~N/P rects, so most range queries touch few partitions (the
 partition MBRs act as a replicated, tiny "root router" level).  Select rows
 merge by sorted global id, an order with no dependence on partition
-placement.
+placement.  The spatial join of a probe relation merges its (probe id,
+global data id) pairs by a lexicographic sort on the host.
 
 The single-program mesh path arrives with the fleet slice (ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import time
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,8 @@ class SpatialShards:
         self._engines = {}
         # summed Counters of the last batch over the partitions it touched
         self.last_counters = None
+        # host seconds of the last join's (K, 2) lexsort merge
+        self.last_merge_s = 0.0
 
     @classmethod
     def build(cls, rects: np.ndarray, n_partitions: int, fanout: int = 64,
@@ -144,15 +148,69 @@ class SpatialShards:
                 np.empty((0,), np.int64) for r in results]
 
     # ------------------------------------------------------------------
+    # spatial join (probe rects × partitioned data)
+    # ------------------------------------------------------------------
+
+    def join(self, probe, result_cap: int = 1 << 17, o3: bool = False,
+             o4: bool = False) -> Tuple[np.ndarray, bool]:
+        """Distributed spatial join of a probe relation against the
+        partitioned data: returns ((K, 2) int64 pairs (probe id, global
+        data id) sorted lexicographically, overflow flag).  ``probe`` is a
+        (M, 4) rect array or a pre-built RTree on the fleet's device (its
+        rect order defines the probe ids).  ``o3``/``o4`` enable the
+        sorted-key pruning — both the probe tree and the partition trees
+        must then be built with ``sort_key='lx'``."""
+        params = dict(result_cap=result_cap, o3=o3, o4=o4,
+                      layout=self.layout)
+        probe_tree = probe if isinstance(probe, rtree.RTree) else \
+            rtree.build_rtree(np.asarray(probe, np.float32),
+                              fanout=self.fanout,
+                              sort_key="lx" if (o3 or o4) else None,
+                              device=self.partitions[0].tree.device)
+        rows = []
+        ovf = False
+        acc = None
+        for pi, part in enumerate(self.partitions):
+            # join engines close over BOTH trees, so the cache entry is
+            # valid only for the same probe-tree object
+            key = ("join", pi, tuple(sorted(params.items())))
+            cached = self._engines.get(key)
+            if cached is None or cached[0] is not probe_tree:
+                cached = (probe_tree, traversal.build(
+                    "join", probe_tree, part.tree, **params))
+                self._engines[key] = cached
+            pr, n_pairs, ctr = cached[1]()
+            acc = ctr if acc is None else acc + ctr
+            pr = pr[:int(n_pairs)].cpu().numpy()
+            rows.append(np.stack([pr[:, 0], part.ids[pr[:, 1]]], axis=1))
+            ovf |= bool(int(ctr.overflow))
+        if acc is not None:
+            self.last_counters = acc
+        t0 = time.perf_counter()
+        cat = np.concatenate(rows).astype(np.int64) if rows else \
+            np.empty((0, 2), np.int64)
+        out = cat[np.lexsort((cat[:, 1], cat[:, 0]))]
+        self.last_merge_s = time.perf_counter() - t0
+        return out, ovf
+
+    # ------------------------------------------------------------------
     # warmup
     # ------------------------------------------------------------------
 
-    def warm(self, op: str, batch: int, result_cap: int = 4096) -> None:
+    def warm(self, op: str, batch: int, result_cap: int = 4096,
+             probe=None, **op_params) -> None:
         """Build operator ``op``'s engines and run each once at every
         power-of-two bucket up to ``batch`` (routed subsets can land in any
         bucket ≤ the full batch's), so a serving loop pays no kernel build
-        or first-launch cost."""
-        spec = traversal.get_spec(op)        # select is the one ported op
+        or first-launch cost.  ``join`` warms by one join of ``probe``
+        (rects or RTree) with ``op_params`` — its engines close over the
+        probe tree."""
+        spec = traversal.get_spec(op)
+        if op == "join":
+            if probe is None:
+                raise ValueError("join warmup needs the probe relation")
+            self.join(probe, result_cap=result_cap, **op_params)
+            return
         buckets = []
         bucket = 1 << (max(batch, 1) - 1).bit_length()
         while bucket >= 1:

@@ -6,7 +6,8 @@ root of the checkout, and is loaded with ``ctypes``.  A library's file name
 carries a hash of its source and flags, so a stale build is never loaded.
 Building happens at first use (``load``), never at import, so the package
 imports on machines without ``nvcc``; ``build_all`` starts one ``nvcc`` per
-source, all together, and waits for them.
+source, all together, and waits for them.  ``launch`` calls an entry point
+on the current CUDA stream and raises if the launch was refused.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -81,3 +82,17 @@ def load(name: str) -> ctypes.CDLL:
             path = build_all([name])[name]
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def launch(lib: str, name: str, argtypes: Sequence, *args) -> None:
+    """Call entry point ``name`` of ``csrc/<lib>.cu`` with ``args`` (typed
+    by ``argtypes``) and the current CUDA stream; raise if it returns a
+    CUDA error."""
+    import torch
+    f = getattr(load(lib), name)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes) + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    err = f(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from . import rtree_join as _join
 from . import rtree_select as _select
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -41,6 +42,10 @@ _KERNELS = {
                           _select.select_level_masks_cuda),
     ("select", "fused"): (_ref.select_level_fused_ref,
                           _select.select_level_fused_cuda),
+    ("join", "score"): (_ref.join_pair_masks_ref,
+                        _join.join_pair_masks_cuda),
+    ("join", "fused"): (_ref.join_level_fused_ref,
+                        _join.join_level_fused_cuda),
 }
 
 
@@ -67,3 +72,53 @@ def select_level_fused(ids, queries, lx, ly, hx, hy, child, *, cap: int,
     counts (B,), overflow (B,)) — compact_rows' contract, in one step."""
     return kernel_call("select", "fused", ids, queries, lx, ly, hx, hy,
                        child, cap=cap, backend=backend)
+
+
+def join_pair_masks(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords,
+                    to: int = 8, ti: int = 128, backend: str = "auto"):
+    """Pair-frontier tile masks: (P,) × (P,) node ids → (P, F_o, F_i)
+    int32."""
+    return kernel_call("join", "score", o_ids, i_ids, alive_cnt, flip_max,
+                       o_coords, i_coords, to=to, ti=ti, backend=backend)
+
+
+def join_level_fused(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords,
+                     o_ptr, i_ptr, *, cap: int, to: int = 8,
+                     backend: str = "auto"):
+    """Fused join level: pair frontier → (out_o (cap,), out_i (cap,), count,
+    overflow) — compact_pairs' contract, in one step."""
+    return kernel_call("join", "fused", o_ids, i_ids, alive_cnt, flip_max,
+                       o_coords, i_coords, o_ptr, i_ptr, cap=cap, to=to,
+                       backend=backend)
+
+
+def join_prune_metadata(o_ids, i_ids, o_coords, i_coords, *, to: int = 8,
+                        o3: bool = True, o45: bool = True):
+    """The pruning bounds of the join kernels, in plain tensor ops (an XLA
+    pre-pass in the reference, not a kernel).
+
+    alive_cnt[p] — #leading outer children with low_x <= max inner high_x
+                   (monotone under the sort, so a count == the O3 slice).
+    flip_max[p,a] — max over the outer tile's rows of the flip index
+                   (#inner children with low_x <= outer high_x).
+    """
+    so, si = o_ids.clamp(min=0).long(), i_ids.clamp(min=0).long()
+    oc, ic = o_coords[so], i_coords[si]
+    p, _, fo = oc.shape
+    fi = ic.shape[2]
+    to_ = min(to, fo)
+    na = fo // to_
+    i32 = dict(dtype=torch.int32, device=o_ids.device)
+    if o3:
+        max_ihx = ic[:, 2].amax(dim=1)                          # (P,)
+        alive_cnt = (oc[:, 0] <= max_ihx[:, None]).sum(dim=1,
+                                                       dtype=torch.int32)
+    else:
+        alive_cnt = torch.full((p,), fo, **i32)
+    if o45:
+        flip = (ic[:, 0][:, None, :] <= oc[:, 2][:, :, None]).sum(
+            -1, dtype=torch.int32)
+        flip_max = flip.reshape(p, na, to_).amax(dim=2)
+    else:
+        flip_max = torch.full((p, na), fi, **i32)
+    return alive_cnt, flip_max

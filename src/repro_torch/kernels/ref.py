@@ -1,16 +1,17 @@
-"""Plain PyTorch twins of the select kernels (the reference's
-``kernels/ref.py`` entries for B1 and B2).
+"""Plain PyTorch twins of the select and join kernels (the reference's
+``kernels/ref.py`` entries for B1–B4).
 
 Each twin has its kernel's contract exactly — same shapes, dtypes and
 padding — and runs on any device.  The CPU tests hold them against the
 JAX package; ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.  Both kernels are compares only, so twin and kernel agree exactly.
+card.  All four kernels are compares and integer arithmetic only, so twin
+and kernel agree exactly.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.compaction import compact_rows
+from ..core.compaction import compact_pairs, compact_rows
 from ..core.geometry import intersects
 
 
@@ -38,3 +39,50 @@ def select_level_fused_ref(ids, queries, lx, ly, hx, hy, child, *, cap: int):
                                   child).to(torch.bool)
     ptr = child[ids.clamp(min=0).long()]
     return compact_rows(ptr.reshape(b, -1), mask.reshape(b, -1), cap)
+
+
+def join_pair_masks_ref(o_ids, i_ids, alive_cnt, flip_max, o_coords,
+                        i_coords, *, to: int = 8, ti: int = 128):
+    """Twin of ``join_pair_masks_cuda``: (P,) outer × (P,) inner node ids
+    over (N, 4, F) D1 coords → (P, F_out, F_in) int32 intersect tiles,
+    with the O3/O4/O5 tile skip: tile (a, b) is zero unless
+    ``a*to < alive_cnt[p]`` and ``b*ti < flip_max[p, a]``."""
+    fo, fi = o_coords.shape[2], i_coords.shape[2]
+    to, ti = min(to, fo), min(ti, fi)
+    so, si = o_ids.clamp(min=0).long(), i_ids.clamp(min=0).long()
+    oc, ic = o_coords[so], i_coords[si]             # (P, 4, F)
+    m = (oc[:, 0, :, None] <= ic[:, 2, None, :]) & \
+        (oc[:, 2, :, None] >= ic[:, 0, None, :]) & \
+        (oc[:, 1, :, None] <= ic[:, 3, None, :]) & \
+        (oc[:, 3, :, None] >= ic[:, 1, None, :])
+    valid = ((o_ids >= 0) & (i_ids >= 0))[:, None, None]
+    a_idx = torch.arange(fo, device=o_ids.device) // to          # (F_out,)
+    b_idx = torch.arange(fi, device=o_ids.device) // ti          # (F_in,)
+    a_active = (a_idx[None, :] * to) < alive_cnt[:, None]        # (P, F_out)
+    fm = flip_max[:, a_idx]                                      # (P, F_out)
+    b_active = (b_idx[None, None, :] * ti) < fm[:, :, None]      # (P,Fo,Fi)
+    return (m & valid & a_active[:, :, None] & b_active).to(torch.int32)
+
+
+def join_level_fused_ref(o_ids, i_ids, alive_cnt, flip_max, o_coords,
+                         i_coords, o_ptr, i_ptr, *, cap: int, to: int = 8):
+    """Twin of ``join_level_fused_cuda``: the tile masks (inner tile width
+    pinned to the kernel's ``min(128, F_in)``) AND child-pointer validity,
+    then the pair compress-store over the flat (P·F_out·F_in) lanes →
+    (out_o (cap,), out_i (cap,), count () int32 (may exceed cap),
+    overflow () bool) — ``compact_pairs``' contract."""
+    m = join_pair_masks_ref(o_ids, i_ids, alive_cnt, flip_max, o_coords,
+                            i_coords, to=to,
+                            ti=min(128, i_coords.shape[2])).to(torch.bool)
+    so, si = o_ids.clamp(min=0).long(), i_ids.clamp(min=0).long()
+    optr, iptr = o_ptr[so], i_ptr[si]               # (P, Fo), (P, Fi)
+    pv = (o_ids >= 0) & (i_ids >= 0)
+    m = m & ((optr >= 0) & pv[:, None])[:, :, None] \
+          & ((iptr >= 0) & pv[:, None])[:, None, :]
+    p, fo = optr.shape
+    fi = iptr.shape[1]
+    av = optr[:, :, None].expand(p, fo, fi)
+    bv = iptr[:, None, :].expand(p, fo, fi)
+    oa, ob, cnt, ovf = compact_pairs(av.reshape(1, -1), bv.reshape(1, -1),
+                                     m.reshape(1, -1), cap)
+    return oa[0], ob[0], cnt[0], ovf[0]

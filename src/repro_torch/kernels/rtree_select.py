@@ -22,9 +22,9 @@ from . import _build
 
 _LIB = "rtree_select"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "rtree_select_masks": [_P] * 8 + [_I] * 3 + [_P],
-    "rtree_select_fused": [_P] * 9 + [_I] * 4 + [_P],
+_ARGTYPES = {                           # the stream pointer is appended
+    "rtree_select_masks": [_P] * 8 + [_I] * 3,
+    "rtree_select_fused": [_P] * 9 + [_I] * 4,
 }
 
 # launches per kernel since the last reset (plain integers)
@@ -39,14 +39,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
-
-
-def _fn(name: str):
-    f = getattr(_build.load(_LIB), name)
-    if f.argtypes is None:
-        f.argtypes = _ARGTYPES[name]
-        f.restype = ctypes.c_int
-    return f
 
 
 def _check(ids, queries, lx, ly, hx, hy, child):
@@ -86,22 +78,17 @@ def _check(ids, queries, lx, ly, hx, hy, child):
     return b, c, lx.shape[1]
 
 
-def _launch(name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _fn(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def select_level_masks_cuda(ids, queries, lx, ly, hx, hy, child):
     """Kernel B1: (B, C) int32 ids (-1 pad) × (B, 4) float32 queries over
     (N, F) SoA rows → (B, C, F) int32 qualify mask."""
     b, c, f = _check(ids, queries, lx, ly, hx, hy, child)
     with torch.cuda.device(ids.device):
         mask = torch.empty((b, c, f), dtype=torch.int32, device=ids.device)
-        _launch("rtree_select_masks", ids.data_ptr(), queries.data_ptr(),
-                lx.data_ptr(), ly.data_ptr(), hx.data_ptr(), hy.data_ptr(),
-                child.data_ptr(), mask.data_ptr(), b, c, f)
+        _build.launch(_LIB, "rtree_select_masks",
+                      _ARGTYPES["rtree_select_masks"], ids.data_ptr(),
+                      queries.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                      hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
+                      mask.data_ptr(), b, c, f)
     _launches["select_level_masks"] += 1
     return mask
 
@@ -118,9 +105,10 @@ def select_level_fused_cuda(ids, queries, lx, ly, hx, hy, child, *,
     with torch.cuda.device(ids.device):
         out = torch.empty((b, cap), dtype=torch.int32, device=ids.device)
         counts = torch.empty((b,), dtype=torch.int32, device=ids.device)
-        _launch("rtree_select_fused", ids.data_ptr(), queries.data_ptr(),
-                lx.data_ptr(), ly.data_ptr(), hx.data_ptr(), hy.data_ptr(),
-                child.data_ptr(), out.data_ptr(), counts.data_ptr(), b, c, f,
-                cap)
+        _build.launch(_LIB, "rtree_select_fused",
+                      _ARGTYPES["rtree_select_fused"], ids.data_ptr(),
+                      queries.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                      hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
+                      out.data_ptr(), counts.data_ptr(), b, c, f, cap)
     _launches["select_level_fused"] += 1
     return out, counts, counts > cap

@@ -1,15 +1,18 @@
 """Spatial query service of the port: builds a spatially-partitioned
 index fleet on the device (distributed/spatial_shard.py) and serves batched
-range-select requests behind the straggler pool (runtime/straggler.py).
+range-select requests behind the straggler pool (runtime/straggler.py), or
+spatial joins of a probe relation against the fleet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 200000 \\
         --partitions 8 --batches 20 --batch-size 64 --selectivity 0.001
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode join \\
+        --n 200000 --join-cap 131072 --query-eps 0.002
 
-Runs on ``cuda`` (the CUDA select kernels) unless ``--device cpu`` is given
-(the plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
-raises.  ``--mode spatial`` (the default) and its alias ``select`` are
-ported; the other modes of the reference exit with a "not ported yet"
-message naming their ROADMAP item.
+Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
+plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
+raises.  ``--mode spatial`` (the default), its alias ``select``, and
+``join`` are ported; the other modes of the reference exit with a "not
+ported yet" message naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..core import str_pack, traversal
+from ..core import rtree, str_pack, traversal
 from ..core.layouts import layout_names
 from ..distributed.spatial_shard import SpatialShards
 from ..runtime.straggler import ShardPool
@@ -28,11 +31,12 @@ from ..runtime.straggler import ShardPool
 MODE_TO_SPEC = {
     "spatial": "select",
     "select": "select",
+    "join": "join",
 }
 
 # modes of the reference that later slices port
 NOT_PORTED = {
-    "join": "A6", "knn": "A7", "knn-join": "A8", "knn-filtered": "A10",
+    "knn": "A7", "knn-join": "A8", "knn-filtered": "A10",
     "browse": "A10", "lm": "A14",
 }
 
@@ -43,6 +47,18 @@ def make_rects(n: int, seed: int) -> np.ndarray:
     return str_pack.points_to_rects(rng.random((n, 2), dtype=np.float32))
 
 
+def make_join_inputs(n: int, seed: int, eps: float):
+    """The served dataset and the join's probe relation, as the reference
+    draws them from one generator: ``make_rects``'s ``n`` data points
+    first, then ``max(n // 10, 64)`` probe points widened to rects of
+    half-extent ``eps``.  Returns (rects, probes)."""
+    rng = np.random.default_rng(seed)
+    rects = str_pack.points_to_rects(rng.random((n, 2), dtype=np.float32))
+    probe_pts = rng.random((max(n // 10, 64), 2), dtype=np.float32)
+    e = np.float32(eps)
+    return rects, np.concatenate([probe_pts - e, probe_pts + e], axis=-1)
+
+
 def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
     rng = np.random.default_rng(seed)
     side = float(np.sqrt(selectivity))
@@ -50,14 +66,14 @@ def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
     return np.concatenate([lo, lo + side], axis=-1)
 
 
-def _build_shards(args):
-    rects = make_rects(args.n, args.seed)
+def _build_shards(args, rects, sort_key=None):
     t0 = time.time()
     shards = SpatialShards.build(rects, args.partitions, fanout=args.fanout,
-                                 layout=args.layout, device=args.device)
+                                 sort_key=sort_key, layout=args.layout,
+                                 device=args.device)
     print(f"built {len(shards.partitions)} partitions over {args.n} rects "
           f"on {args.device} in {time.time() - t0:.2f}s")
-    return rects, shards
+    return shards
 
 
 def _serve_select(args, spec):
@@ -65,7 +81,7 @@ def _serve_select(args, spec):
     the pool never re-issues; its deadline and failure stats still
     apply).  Returns q/s, the total result rows and the first batch's
     results (per-query sorted global ids)."""
-    _, shards = _build_shards(args)
+    shards = _build_shards(args, make_rects(args.n, args.seed))
     qs = make_queries(args.batches, args.batch_size, args.selectivity,
                       args.seed + 1)
     shards.warm("select", args.batch_size)
@@ -87,8 +103,41 @@ def _serve_select(args, spec):
     return {"qps": qps, "results": total, "first_batch": first}
 
 
+def _serve_join(args, spec):
+    """Spatial-join service: the probe relation joined against the
+    partitioned data fleet, one pair engine per partition, with the O3/O4
+    sorted-key pruning (fleet and probe tree built with sort_key='lx').
+    Returns joins/s, the total pair rows, the overflow flag, and the last
+    join's (K, 2) (probe id, global data id) pairs."""
+    rects, probes = make_join_inputs(args.n, args.seed, args.query_eps)
+    shards = _build_shards(args, rects, sort_key="lx")
+    probe_tree = rtree.build_rtree(probes, fanout=args.fanout, sort_key="lx",
+                                   device=args.device)
+    shards.warm("join", args.batch_size, probe=probe_tree,
+                result_cap=args.join_cap, o3=True, o4=True)
+    t0 = time.time()
+    total = 0
+    overflowed = False
+    merge_s = 0.0
+    for _ in range(args.batches):
+        pairs, ovf = shards.join(probe_tree, result_cap=args.join_cap,
+                                 o3=True, o4=True)
+        total += len(pairs)
+        overflowed |= ovf
+        merge_s += shards.last_merge_s
+    dt = time.time() - t0
+    jps = args.batches / dt
+    print(f"served {args.batches} joins × {len(probes)} probes in {dt:.2f}s "
+          f"→ {jps:,.2f} joins/s, {total} pair rows, host merge "
+          f"{merge_s:.2f}s ({merge_s / dt:.1%})"
+          + (", WARNING: pair-frontier overflow" if overflowed else ""))
+    return {"joins_per_s": jps, "pairs": total, "overflow": overflowed,
+            "merge_s": merge_s, "last_pairs": pairs}
+
+
 RUNNERS = {
     "select": _serve_select,
+    "join": _serve_join,
 }
 
 
@@ -104,6 +153,10 @@ def main(argv=None):
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--selectivity", type=float, default=0.001)
+    ap.add_argument("--join-cap", type=int, default=1 << 17,
+                    help="result-pair capacity (join mode)")
+    ap.add_argument("--query-eps", type=float, default=0.002,
+                    help="half-extent of the probe rects (join mode)")
     ap.add_argument("--deadline", type=float, default=5.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -126,6 +179,7 @@ def main(argv=None):
         args.fanout = min(args.fanout, 16)
         args.batches = min(args.batches, 2)
         args.batch_size = min(args.batch_size, 8)
+        args.join_cap = min(args.join_cap, 1 << 15)
         # slow shared smoke boxes: a lapsed deadline would only add
         # spurious re-issue work, never find a bug
         args.deadline = max(args.deadline, 60.0)

@@ -5,15 +5,17 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-B1 and B2 are held against their plain PyTorch twins, and the engine on the
-card against the engine on the CPU.  Compares only, so everything is exact.
+B1–B4 are held against their plain PyTorch twins, and the select and join
+engines on the card against the same engines on the CPU.  Compares and
+integer arithmetic only, so everything is exact.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import rtree, select_vector
-from repro_torch.kernels import ref
+from repro_torch.core import join_vector, layouts, rtree, select_vector
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rtree_join as jkern
 from repro_torch.kernels import rtree_select as kern
 
 from conftest import uniform_rects
@@ -80,3 +82,72 @@ def test_cuda_engine_equals_cpu_engine(inst, fused):
     np.testing.assert_array_equal(cc.cpu().numpy(), tc.numpy())
     assert ct.asdict() == tt.asdict()
     assert int(ct.overflow) == 1           # the big queries overflow 128
+
+
+@pytest.fixture(scope="module")
+def join_inst():
+    rng = np.random.default_rng(7)
+    return (uniform_rects(rng, 2500, eps=0.01),
+            uniform_rects(rng, 400, eps=0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pruned", [False, True])
+def test_cuda_join_kernels_equal_twins(join_inst, pruned):
+    """B3 and B4 ≡ twins on every level, with frontiers of all node pairs
+    (shuffled, 10% of slots -1) and the pruning bounds either from the
+    pre-pass or random; B4 also at a cap that overflows."""
+    dev = _need_gpu()
+    trees = [rtree.build_rtree(r, fanout=16, sort_key="lx", device=dev)
+             for r in join_inst]
+    lo, li_ = (layouts.tree_layout(t, "d1") for t in trees)
+    rng = np.random.default_rng(int(pruned))
+    for lvl in range(trees[0].height):
+        no, ni = lo[lvl].coords.shape[0], li_[lvl].coords.shape[0]
+        o, i = np.meshgrid(np.arange(no), np.arange(ni), indexing="ij")
+        perm = rng.permutation(o.size)
+        o, i = o.ravel()[perm].astype(np.int32), i.ravel()[perm].astype(
+            np.int32)
+        o[rng.random(o.size) < 0.1] = -1
+        i[rng.random(i.size) < 0.1] = -1
+        o, i = torch.from_numpy(o).to(dev), torch.from_numpy(i).to(dev)
+        oc, icr = lo[lvl].coords, li_[lvl].coords
+        if pruned:
+            ac, fm = ops.join_prune_metadata(o, i, oc, icr, to=8)
+        else:
+            ac = torch.from_numpy(rng.integers(-1, 19, o.numel()).astype(
+                np.int32)).to(dev)
+            fm = torch.from_numpy(rng.integers(-1, 19, (o.numel(), 2))
+                                  .astype(np.int32)).to(dev)
+        before = jkern.launch_counts()
+        np.testing.assert_array_equal(
+            jkern.join_pair_masks_cuda(o, i, ac, fm, oc, icr).cpu().numpy(),
+            ref.join_pair_masks_ref(o, i, ac, fm, oc, icr).cpu().numpy())
+        for cap in (1 << 16, 7):
+            args = (o, i, ac, fm, oc, icr, lo[lvl].ptr, li_[lvl].ptr)
+            got = jkern.join_level_fused_cuda(*args, cap=cap)
+            want = ref.join_level_fused_ref(*args, cap=cap)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(),
+                                              w.cpu().numpy())
+            assert bool(got[3]) == (int(want[2]) > cap)
+        after = jkern.launch_counts()
+        assert after["join_pair_masks"] == before["join_pair_masks"] + 1
+        assert after["join_level_fused"] == before["join_level_fused"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("o34", [False, True])
+def test_cuda_join_engine_equals_cpu_engine(join_inst, fused, o34):
+    dev = _need_gpu()
+    outs = []
+    for device in (dev, "cpu"):
+        trees = [rtree.build_rtree(r, fanout=16, sort_key="lx",
+                                   device=device) for r in join_inst]
+        outs.append(join_vector.make_join_bfs(
+            *trees, o3=o34, o4=o34, fused=fused)())
+    (cp, cn, ct), (tp, tn, tc) = outs
+    np.testing.assert_array_equal(cp.cpu().numpy(), tp.numpy())
+    assert int(cn) == int(tn) > 0
+    assert ct.asdict() == tc.asdict()

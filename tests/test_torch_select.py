@@ -148,7 +148,7 @@ def test_generic_build_equals_wrapper(inst):
     for x, y in zip(a[:2], b[:2]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert a[2].asdict() == b[2].asdict()
-    assert ttraversal.spec_names() == ("select",)
+    assert ttraversal.spec_names() == ("join", "select")
 
 
 def test_escalation_equals_reference():
