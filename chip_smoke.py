@@ -39,7 +39,25 @@ Phases, each of which fails the run loudly:
 8. join serve: ``serve.main(["--mode", "join", ...])`` at 2M points with
    ``--join-cap 1048576`` on cuda; B3's launch count must grow, nothing
    may overflow, 256 sampled probes against brute force; joins/s and the
-   host merge's share.
+   host merge's share;
+9. kNN kernels: on every level of the phase-3 tree, with 64 frontiers of
+   a real descent of the first served query batch (columns shuffled, 10%
+   of slots -1), for k in {1, 8, 64}: B5 (``knn_level_dists_cuda``, both
+   variants), B6 (``knn_level_fused_cuda``, tightening on and off, random
+   τ_in) and B7 (``knn_leaf_fused_cuda``) against their twins bit for bit,
+   plus a B6 cap that overflows; at the k = 8 leaf step (B6 at the last
+   internal step) the kernels' device time per launch (torch.profiler),
+   their time per call with the wrapper and the twins' (CUDA events),
+   beside the bound;
+10. kNN engine: ``make_knn_bfs`` on that batch, k = 8 in the four cells
+   static/adaptive × unfused/fused and k = 64 static unfused/fused, against
+   the twin engine on the card (ids, distance bits, every counter) and the
+   reference's numbers for this input; k = 1 adaptive escalates once; 8
+   queries against numpy brute force; B5 launches grow in the unfused
+   cells, B6 and B7 in the fused ones; ms per 64-query batch;
+11. kNN serve: ``serve.main(["--mode", "knn", ...])`` at 2M points with
+   k = 8 on cuda; B5's launch count must grow, nothing may overflow, the
+   first batch against a float64 brute force on the card; q/s.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -68,6 +86,29 @@ JOIN_CAP, QUERY_EPS, CENTRE = 1 << 20, 0.002, 4
 JOIN_PAIRS, JOIN_LIVE = 720_914, [1, 110, 8045]
 JOIN_O34 = dict(predicates=33_317_712, pruned_outer=170_740,
                 pruned_inner=14_086_858)
+KNN_K, KNN_BATCHES = 8, 20
+# the reference's numbers for the first served kNN batch (64 queries) on
+# the phase-3 tree: the JAX package's make_knn_bfs(backend="xla"), equal in
+# both caps tiers and fused or not; padded slots per tier
+KNN_REF = {
+    8: dict(counters=dict(nodes_visited=2_331, predicates=983_552,
+                          vector_ops=15_368, enqueued=2_267,
+                          pruned_inner=86_117, masked_waste=8_320),
+            live=[64, 576, 871, 820],
+            padded={"static": [0, 7616, 7321, 7372],
+                    "adaptive": [0, 0, 1177, 1228]},
+            ids_sum=500_525_860, d_sum=0.0003939492196707306),
+    64: dict(counters=dict(nodes_visited=10_193, predicates=3_990_528,
+                           vector_ops=62_352, enqueued=10_129,
+                           pruned_inner=321_775, masked_waste=13_376),
+             live=[64, 576, 4755, 4798],
+             padded={"static": [0, 7616, 3437, 11586],
+                     "adaptive": [0, 0, 11629, 11586]},
+             ids_sum=4_024_399_365, d_sum=0.022336982976781883),
+}
+# operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
+# selects, products and FMAs counted one each)
+MINDIST_OPS, MINMAXDIST_OPS = 13, 29
 
 
 def fail(msg: str) -> None:
@@ -122,6 +163,32 @@ def host_ms(fn, iters: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_ms(fn, names, iters: int = 20):
+    """Device ms per launch of the one kernel whose demangled name holds
+    every string of ``names``: the mean over the launches torch.profiler
+    records in ``iters`` calls of ``fn`` (one launch each; the profiler
+    may miss a few at its start); None when it saw no such kernel.  A
+    kernel shorter than its wrapper's host work cannot be timed with events
+    around back-to-back calls: the card would wait for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and all(n in e.name for n in names)]
+    if not times:
+        return None
+    check(len(times) <= iters, f"{names}: {len(times)} launches profiled "
+          f"for {iters} calls")
+    return sum(times) / len(times) / 1e3
+
+
 def profile_batches(fn, iters: int = 3, top: int = 6) -> str:
     """Device kernel time by name over ``iters`` calls of ``fn`` with
     torch.profiler, and the device's busy share of the host-clock window."""
@@ -165,6 +232,15 @@ def assert_equal(a, b, what: str) -> int:
     check(err == 0, f"{what}: kernel and twin differ in "
           f"{int((a != b).sum())} elements (max abs err {err})")
     return err
+
+
+def assert_bits_equal(a, b, what: str) -> int:
+    """``assert_equal`` on the bits: float32 tensors compare as int32, so
+    +inf, DIST_PAD and signed zeros must match exactly."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return assert_equal(a, b, what)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -536,6 +612,270 @@ def phase_join_serve(torch, dev, jkern, serve):
     return launches, out
 
 
+def knn_frontiers(torch, tree, points, k, caps, ref):
+    """Each level's (B, C) frontier of a real descent: the twin of the
+    fused engine's internal steps with the static caps."""
+    dev = tree.device
+    b, h = points.shape[0], tree.height
+    ids = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    tau = torch.full((b,), 3.0e38, dtype=torch.float32, device=dev)
+    frontiers = {}
+    for li in range(h - 1, -1, -1):
+        frontiers[li] = ids
+        if li:
+            lvl = tree.levels[li]
+            ids, tau, _, _ = ref.knn_level_fused_ref(
+                ids, points, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child, tau,
+                cap=caps[h - 1 - li], k=k,
+                tighten=ids.shape[1] * tree.fanout >= k)
+    return frontiers
+
+
+def phase_knn_kernels(torch, tree, points, kkern, ref, knn_vector):
+    """Phase 9: B5, B6 and B7 ≡ their twins, bit for bit, on every level of
+    a real descent for k in {1, 8, 64}; times at the k = 8 leaf step."""
+    dev = tree.device
+    b, h, f_ = points.shape[0], tree.height, tree.fanout
+    rng = np.random.default_rng(SEED + 13)
+    rows = {li: (lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
+            for li, lvl in enumerate(tree.levels)}
+    err = {"knn_level_dists": 0, "knn_level_fused": 0, "knn_leaf_fused": 0}
+
+    def hold(name, got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g is None or w is None:
+                check(g is None and w is None, f"{what} [{i}]: None")
+                continue
+            err[name] = max(err[name], assert_bits_equal(g, w,
+                                                         f"{what} [{i}]"))
+
+    descents = {}
+    for k in (1, 8, 64):
+        caps = knn_vector.knn_frontier_caps(tree, k)
+        descents[k] = knn_frontiers(torch, tree, points, k, caps, ref)
+        for li, ids in descents[k].items():
+            perm = torch.from_numpy(rng.permutation(ids.shape[1])).to(dev)
+            ids = ids[:, perm].contiguous()
+            drop = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1)
+            ids = torch.where(drop.to(dev), -1, ids)
+            tau = torch.from_numpy((rng.random(b) * 1e-4).astype(
+                np.float32)).to(dev)
+            cap = caps[h - 1 - li] if li else caps[-1]
+            for leaf in (False, True):
+                hold("knn_level_dists",
+                     kkern.knn_level_dists_cuda(ids, points, *rows[li],
+                                                leaf=leaf),
+                     ref.knn_level_dists_ref(ids, points, *rows[li],
+                                             leaf=leaf),
+                     f"B5 k={k} level {li} leaf={leaf}")
+            gates = (False, True) if ids.shape[1] * f_ >= k else (False,)
+            for tighten in gates:
+                kw = dict(cap=cap, k=k, tighten=tighten)
+                hold("knn_level_fused",
+                     kkern.knn_level_fused_cuda(ids, points, *rows[li], tau,
+                                                **kw),
+                     ref.knn_level_fused_ref(ids, points, *rows[li], tau,
+                                             **kw),
+                     f"B6 k={k} level {li} tighten={tighten}")
+            hold("knn_leaf_fused",
+                 kkern.knn_leaf_fused_cuda(ids, points, *rows[li], k=k),
+                 ref.knn_leaf_fused_ref(ids, points, *rows[li], k=k),
+                 f"B7 k={k} level {li}")
+            print(f"  k={k} level {li}: frontier {tuple(ids.shape)}, "
+                  f"{int((ids >= 0).sum())} live slots, cap {cap} — B5, "
+                  f"B6 (tighten {gates}), B7 bit-exact", flush=True)
+    # overflow: every valid leaf lane kept (no τ) into a cap of 16
+    ids = descents[64][0]
+    pad = torch.full((b,), 3.0e38, dtype=torch.float32, device=dev)
+    kw = dict(cap=16, k=64, tighten=False)
+    got = kkern.knn_level_fused_cuda(ids, points, *rows[0], pad, **kw)
+    hold("knn_level_fused", got,
+         ref.knn_level_fused_ref(ids, points, *rows[0], pad, **kw),
+         "B6 overflow")
+    check(bool((got[3] > 16).all()), "the cap-16 B6 case did not overflow")
+    print(f"  overflow case: cap 16, kept up to {int(got[3].max())} — B6 "
+          f"bit-exact", flush=True)
+
+    # times at the k = 8 leaf step of the descent (B6 at the last internal
+    # step, the largest it runs): the kernel's device time per launch from
+    # the profiler, and per call with the wrapper's host work from events
+    caps8 = knn_vector.knn_frontier_caps(tree, KNN_K)
+    out = []
+    for name, line, li, kernel, kfn, tfn in (
+            ("knn_level_dists", "src/repro/kernels/rtree_knn.py:105", 0,
+             ("knn_dists_kernel", "true>"),
+             lambda ids, tau: kkern.knn_level_dists_cuda(
+                 ids, points, *rows[0], leaf=True),
+             lambda ids, tau: ref.knn_level_dists_ref(
+                 ids, points, *rows[0], leaf=True)),
+            ("knn_level_fused", "src/repro/kernels/rtree_knn.py:454", 1,
+             ("knn_emit_kernel", "false>"),
+             lambda ids, tau: kkern.knn_level_fused_cuda(
+                 ids, points, *rows[1], tau, cap=caps8[-1], k=KNN_K,
+                 tighten=True),
+             lambda ids, tau: ref.knn_level_fused_ref(
+                 ids, points, *rows[1], tau, cap=caps8[-1], k=KNN_K,
+                 tighten=True)),
+            ("knn_leaf_fused", "src/repro/kernels/rtree_knn.py:467", 0,
+             ("knn_emit_kernel", "true>"),
+             lambda ids, tau: kkern.knn_leaf_fused_cuda(
+                 ids, points, *rows[0], k=KNN_K),
+             lambda ids, tau: ref.knn_leaf_fused_ref(
+                 ids, points, *rows[0], k=KNN_K))):
+        ids = descents[KNN_K][li]
+        tau = pad
+        c_ = ids.shape[1]
+        live = ids[ids >= 0]
+        uniq = int(torch.unique(live).numel())
+        n_lanes = live.numel() * f_
+        reads = ids.numel() * 4 + b * 8 + uniq * 20 * f_
+        if name == "knn_level_dists":
+            nbytes, ops_ = reads + b * c_ * f_ * 4, n_lanes * MINDIST_OPS
+        elif name == "knn_level_fused":
+            nbytes = reads + b * caps8[-1] * 4 + 12 * b
+            ops_ = n_lanes * (MINDIST_OPS + MINMAXDIST_OPS)
+        else:
+            nbytes, ops_ = reads + 8 * b * KNN_K + 4 * b, \
+                n_lanes * MINDIST_OPS
+        call_ms = cuda_ms(lambda: kfn(ids, tau), 50)
+        ms = device_ms(lambda: kfn(ids, tau), kernel)
+        if ms is None:
+            print(f"  {name}: the profiler saw no device time; timing "
+                  f"calls with events", flush=True)
+            ms = call_ms
+        plain_ms = cuda_ms(lambda: tfn(ids, tau), 5)
+        bound_ms, bound_by = bound(nbytes, ops_)
+        print(f"  {name}: k={KNN_K} level {li} (B={b}, C={c_}, F={f_}, "
+              f"{live.numel()} live slots, {uniq} distinct nodes): kernel "
+              f"{ms:.4f} ms on the device ({call_ms:.4f} ms per call with "
+              f"the wrapper), twin {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+              f"ms ({nbytes} bytes at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)",
+              flush=True)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/rtree_knn.cu",
+                        replaces=line, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None, max_abs_err=err[name]))
+    return out
+
+
+def check_knn_brute_force(torch, dev, rects, points, ids, d, what) -> None:
+    """Fail unless each query's sorted distances equal a float64 brute
+    force over all ``rects`` (computed on ``dev``) to rtol 1e-4, and its
+    ids are distinct and sit at their reported distances."""
+    r = torch.from_numpy(np.ascontiguousarray(rects)).to(dev).double()
+    for i, q in enumerate(points):
+        px, py = float(q[0]), float(q[1])
+        dx = torch.clamp(torch.maximum(r[:, 0] - px, px - r[:, 2]), min=0)
+        dy = torch.clamp(torch.maximum(r[:, 1] - py, py - r[:, 3]), min=0)
+        full = dx * dx + dy * dy
+        want = torch.topk(full, ids.shape[1], largest=False).values
+        want = want.cpu().numpy()
+        valid = ids[i] >= 0
+        got_ids = ids[i][valid]
+        ok = np.allclose(np.sort(d[i]), want, rtol=1e-4, atol=1e-9)
+        at = full[torch.from_numpy(got_ids.astype(np.int64)).to(dev)]
+        ok &= np.allclose(at.cpu().numpy(), d[i][valid], rtol=1e-4,
+                          atol=1e-9)
+        ok &= len(set(got_ids.tolist())) == int(valid.sum())
+        check(ok, f"{what}: query {i} differs from brute force")
+
+
+def phase_knn_engine(torch, tree, rects, points, kkern, knn_vector):
+    """Phase 10: the kNN engine cells ≡ the twin engine and the reference's
+    numbers; k = 1 adaptive escalates; 8 queries ≡ brute force."""
+    kkern.reset_launch_counts()
+    cells = {}
+    for k, caps_mode, fused in ((8, "static", False), (8, "static", True),
+                                (8, "adaptive", False),
+                                (8, "adaptive", True), (64, "static", False),
+                                (64, "static", True)):
+        cell = f"k={k} {caps_mode}/{'fused' if fused else 'unfused'}"
+        kw = dict(caps_mode=caps_mode, fused=fused)
+        fn = knn_vector.make_knn_bfs(tree, k, **kw)
+        twin = knn_vector.make_knn_bfs(tree, k, backend="torch", **kw)
+        before = kkern.launch_counts()
+        ids, d, ctr = fn(points)
+        torch.cuda.synchronize()
+        after = kkern.launch_counts()
+        grown = ("knn_level_fused", "knn_leaf_fused") if fused else \
+            ("knn_level_dists",)
+        for name in grown:
+            check(after[name] > before[name], f"{cell}: {name} not launched")
+        tids, td, tctr = twin(points)
+        assert_bits_equal(ids, tids, f"kNN engine {cell} ids")
+        assert_bits_equal(d, td, f"kNN engine {cell} dists")
+        got, want = ctr.asdict(), tctr.asdict()
+        check(got == want, f"kNN engine {cell} counters: {got} vs {want}")
+        ref_ = KNN_REF[k]
+        for key, v in ref_["counters"].items():
+            check(got[key] == v, f"kNN engine {cell}: {key} {got[key]}, the "
+                  f"reference has {v}")
+        check(got["lanes_live"][:4] == ref_["live"] and
+              got["lanes_padded"][:4] == ref_["padded"][caps_mode],
+              f"kNN engine {cell}: occupancy {got['lanes_live']} "
+              f"{got['lanes_padded']}")
+        check(got["overflow"] == 0 and got["escalations"] == 0,
+              f"kNN engine {cell}: overflow {got['overflow']}, escalations "
+              f"{got['escalations']}")
+        ids_np, d_np = ids.cpu().numpy(), d.cpu().numpy()
+        check(int(ids_np.astype(np.int64).sum()) == ref_["ids_sum"] and
+              float(d_np.astype(np.float64).sum()) == ref_["d_sum"],
+              f"kNN engine {cell}: ids sum {ids_np.astype(np.int64).sum()}, "
+              f"distance sum {d_np.astype(np.float64).sum()!r}")
+        cells[cell] = (fn, twin, ids_np, d_np)
+    launches = kkern.launch_counts()
+    print(f"  six cells ≡ twin engine (ids, distance bits, counters) and the "
+          f"reference (counters, occupancy, ids and distance sums); "
+          f"launches {launches}", flush=True)
+    for fused in (False, True):
+        fn = knn_vector.make_knn_bfs(tree, 1, caps_mode="adaptive",
+                                     fused=fused)
+        twin = knn_vector.make_knn_bfs(tree, 1, caps_mode="adaptive",
+                                       fused=fused, backend="torch")
+        ids, d, ctr = fn(points)
+        tids, td, tctr = twin(points)
+        assert_bits_equal(ids, tids, f"k=1 fused={fused} ids")
+        assert_bits_equal(d, td, f"k=1 fused={fused} dists")
+        check(ctr.asdict() == tctr.asdict(), f"k=1 fused={fused} counters")
+        check(fn.escalation_count() == 1 and int(ctr.escalations) == 1,
+              f"k=1 adaptive fused={fused}: {fn.escalation_count()} "
+              f"escalations, expected 1")
+    print("  k=1 adaptive (unfused, fused): escalates once, ≡ twin engine",
+          flush=True)
+    _, _, ids_np, d_np = cells["k=8 static/unfused"]
+    check_knn_brute_force(torch, tree.device, rects, points.cpu().numpy()[:8],
+                          ids_np[:8], d_np[:8], "kNN engine")
+    print("  8 queries ≡ brute force over all rects", flush=True)
+    for cell, (fn, twin, _, _) in cells.items():
+        print(f"  {cell}: {host_ms(lambda: fn(points), 10):.3f} ms per "
+              f"{BATCH}-query batch (twin engine "
+              f"{host_ms(lambda: twin(points), 3):.3f} ms)", flush=True)
+        print(f"    {profile_batches(lambda: fn(points))}", flush=True)
+    return launches
+
+
+def phase_knn_serve(torch, dev, kkern, serve):
+    """Phase 11: the served kNN through the CLI entry point."""
+    argv = ["--mode", "knn", "--n", str(N_RECTS), "--k", str(KNN_K),
+            "--batches", str(KNN_BATCHES), "--batch-size", str(BATCH)]
+    kkern.reset_launch_counts()
+    out = serve.main(argv)
+    launches = kkern.launch_counts()
+    print(f"  serve launches {launches}")
+    check(launches["knn_level_dists"] > 0,
+          "kNN serve did not launch knn_level_dists")
+    check(not out["overflow"], "the served kNN overflowed")
+    rects, qs = serve.make_knn_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH)
+    ids, d = out["first_batch"]
+    check(ids.shape == (BATCH, KNN_K) and bool((ids >= 0).all()),
+          f"served kNN ids {ids.shape}, {int((ids < 0).sum())} missing")
+    check_knn_brute_force(torch, dev, rects, qs[0], ids, d, "kNN serve")
+    print(f"  first served batch ≡ brute force over all {N_RECTS} rects "
+          f"({BATCH} queries)", flush=True)
+    return launches, out["qps"]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -543,12 +883,14 @@ def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
-    from repro_torch.core import join_vector, rtree, select_vector
+    from repro_torch.core import join_vector, knn_vector, rtree, \
+        select_vector
     from repro_torch.core.join_scalar import elevate
     from repro_torch.core.layouts import tree_layout
     from repro_torch.distributed.spatial_shard import SpatialShards
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import rtree_join as jkern
+    from repro_torch.kernels import rtree_knn as kkern
     from repro_torch.kernels import rtree_select as kern
     from repro_torch.launch import serve
 
@@ -618,14 +960,36 @@ def main() -> None:
     print(f"  served {jout['joins_per_s']:.3f} joins/s on {name} ({smi}); "
           f"host merge {jout['merge_s']:.2f} s of 3 joins", flush=True)
 
-    # launches: B1 and B3 from the served paths (phases 5 and 8); B2 and B4,
-    # which serve does not drive, from the fused engine cells (phases 4 and
-    # 7); every count was reset just before its phase
+    _, qs = serve.make_knn_inputs(N_RECTS, SEED, 1, BATCH)
+    points = torch.from_numpy(qs[0]).to(dev)
+    print(f"[9] kNN kernels on the phase-3 tree; static caps k=1 "
+          f"{knn_vector.knn_frontier_caps(tree, 1)}, k=8 "
+          f"{knn_vector.knn_frontier_caps(tree, 8)}, k=64 "
+          f"{knn_vector.knn_frontier_caps(tree, 64)}", flush=True)
+    kernels += phase_knn_kernels(torch, tree, points, kkern, ref, knn_vector)
+
+    print("[10] kNN engine", flush=True)
+    knn_eng_launches = phase_knn_engine(torch, tree, serve.make_rects(
+        N_RECTS, SEED), points, kkern, knn_vector)
+    del tree
+
+    print("[11] kNN serve", flush=True)
+    knn_serve_launches, knn_qps = phase_knn_serve(torch, dev, kkern, serve)
+    print(f"  served {knn_qps:,.1f} kNN q/s (k={KNN_K}) on {name} ({smi})",
+          flush=True)
+
+    # launches: B1, B3 and B5 from the served paths (phases 5, 8 and 11);
+    # B2, B4, B6 and B7, which serve does not drive, from the fused engine
+    # cells (phases 4, 7 and 10); every count was reset just before its
+    # phase
     path_launches = {
         "select_level_masks": serve_launches,
         "select_level_fused": eng_launches,
         "join_pair_masks": join_serve_launches,
         "join_level_fused": join_eng_launches,
+        "knn_level_dists": knn_serve_launches,
+        "knn_level_fused": knn_eng_launches,
+        "knn_leaf_fused": knn_eng_launches,
     }
     for k in kernels:
         k["launches"] = path_launches[k["name"]][k["name"]]

@@ -1,6 +1,6 @@
-"""Frontier-capacity policies of the select and join operators (the
+"""Frontier-capacity policies of the select, join and kNN operators (the
 reference's ``core/caps.py``: ``geometric_caps``, ``adaptive_caps``,
-``select_frontier_caps`` and ``join_pair_caps``).  Pure integer code,
+``select_frontier_caps``, ``join_pair_caps`` and ``knn_frontier_caps``).  Pure integer code,
 copied so the port imports nothing of the JAX package; the caps decide
 overflow and escalation, so they must equal the reference's on the same
 tree.
@@ -156,6 +156,33 @@ def select_frontier_caps(tree, result_cap: int, slack: int = 4,
     return geometric_caps(
         tree.height - 1, tree.fanout, result_cap, slack=slack,
         min_cap=min_cap, level_sizes=sizes, lanes=lanes, final="boost")
+
+
+def _distance_floor(k: int, fanout: int, slack: int) -> int:
+    """Adaptive floor of τ-pruned distance frontiers: the survivors of τ
+    pruning are the nodes inside the current distance band, roughly O(k)
+    per level whatever the fanout, so floor at ``slack·max(k, 2)`` rows;
+    and never below ``ceil(k / fanout)``, so the engine's τ gate
+    (``cap · fanout >= k``) fires at the same levels in both tiers."""
+    return max(int(slack) * max(int(k), 2),
+               -(-int(k) // max(int(fanout), 1)))
+
+
+def knn_frontier_caps(tree, k: int, slack: int = 4, min_cap: int = 64,
+                      lanes: int = LANES,
+                      policy: str = "static") -> Tuple[int, ...]:
+    """kNN frontier capacity entering each level (root-1 … leaf).  The
+    adaptive tier floors every step at ``_distance_floor`` rows (the τ band)
+    instead of the static 64-row minimum."""
+    sizes = [lvl.n_nodes for lvl in tree.levels]
+    if policy == "adaptive":
+        return adaptive_caps(
+            tree.height - 1, tree.fanout, k, slack=slack,
+            level_sizes=sizes, lanes=lanes,
+            floor=_distance_floor(k, tree.fanout, slack))
+    return geometric_caps(
+        tree.height - 1, tree.fanout, k, slack=slack, min_cap=min_cap,
+        level_sizes=sizes, lanes=lanes)
 
 
 def join_pair_caps(height: int, fanout: int, result_cap: int,

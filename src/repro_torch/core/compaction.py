@@ -6,6 +6,9 @@ the same positions, order and overflow semantics as the reference's
 ``core/compaction.py``.  The fused kernels (``kernels/csrc``) compute the
 same positions with block-wide scans instead.  Positions are int64, so a
 flat pair-lane index past 2**31 stays exact.
+
+``beam_rows`` is the distance operators' enqueue: the best-first beam of
+the reference's ``compaction.beam_rows``.
 """
 from __future__ import annotations
 
@@ -50,6 +53,36 @@ def compact_rows(vals: torch.Tensor, mask: torch.Tensor, cap: int,
         raise ValueError("compact_rows expects (B, M)")
     (out,), count, ovf = _scatter_compact((vals,), mask, cap, fill)
     return out, count, ovf
+
+
+def beam_rows(vals: torch.Tensor, dists: torch.Tensor, mask: torch.Tensor,
+              cap: int, fill: int = -1):
+    """Best-first beam compaction: per row, the ``cap`` qualifying entries
+    of smallest ``dists`` in ascending (distance, lane) order, ``fill``-
+    padded.  The reference takes ``lax.top_k`` of the negated distances,
+    which puts the lowest lane first among ties; ``torch.topk`` promises no
+    tie order, so this sorts stably instead.
+
+    Same contract as ``compact_rows`` → (out (B, cap), count (B,) int32,
+    overflow = count > cap): on overflow every dropped entry's distance is
+    >= the worst kept one.  vals: (B, M) int32; dists: (B, M) float32
+    (``geometry.DIST_*`` convention); mask: (B, M) bool.
+    """
+    from .geometry import DIST_PAD, DIST_VALID_MAX
+    if vals.ndim != 2:
+        raise ValueError("beam_rows expects (B, M)")
+    b, m = vals.shape
+    mask = mask.to(torch.bool)
+    d = torch.where(mask, dists, float(DIST_PAD))
+    v = torch.where(mask, vals, fill).to(vals.dtype)
+    if m < cap:
+        d = torch.cat([d, d.new_full((b, cap - m), float(DIST_PAD))], dim=1)
+        v = torch.cat([v, v.new_full((b, cap - m), fill)], dim=1)
+    d, order = torch.sort(d, dim=1, stable=True)
+    out = torch.gather(v, 1, order[:, :cap])
+    out = torch.where(d[:, :cap] < float(DIST_VALID_MAX), out, fill)
+    count = mask.sum(dim=1, dtype=torch.int32)
+    return out, count, count > cap
 
 
 def compact_1d(vals: torch.Tensor, mask: torch.Tensor, cap: int,

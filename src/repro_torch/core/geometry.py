@@ -5,6 +5,12 @@ predicate, four compares ANDed, written exactly as the four key-excerpt
 comparisons so every path agrees bit-for-bit (closed intervals, as in
 Guttman's R-tree).
 
+``mindist`` / ``minmaxdist`` are the kNN distance functions on tensors,
+rounded exactly as the reference's jitted traces round them (see
+``fma32``); the CUDA kernels (``kernels/csrc/rtree_knn.cu``) use the same
+forms through explicit intrinsics.  The ``*_np`` functions and
+``brute_force_knn`` are the host-side numpy oracles and the shard router.
+
 Padding convention: absent children carry an *empty* MBR (``low = +PAD,
 high = -PAD``) so every intersection predicate is False without a separate
 validity mask.
@@ -12,14 +18,14 @@ validity mask.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Large-but-finite padding values (finite so int paths and fp paths behave
 # the same).
 _F32_PAD = np.float32(3.0e38)
 _I32_PAD = np.int32(2**31 - 2)
 
-# Distance constants of the kNN family (the distance functions arrive with
-# the kNN slice; the constants are shared with the tree padding policy).
+# Distance constants of the kNN family.
 _DELTA_CLAMP = np.float32(1.0e18)      # clamp²=1e36 < f32 max, still "huge"
 DIST_PAD = np.float32(3.0e38)          # distance slot for invalid lanes
 # d < this ⇔ lane held a real entry: strictly between the largest computable
@@ -58,3 +64,111 @@ def brute_force_join(rects_a, rects_b):
     m = (alx <= bhx) & (ahx >= blx) & (aly <= bhy) & (ahy >= bly)
     ii, jj = np.nonzero(m)
     return np.stack([ii, jj], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# point-to-MBR distances (kNN), squared Euclidean
+# ---------------------------------------------------------------------------
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``round_f32(a * b + c)`` with one rounding, as a fused multiply-add,
+    for float32 tensors on any device.
+
+    The reference's jitted traces contract ``x*x + y*y`` into an FMA, and
+    which product is folded decides the last bit; eager PyTorch rounds both
+    products.  Here the product is exact in float64 (24 + 24 bits), the sum
+    ``s`` is rounded to float64 with its exact error ``e`` (TwoSum), and an
+    inexact ``s`` moves to its odd float64 neighbour toward the exact value
+    (round-to-odd).  Rounding that to float32 is then exactly the single
+    rounding of ``a*b + c``: a plain float64 sum would round twice and can
+    land on a float32 midpoint.
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    step = (torch.sign(e) * torch.sign(s)).to(torch.int64)
+    bits = torch.where((bits & 1) == 0, bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def _axis_gap(p, lo, hi):
+    """Per-axis outside gap ``max(lo - p, p - hi, 0)``, clamped finite."""
+    return torch.clamp(torch.maximum(lo - p, p - hi), min=0.0,
+                       max=float(_DELTA_CLAMP))
+
+
+def mindist(px, py, lx, ly, hx, hy):
+    """Squared MINDIST(point, rect) (Roussopoulos & Kelley), broadcast over
+    float32 tensors: 0 inside the rect, else the squared distance to the
+    nearest face or corner.  Rounded as ``fma(dx, dx, dy*dy)``, the form of
+    every reference trace."""
+    dx = _axis_gap(px, lx, hx)
+    dy = _axis_gap(py, ly, hy)
+    return fma32(dx, dx, dy * dy)
+
+
+def minmaxdist(px, py, lx, ly, hx, hy):
+    """Squared MINMAXDIST(point, rect) (Roussopoulos & Kelley): the minimum
+    over axes of (distance to the nearer face on that axis)² + (distance
+    to the farther face on the other)².  A non-empty rect holds an object
+    within it, so the k-th smallest over a frontier bounds the k-th
+    neighbour.  Rounded as ``min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy,
+    dMx*dMx))``, the form of the reference's gather trace and its Pallas
+    kernel."""
+    cx = (lx + hx) * 0.5
+    cy = (ly + hy) * 0.5
+    clamp = float(_DELTA_CLAMP)
+    dmx = torch.abs(px - torch.where(px <= cx, lx, hx)).clamp(max=clamp)
+    dmy = torch.abs(py - torch.where(py <= cy, ly, hy)).clamp(max=clamp)
+    dMx = torch.abs(px - torch.where(px >= cx, lx, hx)).clamp(max=clamp)
+    dMy = torch.abs(py - torch.where(py >= cy, ly, hy)).clamp(max=clamp)
+    return torch.minimum(fma32(dMy, dMy, dmx * dmx),
+                         fma32(dmy, dmy, dMx * dMx))
+
+
+def mindist_np(px, py, lx, ly, hx, hy) -> np.ndarray:
+    """Numpy MINDIST for host-side code (the shard router and the oracle),
+    unclamped: host paths never see the padded-MBR sentinels."""
+    dx = np.maximum(np.maximum(lx - px, px - hx), 0.0)
+    dy = np.maximum(np.maximum(ly - py, py - hy), 0.0)
+    return dx * dx + dy * dy
+
+
+def minmaxdist_np(px, py, lx, ly, hx, hy) -> np.ndarray:
+    """Numpy MINMAXDIST (see ``minmaxdist`` for the bound)."""
+    cx = (lx + hx) * 0.5
+    cy = (ly + hy) * 0.5
+    dmx = np.abs(px - np.where(px <= cx, lx, hx))
+    dmy = np.abs(py - np.where(py <= cy, ly, hy))
+    dMx = np.abs(px - np.where(px >= cx, lx, hx))
+    dMy = np.abs(py - np.where(py >= cy, ly, hy))
+    return np.minimum(dmx * dmx + dMy * dMy, dmy * dmy + dMx * dMx)
+
+
+def mindist_matrix_np(points, rects) -> np.ndarray:
+    """Squared point-to-rect MINDIST matrix: points (B, 2) or (2,), rects
+    (N, 4) → (B, N) float64.  The one definition behind the brute-force
+    oracle and the shard router."""
+    pts = np.atleast_2d(np.asarray(points, np.float64))
+    r = np.asarray(rects, np.float64)
+    return mindist_np(pts[:, 0, None], pts[:, 1, None], r[None, :, 0],
+                      r[None, :, 1], r[None, :, 2], r[None, :, 3])
+
+
+def brute_force_knn(rects, points, k):
+    """Oracle: the k nearest rects to each query point (numpy, O(B·N)).
+
+    Returns (ids (B, k) int64, squared distances (B, k) float64) sorted by
+    distance, ties by id; rows are padded with (-1, inf) when k > N."""
+    d = mindist_matrix_np(points, rects)                     # (B, N)
+    b, n = d.shape
+    kk = min(k, n)
+    order = np.argsort(d, axis=1, kind="stable")[:, :kk]     # ties → low id
+    ids = np.full((b, k), -1, np.int64)
+    out = np.full((b, k), np.inf, np.float64)
+    ids[:, :kk] = order
+    out[:, :kk] = np.take_along_axis(d, order, axis=1)
+    return ids, out

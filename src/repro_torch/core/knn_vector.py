@@ -1,0 +1,132 @@
+"""Vectorized k-nearest-neighbour search over the R-tree: the *kNN spec*
+of the distance engine (the reference's ``core/knn_vector.py``).
+
+``make_knn_bfs`` is the batched level-synchronous descent: one dense
+squared-MINDIST/MINMAXDIST evaluation per (query, frontier-node) lane,
+τ tightening to the k-th smallest MINMAXDIST, MINDIST <= τ pruning, the
+best-first beam enqueue, and the leaf top-k.  The τ/prune/beam loop lives
+in core/traversal.py; this module contributes the D1 point-to-MBR score
+stage, the caps policy and the kernel routing:
+
+  unfused     — per level, ``kernels/ops.knn_level_dists`` (kernel B5 on
+                the card) writes the (B, C, F) distances, and the engine
+                selects in PyTorch;
+  ``fused``   — per internal level one ``kernels/ops.knn_level_fused``
+                call (kernel B6) and at the leaf one ``knn_leaf_fused``
+                call (kernel B7): scoring and emission in one kernel.
+
+Both give identical ids, distances and counters (except ``dispatches``).
+Distances are squared Euclidean.  Results are exact whenever no frontier
+overflowed (``Counters.overflow``); an overflowed level keeps its best-
+first beam, so any missed neighbour lies beyond the worst kept MINDIST.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels import ops
+from . import caps as caps_policy
+from . import traversal
+from .counters import StageModel
+from .layouts import layout_lanes
+from .rtree import RTree
+
+
+def knn_frontier_caps(tree: RTree, k: int, slack: int = 4,
+                      min_cap: int = 64, lanes: Optional[int] = None,
+                      policy: str = "static") -> Tuple[int, ...]:
+    """Frontier capacity entering each level (root-1 … leaf) — the unified
+    policy (core/caps.py); ``policy='adaptive'`` selects the tight tier."""
+    kw = {} if lanes is None else dict(lanes=lanes)
+    return caps_policy.knn_frontier_caps(tree, k, slack=slack,
+                                         min_cap=min_cap, policy=policy,
+                                         **kw)
+
+
+def make_knn_score(tree: RTree, layout: str, backend: str):
+    """Build the kNN score stage and its engine context for ``tree``.
+
+    Returns (ctx, score) with ``score(ctx, li, ids, points, leaf)`` →
+    (mindist, minmaxdist | None at the leaf, child_ids, stages), the
+    distance engine's contract.  D1 only: the level-global SoA rows feed
+    the kernel directly; the other layouts raise (ROADMAP A9).
+    """
+    layout_lanes(layout)                 # d0 / d2 / d3 raise naming A9
+    ops.resolve_backend(backend, tree.rects)
+
+    def score(ctx, li, ids, points, leaf):
+        lvl = ctx[li]
+        md, mmd = ops.knn_level_dists(ids, points, lvl.lx, lvl.ly, lvl.hx,
+                                      lvl.hy, lvl.child, leaf=leaf,
+                                      backend=backend)
+        return md, mmd, lvl.child[ids.clamp(min=0).long()], 4
+
+    return tree.levels, score
+
+
+def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
+                 caps: Optional[Sequence[int]] = None,
+                 backend: str = "auto", fused: bool = False,
+                 caps_mode: str = "adaptive"):
+    """Build the batched kNN: points (B, 2) → (ids (B, k) int32 rect ids
+    by distance, -1 padded when k > n_rects; dists (B, k) float32 squared
+    distances, +inf padded; Counters).
+
+    ``backend``: 'auto' runs the CUDA kernels when the tree lies on a CUDA
+    device and their plain PyTorch twins on the CPU; 'cuda' demands the
+    kernels; 'torch' runs the twins on any device.  ``fused=True``: one
+    kernel per level (B6 inside, B7 at the leaf) instead of B5 plus the
+    engine's PyTorch selection; ``Counters.dispatches`` drops to 1 per
+    level and everything else is unchanged.  ``caps_mode`` (used only when
+    ``caps`` is None): 'adaptive' builds the two-tier escalating engine,
+    'static' the single static-caps engine.  ``points`` may be any
+    array-like; it is moved to the tree's device.
+    """
+    if k <= 0:
+        raise ValueError("k must be positive")
+    ctx, score = make_knn_score(tree, layout, backend)
+
+    def fused_level(ctx_, li, ids, points, tau, leaf, cap):
+        lvl = ctx_[li]
+        f = lvl.lx.shape[1]
+        args = (ids, points, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
+        if leaf:
+            return ops.knn_leaf_fused(*args, k=k, backend=backend) + (f,)
+        # the τ gate of the unfused loop, C·F >= k, from the shapes
+        return ops.knn_level_fused(*args, tau, cap=cap, k=k,
+                                   tighten=ids.shape[1] * f >= k,
+                                   backend=backend) + (f,)
+
+    def build(caps_):
+        caps_ = tuple(caps_)
+        if len(caps_) != tree.height - 1:
+            raise ValueError(
+                f"need {tree.height - 1} caps, got {len(caps_)}")
+        run = traversal.make_distance_engine(
+            KNN_SPEC, height=tree.height, k=k, caps=caps_, score=score,
+            fused_level=fused_level if fused else None)
+
+        def fn(points, tau_init=None, active=None):
+            p = torch.as_tensor(points, dtype=torch.float32,
+                                device=tree.device).contiguous()
+            return run(ctx, p, tau_init=tau_init, active=active)
+        return fn
+
+    if caps is not None:
+        return build(caps)
+    lanes = layout_lanes(layout)
+    full = knn_frontier_caps(tree, k, lanes=lanes)
+    if caps_mode == "static":
+        return build(full)
+    tight = knn_frontier_caps(tree, k, lanes=lanes, policy="adaptive")
+    return traversal.maybe_escalating(build, tight, full)
+
+
+KNN_SPEC = traversal.register(traversal.OperatorSpec(
+    name="knn", kind="distance",
+    stage_model=StageModel(inner=4, leaf=3, fused=1),
+    builder=make_knn_bfs, caps_policy=knn_frontier_caps, query_width=2,
+    description="batched k-nearest-neighbor: point MINDIST/MINMAXDIST "
+                "score, τ top-k + best-first beam emission"))

@@ -10,10 +10,13 @@ shares (the reference's ``core/traversal.py``).
                            compress-store compaction → descend.  Eager
                            PyTorch: one Python iteration per tree level,
                            every step a tensor op on the tree's device.
+  ``make_distance_engine`` — the level loop of the distance operators
+                           (kNN): score → τ tightening → MINDIST pruning →
+                           best-first beam enqueue → leaf top-k.
   ``make_escalating_engine`` — the two-tier overflow-escalating runner.
 
-The select and join specs are registered; the distance engine (kNN),
-browse and the mesh engine arrive with their slices.
+The select, join and kNN specs are registered; kNN-join, browse and the
+mesh engine arrive with their slices.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .compaction import _scatter_compact
+from .compaction import _scatter_compact, beam_rows
 from .counters import OCC_STEPS, Counters, StageModel, occupancy_zeros
+from .geometry import DIST_PAD, DIST_VALID_MAX
 
 
 def _occ_record(occ_live, occ_padded, *, step: int, valid, width: int,
@@ -47,7 +51,8 @@ class OperatorSpec:
     """Static description of one traversal operator.
 
     ``kind`` selects the engine ('mask': boolean qualify + compress-store
-    emission).  ``stage_model`` is the per-level dispatch accounting the
+    emission; 'distance': MINDIST/MINMAXDIST score + τ top-k + best-first
+    beam emission).  ``stage_model`` is the per-level dispatch accounting the
     engine charges.  ``builder`` is the public factory (the ``make_*_bfs``
     function), so ``build(name, ...)`` and the factory are one code path.
     ``caps_policy`` is the default frontier-caps function, ``query_width``
@@ -71,6 +76,7 @@ _REGISTRY: Dict[str, OperatorSpec] = {}
 _OPERATOR_MODULES = (
     "repro_torch.core.select_vector",
     "repro_torch.core.join_vector",
+    "repro_torch.core.knn_vector",
 )
 
 
@@ -207,6 +213,147 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
                        dispatches=torch.tensor(disp, **i32),
                        lanes_live=occ_live, lanes_padded=occ_padded, **acc)
         return res, counts, ctr
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Distance-kind engine (kNN) — fixed-k descent
+# ---------------------------------------------------------------------------
+
+def distance_level_emit(md, mmd, ptr, tau, *, cap: int, k: int,
+                        tighten: bool):
+    """Emission of one internal distance level from its (B, C, F) MINDIST,
+    MINMAXDIST and child ids: τ = min(τ, k-th smallest MINMAXDIST) when
+    ``tighten`` (sound only when C·F >= k), MINDIST <= τ pruning, and the
+    best-first beam of width ``cap`` → (next (B, cap), τ (B,), valid_cnt
+    (B,), keep_cnt (B,)).  The unfused engine and kernel B6's twin."""
+    b = md.shape[0]
+    if tighten:
+        kth = torch.topk(mmd.reshape(b, -1), k, dim=1, largest=False,
+                         sorted=True).values[:, k - 1]
+        tau = torch.minimum(tau, kth)
+    valid = md < float(DIST_VALID_MAX)
+    keep = valid & (md <= tau[:, None, None])
+    out, _, _ = beam_rows(ptr.reshape(b, -1), md.reshape(b, -1),
+                          keep.reshape(b, -1), cap)
+    return (out, tau, valid.sum(dim=(1, 2), dtype=torch.int32),
+            keep.sum(dim=(1, 2), dtype=torch.int32))
+
+
+def distance_leaf_emit(md, ptr, *, k: int):
+    """Emission of the leaf: the k smallest (distance, lane) results →
+    (ids (B, k), d (B, k), valid_cnt (B,)), missing rows (-1, +inf), also
+    when C·F < k.  A stable sort puts the lowest lane first among ties, as
+    the reference's ``lax.top_k`` of the negated distances does.  The
+    unfused engine and kernel B7's twin."""
+    b = md.shape[0]
+    flat_d = md.reshape(b, -1)
+    flat_ptr = ptr.reshape(b, -1)
+    if flat_d.shape[1] < k:                         # k > total candidates
+        pad = k - flat_d.shape[1]
+        flat_d = torch.cat([flat_d, flat_d.new_full((b, pad),
+                                                    float(DIST_PAD))], 1)
+        flat_ptr = torch.cat([flat_ptr, flat_ptr.new_full((b, pad), -1)], 1)
+    res_d, pos = torch.sort(flat_d, dim=1, stable=True)
+    res_d = res_d[:, :k]
+    res_ids = torch.gather(flat_ptr, 1, pos[:, :k])
+    found = res_d < float(DIST_VALID_MAX)
+    res_ids = torch.where(found, res_ids, -1)
+    res_d = torch.where(found, res_d, float("inf"))
+    valid_cnt = (md < float(DIST_VALID_MAX)).sum(dim=(1, 2),
+                                                 dtype=torch.int32)
+    return res_ids, res_d, valid_cnt
+
+
+def make_distance_engine(spec: OperatorSpec, *, height: int, k: int,
+                         caps: Sequence[int], score, fused_level=None):
+    """Build the level loop of a distance operator.
+
+    ``score(ctx, li, ids, queries, leaf)`` → (mindist (B, C, F),
+    minmaxdist (B, C, F) | None at the leaf, child_ids (B, C, F), stages)
+    with DIST_PAD on invalid lanes; the engine then emits with
+    ``distance_level_emit`` / ``distance_leaf_emit``.  τ tightens only where
+    C·F >= k, decided from the shapes.  ``fused_level(ctx, li, ids,
+    queries, tau, leaf, cap)`` runs a whole level — scoring and emission —
+    as one kernel and returns the emission's outputs plus F.  Either way
+    the engine owns the counters, which are the same except
+    ``dispatches``.
+
+    Returns ``run(ctx, queries, tau_init=None, active=None)`` →
+    (ids (B, k), dists (B, k), Counters).  ``tau_init`` (B,) seeds the
+    pruning bound below DIST_PAD (sound when it upper-bounds each query's
+    k-th neighbour) and ``active`` (B,) bool masks queries out of the
+    descent (empty root frontier, (-1, +inf) rows): the hooks of the mesh
+    path.  The loop reads nothing back to the host.
+    """
+    caps = tuple(caps)
+    sm = spec.stage_model
+
+    def run(ctx, queries: torch.Tensor, tau_init=None, active=None):
+        b, dev = queries.shape[0], queries.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        ids = torch.zeros((b, 1), **i32)                # root frontier
+        if active is not None:
+            ids = torch.where(torch.as_tensor(active, device=dev)[:, None],
+                              ids, -1)
+        tau = torch.full((b,), float(DIST_PAD), dtype=torch.float32,
+                         device=dev)
+        if tau_init is not None:
+            tau = torch.minimum(tau, torch.as_tensor(
+                tau_init, dtype=torch.float32, device=dev))
+        zero = torch.zeros((), **i32)
+        nodes = preds = vops = enq = pruned = waste = zero
+        disp = 0
+        ovf = torch.zeros((b,), dtype=torch.bool, device=dev)
+        occ_live = occupancy_zeros(dev)
+        occ_padded = occupancy_zeros(dev)
+        res_ids = res_d = None
+        for li in range(height - 1, -1, -1):
+            leaf = li == 0
+            cap = k if leaf else caps[height - 1 - li]
+            fvalid = ids >= 0
+            n_front = fvalid.sum(dtype=torch.int32)
+            nodes = nodes + n_front
+            _occ_record(occ_live, occ_padded, step=height - 1 - li,
+                        valid=fvalid, width=ids.shape[1], batch=b)
+            if fused_level is not None:
+                *out, f = fused_level(ctx, li, ids, queries, tau, leaf, cap)
+                stages = 4                      # the fused kernels are D1
+                disp += sm.fused
+            else:
+                md, mmd, ptr, stages = score(ctx, li, ids, queries, leaf)
+                f = md.shape[-1]
+                if leaf:
+                    out = distance_leaf_emit(md, ptr, k=k)
+                else:
+                    out = distance_level_emit(
+                        md, mmd, ptr, tau, cap=cap, k=k,
+                        tighten=ids.shape[1] * f >= k)
+                disp += sm.leaf if leaf else sm.inner
+            # internal levels evaluate MINDIST and MINMAXDIST per lane, the
+            # leaf MINDIST only
+            ev = stages if leaf else 2 * stages
+            preds = preds + n_front * (f * ev)
+            vops = vops + n_front * ev
+            if leaf:
+                res_ids, res_d, valid_cnt = out
+                waste = waste + n_front * f - valid_cnt.sum(
+                    dtype=torch.int32)
+            else:
+                ids, tau, valid_cnt, keep_cnt = out
+                n_valid = valid_cnt.sum(dtype=torch.int32)
+                n_keep = keep_cnt.sum(dtype=torch.int32)
+                waste = waste + n_front * f - n_valid
+                pruned = pruned + (n_valid - n_keep)
+                enq = enq + n_keep
+                ovf = ovf | (keep_cnt > cap)
+        ctr = Counters(nodes_visited=nodes, predicates=preds, vector_ops=vops,
+                       enqueued=enq, pruned_inner=pruned, masked_waste=waste,
+                       overflow=ovf.any().to(torch.int32),
+                       dispatches=torch.tensor(disp, **i32),
+                       lanes_live=occ_live, lanes_padded=occ_padded)
+        return res_ids, res_d, ctr
 
     return run
 

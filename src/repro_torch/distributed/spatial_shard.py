@@ -9,7 +9,10 @@ tile holding ~N/P rects, so most range queries touch few partitions (the
 partition MBRs act as a replicated, tiny "root router" level).  Select rows
 merge by sorted global id, an order with no dependence on partition
 placement.  The spatial join of a probe relation merges its (probe id,
-global data id) pairs by a lexicographic sort on the host.
+global data id) pairs by a lexicographic sort on the host.  kNN routes in
+two phases on the partition MBRs (primary partition, then the partitions
+within the primary's k-th distance) and merges the candidates by
+(distance, global id).
 
 The single-program mesh path arrives with the fleet slice (ROADMAP A11).
 """
@@ -24,6 +27,7 @@ import torch
 
 from ..core import rtree, traversal
 from ..core.geometry import intersects as np_intersects
+from ..core.geometry import mindist_matrix_np
 from ..core.layouts import layout_lanes
 
 
@@ -194,18 +198,104 @@ class SpatialShards:
         return out, ovf
 
     # ------------------------------------------------------------------
+    # distance operators (kNN)
+    # ------------------------------------------------------------------
+
+    def _run_partition(self, op: str, pi: int, queries: np.ndarray,
+                       k: int):
+        """Run one partition's batched distance engine on a routed query
+        subset (padded to its power-of-two bucket); local → global ids.
+        Returns (global ids (b, k) int64, dists (b, k) float64, overflow,
+        Counters)."""
+        part = self.partitions[pi]
+        b = len(queries)
+        fn = self.engine_for(op, pi, k=k)
+        ids, dists, ctr = fn(self._bucket(queries))
+        ids = ids[:b].cpu().numpy()
+        dists = dists[:b].cpu().numpy().astype(np.float64)
+        gids = np.where(ids >= 0, part.ids[np.maximum(ids, 0)], -1)
+        return gids, dists, bool(int(ctr.overflow)), ctr
+
+    def knn(self, points: np.ndarray, k: int
+            ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Distributed exact kNN → (global ids (B, k) int64, squared
+        distances (B, k) float64, overflow flag).
+
+        Two-phase routing on the partition MBRs: phase 1 answers every
+        query on its primary partition (smallest MBR MINDIST), which gives
+        a k-th-distance bound τ; phase 2 asks only the partitions whose
+        MBR MINDIST is within τ.  The candidates merge by (distance,
+        global id).  ``overflow`` True means some partition's frontier
+        fell back to its best-first beam and the result may be approximate.
+        """
+        points = np.asarray(points, np.float32)
+        dmat = mindist_matrix_np(points, self.router_mbrs)   # (B, P)
+        return self._two_phase_knn(points, k, dmat, "knn")
+
+    def _two_phase_knn(self, queries: np.ndarray, k: int, dmat: np.ndarray,
+                       op: str) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Primary-partition answer → τ bound → τ-bounded secondary
+        fan-out → cross-shard top-k merge by (distance, global id).
+        ``dmat``: (B, P) exact float64 query-to-partition-MBR squared
+        MINDISTs; ``op`` names the per-partition engine's spec."""
+        b = len(queries)
+        p = len(self.partitions)
+        primary = np.argmin(dmat, axis=1)
+        cand_ids = np.full((b, k), -1, np.int64)
+        cand_d = np.full((b, k), np.inf)
+        overflow = False
+        acc = None
+        # phase 1: primary partitions
+        for pi in range(p):
+            sel = np.nonzero(primary == pi)[0]
+            if len(sel) == 0:
+                continue
+            gids, dists, ovf, ctr = self._run_partition(
+                op, pi, queries[sel], k)
+            acc = ctr if acc is None else acc + ctr
+            cand_ids[sel], cand_d[sel] = gids, dists
+            overflow |= ovf
+        # τ: the current k-th best (inf when the primary held < k rects)
+        tau = cand_d[:, k - 1].copy()
+        # phase 2: secondary partitions within τ.  Partition distances are
+        # float32 and the router's float64, so the bound is widened a hair:
+        # that only ever adds fan-out, never skips a partition that could
+        # hold a true k-th neighbour
+        for pi in range(p):
+            tau_cmp = tau * (1.0 + 1e-5) + 1e-30
+            sel = np.nonzero((primary != pi) & (dmat[:, pi] <= tau_cmp))[0]
+            if len(sel) == 0:
+                continue
+            gids, dists, ovf, ctr = self._run_partition(
+                op, pi, queries[sel], k)
+            acc = ctr if acc is None else acc + ctr
+            overflow |= ovf
+            merged_d = np.concatenate([cand_d[sel], dists], axis=1)
+            merged_i = np.concatenate([cand_ids[sel], gids], axis=1)
+            order = np.lexsort((merged_i, merged_d))[:, :k]
+            cand_d[sel] = np.take_along_axis(merged_d, order, axis=1)
+            cand_ids[sel] = np.take_along_axis(merged_i, order, axis=1)
+            tau[sel] = cand_d[sel, k - 1]
+        if acc is not None:
+            self.last_counters = acc
+        return cand_ids, cand_d, overflow
+
+    # ------------------------------------------------------------------
     # warmup
     # ------------------------------------------------------------------
 
-    def warm(self, op: str, batch: int, result_cap: int = 4096,
-             probe=None, **op_params) -> None:
+    def warm(self, op: str, batch: int, k: Optional[int] = None,
+             result_cap: int = 4096, probe=None, **op_params) -> None:
         """Build operator ``op``'s engines and run each once at every
         power-of-two bucket up to ``batch`` (routed subsets can land in any
         bucket ≤ the full batch's), so a serving loop pays no kernel build
-        or first-launch cost.  ``join`` warms by one join of ``probe``
-        (rects or RTree) with ``op_params`` — its engines close over the
-        probe tree."""
+        or first-launch cost.  Distance operators build with ``k``, the
+        others with ``result_cap``.  ``join`` warms by one join of
+        ``probe`` (rects or RTree) with ``op_params`` — its engines close
+        over the probe tree."""
         spec = traversal.get_spec(op)
+        if k is None and spec.kind == "distance":
+            raise ValueError(f"warming {op!r} needs k")
         if op == "join":
             if probe is None:
                 raise ValueError("join warmup needs the probe relation")
@@ -216,8 +306,10 @@ class SpatialShards:
         while bucket >= 1:
             buckets.append(bucket)
             bucket //= 2
+        params = {"k": k} if spec.kind == "distance" else \
+            {"result_cap": result_cap}
         for pi in range(len(self.partitions)):
-            fn = self.engine_for(op, pi, result_cap=result_cap)
+            fn = self.engine_for(op, pi, **params)
             for bk in buckets:
                 fn(np.zeros((bk, spec.query_width), np.float32))
         if self.partitions and self.partitions[0].tree.device.type == "cuda":

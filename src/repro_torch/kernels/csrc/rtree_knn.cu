@@ -1,0 +1,462 @@
+// R-tree kNN level steps, hand-written for Hopper (sm_90a).
+//
+// Three kernels behind plain C entry points (loaded with ctypes by
+// kernels/_build.py and wrapped by kernels/rtree_knn.py).  A query row b
+// scores the C frontier nodes ids[b, :] of one level; lane l = c * F + f
+// of the row is child f of node ids[b, c].  A lane is valid iff
+// ids[b, c] >= 0 and child[node, f] >= 0; an invalid lane's distances are
+// DIST_PAD.  Distances are squared Euclidean, rounded exactly as the
+// reference's jitted traces round them (core/geometry.py):
+//     MINDIST     fma(dx, dx, dy*dy)
+//     MINMAXDIST  min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy, dMx*dMx))
+//     centre      (lo + hi) * 0.5
+// written with explicit intrinsics, so nvcc's --fmad cannot choose another
+// contraction.  The distance functions live in a query functor
+// (PointQuery), the template parameter of every kernel, so rect queries
+// (kNN-join) reuse the bodies with their own functor.
+//
+// B5  rtree_knn_dists — replaces the Pallas kernel
+//     src/repro/kernels/rtree_knn.py:knn_level_dists (line 105; bodies
+//     _knn_kernel line 68, _knn_leaf_kernel line 91).  Dense (B, C, F)
+//     float32 MINDIST and (not at the leaf) MINMAXDIST.  One thread per
+//     output lane, neighbouring threads on neighbouring lanes of a node
+//     row, so the row reads and the stores coalesce.
+//     Bound on the card: memory — the outputs (4 or 8 bytes a lane), the
+//     ids, and 20*F bytes of rows per distinct live node.
+//
+// B6  rtree_knn_level_fused — replaces
+//     src/repro/kernels/rtree_knn.py:knn_level_fused (line 454, through
+//     fused_inner_call line 241).  One internal level of the distance
+//     engine: tau = min(tau_in, k-th smallest MINMAXDIST over all C*F
+//     lanes, PAD lanes included) when `tighten`; keep = valid && MINDIST
+//     <= tau; the next frontier is the child ids of the kept lanes in
+//     ascending (MINDIST, lane) order, at most `cap`, -1 padded; plus the
+//     valid and kept tallies.
+//
+// B7  rtree_knn_leaf_fused — replaces
+//     src/repro/kernels/rtree_knn.py:knn_leaf_fused (line 467, through
+//     fused_leaf_call line 361).  The leaf: the k valid lanes of smallest
+//     (MINDIST, lane) as (child id, distance), (-1, +inf) for missing rows,
+//     plus the valid tally.
+//
+//     The TPU kernels merge a running top-k in VMEM across a sequential
+//     grid of frontier chunks.  Here one block owns one query row and
+//     selects instead of merging.  Non-negative float32 distances order
+//     as their uint32 bits, so key = bits(d) << 32 | lane is unique and
+//     orders exactly as the reference's stable top-k.  A radix select (a
+//     256-bin shared-memory histogram per key byte, most significant
+//     first) finds the k-th MINMAXDIST value and, on overflow, the cap-th
+//     kept key; an ordered block-wide compaction (ballot/popc and a scan
+//     of the warp totals, no atomics) gathers the <= cap surviving keys in
+//     shared memory, and a bitonic sort orders them.  Distances are
+//     recomputed in every pass rather than staged, so any C*F fits; only
+//     the survivors' keys live in shared memory (8 bytes each, up to
+//     kMaxCap).
+//     Bound on the card: memory — the ids, the rows of the distinct live
+//     nodes, and the (B, cap) or (B, k) outputs.  At batch 64 the work is
+//     a few MB, so both kernels are launch- and latency-bound.
+//
+// Each entry point launches on the caller's stream and returns
+// cudaGetLastError(); the Python wrapper raises when that is not 0.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef unsigned long long u64;
+
+constexpr float kDeltaClamp = 1.0e18f;    // geometry._DELTA_CLAMP
+constexpr float kDistPad = 3.0e38f;       // geometry.DIST_PAD
+constexpr float kDistValidMax = 1.0e37f;  // geometry.DIST_VALID_MAX
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLaneThreads = 256;         // B5 threads per block
+constexpr int kRowThreads = 256;          // B6 / B7 threads per query row
+constexpr int kRowWarps = kRowThreads / kWarp;
+constexpr int kBins = 256;                // radix digits of one key byte
+constexpr int kMaxCap = 16384;            // survivors' keys: 128 KB
+static_assert(kBins == 8 * kWarp, "one warp scans the bins, 8 per lane");
+static_assert(kRowWarps <= kWarp, "one warp scans the warp totals");
+
+__device__ __forceinline__ float axis_gap(float p, float lo, float hi) {
+  return fminf(fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f),
+               kDeltaClamp);
+}
+
+__device__ __forceinline__ float face_dist(float p, float face) {
+  return fminf(fabsf(__fsub_rn(p, face)), kDeltaClamp);
+}
+
+// A query point (px, py): the kNN distance functions.
+struct PointQuery {
+  static constexpr int kWidth = 2;        // floats per query row
+  float px, py;
+  __device__ explicit PointQuery(const float* q) : px(q[0]), py(q[1]) {}
+
+  __device__ __forceinline__ float mindist(float lx, float ly, float hx,
+                                           float hy) const {
+    const float dx = axis_gap(px, lx, hx);
+    const float dy = axis_gap(py, ly, hy);
+    return __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+  }
+
+  __device__ __forceinline__ float minmaxdist(float lx, float ly, float hx,
+                                              float hy) const {
+    const float cx = __fmul_rn(__fadd_rn(lx, hx), 0.5f);
+    const float cy = __fmul_rn(__fadd_rn(ly, hy), 0.5f);
+    const float dmx = face_dist(px, px <= cx ? lx : hx);
+    const float dmy = face_dist(py, py <= cy ? ly : hy);
+    const float dMx = face_dist(px, px >= cx ? lx : hx);
+    const float dMy = face_dist(py, py >= cy ? ly : hy);
+    return fminf(__fmaf_rn(dMy, dMy, __fmul_rn(dmx, dmx)),
+                 __fmaf_rn(dmy, dmy, __fmul_rn(dMx, dMx)));
+  }
+};
+
+// One level's SoA rows and the frontier.
+struct Level {
+  const int* ids;                         // (B, C) node ids, -1 pad
+  const float* lx;                        // (N, F) each
+  const float* ly;
+  const float* hx;
+  const float* hy;
+  const int* child;                       // (N, F) child ids, -1 pad
+  int C;
+  int F;
+};
+
+// The lanes of one query row: validity, row offset and distances.
+template <class Q>
+struct Row {
+  const Level& L;
+  const int* ids;                         // this row's C frontier slots
+  Q q;
+
+  // Row offset of lane l's child entry, or -1 when the lane is invalid.
+  __device__ __forceinline__ int64_t offset(int l) const {
+    const int c = l / L.F;
+    const int node = ids[c];
+    if (node < 0) return -1;
+    const int64_t off = (int64_t)node * L.F + (l - c * L.F);
+    return L.child[off] >= 0 ? off : -1;
+  }
+
+  __device__ __forceinline__ float md(int l) const {
+    const int64_t off = offset(l);
+    return off < 0 ? kDistPad
+                   : q.mindist(L.lx[off], L.ly[off], L.hx[off], L.hy[off]);
+  }
+
+  __device__ __forceinline__ float mmd(int l) const {
+    const int64_t off = offset(l);
+    return off < 0 ? kDistPad
+                   : q.minmaxdist(L.lx[off], L.ly[off], L.hx[off], L.hy[off]);
+  }
+};
+
+__device__ __forceinline__ u64 make_key(float d, int l) {
+  return ((u64)__float_as_uint(d) << 32) | (unsigned)l;
+}
+
+// Shared state of the block-level select and compaction.
+struct Scratch {
+  int hist[kBins];
+  int warp_tot[kRowWarps];
+  u64 prefix;
+  int rank;
+};
+
+// The rank-th smallest (0-based) key among the lanes l < M for which
+// keyfn(l, &key) is true, found byte by byte from the most significant;
+// bytes below lo_byte come back 0 and bytes in [lane_bytes, 4) of the
+// lane field are 0 in every key, so their passes are skipped.  The caller
+// guarantees rank < the number of such lanes.  All threads must call.
+template <class KeyFn>
+__device__ u64 radix_select(KeyFn keyfn, int M, int rank, int lo_byte,
+                            int lane_bytes, Scratch& s) {
+  u64 prefix = 0, mask = 0;
+  for (int byte = 7; byte >= lo_byte; --byte) {
+    const int shift = 8 * byte;
+    if (byte < 4 && byte >= lane_bytes) {   // a zero byte of every lane
+      mask |= 0xFFull << shift;
+      continue;
+    }
+    for (int i = threadIdx.x; i < kBins; i += blockDim.x) s.hist[i] = 0;
+    __syncthreads();
+    for (int l = threadIdx.x; l < M; l += blockDim.x) {
+      u64 key;
+      if (keyfn(l, &key) && (key & mask) == prefix)
+        atomicAdd(&s.hist[(key >> shift) & 0xFF], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x < kWarp) {
+      const int lane = threadIdx.x;
+      int own = 0;
+      for (int j = 0; j < 8; ++j) own += s.hist[8 * lane + j];
+      int incl = own;
+      for (int d = 1; d < kWarp; d <<= 1) {
+        const int up = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const unsigned hit = __ballot_sync(kFull, rank < incl);
+      if (lane == __ffs(hit) - 1) {
+        int r = rank - (incl - own);
+        int bin = 8 * lane;
+        while (r >= s.hist[bin]) r -= s.hist[bin++];
+        s.prefix = prefix | ((u64)bin << shift);
+        s.rank = r;
+      }
+    }
+    __syncthreads();
+    prefix = s.prefix;
+    rank = s.rank;
+    mask |= 0xFFull << shift;
+    __syncthreads();                      // s is rewritten by the next pass
+  }
+  return prefix;
+}
+
+// Exclusive rank of `flag` among the block's threads in thread order;
+// *total gets the block's count.  All threads must call.
+__device__ __forceinline__ int block_rank(bool flag, Scratch& s, int* total) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const unsigned bal = __ballot_sync(kFull, flag);
+  if (lane == 0) s.warp_tot[warp] = __popc(bal);
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kRowWarps ? s.warp_tot[lane] : 0;
+    for (int d = 1; d < kRowWarps; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, v, d);
+      if (lane >= d) v += up;
+    }
+    if (lane < kRowWarps) s.warp_tot[lane] = v;
+  }
+  __syncthreads();
+  const int r = (warp == 0 ? 0 : s.warp_tot[warp - 1]) +
+                __popc(bal & ((1u << lane) - 1u));
+  *total = s.warp_tot[kRowWarps - 1];
+  __syncthreads();                        // warp_tot is rewritten next call
+  return r;
+}
+
+// Ascending bitonic sort of keys[0, n) in shared memory; keys[n, pow2)
+// are filled with the largest key first.  All threads must call.
+__device__ void bitonic_sort(u64* keys, int n) {
+  int np2 = 1;
+  while (np2 < n) np2 <<= 1;
+  for (int i = n + threadIdx.x; i < np2; i += blockDim.x) keys[i] = ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= np2; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+        const int p = i ^ j;
+        if (p > i) {
+          const u64 a = keys[i], c = keys[p];
+          if ((a > c) == ((i & size) == 0)) {
+            keys[i] = c;
+            keys[p] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Bytes needed for a lane index < M.
+int lane_bytes_for(long long M) {
+  int n = 1;
+  while (n < 4 && (M - 1) >> (8 * n)) ++n;
+  return n;
+}
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <class Q, bool kLeaf>
+__global__ void __launch_bounds__(kLaneThreads)
+knn_dists_kernel(Level L, const float* __restrict__ queries,
+                 float* __restrict__ md, float* __restrict__ mmd,
+                 int64_t total) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const int64_t bc = g / L.F;
+  const int node = L.ids[bc];
+  float d = kDistPad, u = kDistPad;
+  if (node >= 0) {
+    const int64_t off = (int64_t)node * L.F + (g - bc * L.F);
+    if (L.child[off] >= 0) {
+      const Q q(queries + (bc / L.C) * Q::kWidth);
+      const float lx = L.lx[off], ly = L.ly[off], hx = L.hx[off],
+                  hy = L.hy[off];
+      d = q.mindist(lx, ly, hx, hy);
+      if (!kLeaf) u = q.minmaxdist(lx, ly, hx, hy);
+    }
+  }
+  md[g] = d;
+  if (!kLeaf) mmd[g] = u;
+}
+
+// B6 (kLeaf false) and B7 (kLeaf true): one block per query row.
+//   B6: out_ids (B, cap) next frontier; tau_out, valid_cnt, keep_cnt (B,).
+//   B7: cap == k; out_ids (B, k), out_d (B, k); valid_cnt (B,).
+template <class Q, bool kLeaf>
+__global__ void __launch_bounds__(kRowThreads)
+knn_emit_kernel(Level L, const float* __restrict__ queries,
+                const float* __restrict__ tau_in, int* __restrict__ out_ids,
+                float* __restrict__ out_d, float* __restrict__ tau_out,
+                int* __restrict__ valid_cnt, int* __restrict__ keep_cnt,
+                int cap, int k, int tighten, int lane_bytes) {
+  extern __shared__ u64 keys[];           // pow2_at_least(cap) survivors
+  __shared__ Scratch s;
+  const int b = blockIdx.x;
+  const int M = L.C * L.F;
+  const Row<Q> row{L, L.ids + (int64_t)b * L.C,
+                   Q(queries + (int64_t)b * Q::kWidth)};
+
+  float tau = kLeaf ? kDistPad : tau_in[b];
+  if (!kLeaf && tighten) {
+    const u64 kth = radix_select(
+        [&](int l, u64* key) {
+          *key = make_key(row.mmd(l), l);
+          return true;
+        },
+        M, k - 1, 4, lane_bytes, s);
+    tau = fminf(tau, __uint_as_float((unsigned)(kth >> 32)));
+  }
+
+  // tallies: valid lanes, and kept ones (valid and within tau)
+  int n_valid = 0, n_keep = 0;
+  for (int t0 = 0; t0 < M; t0 += blockDim.x) {
+    const int l = t0 + threadIdx.x;
+    const float d = l < M ? row.md(l) : kDistPad;
+    const bool v = d < kDistValidMax;
+    n_valid += __syncthreads_count(v);
+    if (!kLeaf) n_keep += __syncthreads_count(v && d <= tau);
+  }
+  if (kLeaf) n_keep = n_valid;
+
+  auto kept = [&](int l, u64* key) {
+    const float d = row.md(l);
+    *key = make_key(d, l);
+    return d < kDistValidMax && d <= tau;
+  };
+  int n = 0;                              // survivors gathered in keys
+  if (cap > 0) {
+    // on overflow only the cap smallest keys survive
+    const u64 limit = n_keep > cap
+        ? radix_select(kept, M, cap - 1, 0, lane_bytes, s) : ~0ull;
+    for (int t0 = 0; t0 < M; t0 += blockDim.x) {
+      const int l = t0 + threadIdx.x;
+      u64 key = 0;
+      const bool take = l < M && kept(l, &key) && key <= limit;
+      int tile;
+      const int pos = n + block_rank(take, s, &tile);
+      if (take) keys[pos] = key;
+      n += tile;
+    }
+    bitonic_sort(keys, n);
+  }
+
+  const int64_t base = (int64_t)b * cap;
+  for (int i = threadIdx.x; i < cap; i += blockDim.x) {
+    int id = -1;
+    float d = INFINITY;
+    if (i < n) {
+      const u64 key = keys[i];
+      id = L.child[row.offset((int)(key & 0xffffffffu))];
+      d = __uint_as_float((unsigned)(key >> 32));
+    }
+    out_ids[base + i] = id;
+    if (kLeaf) out_d[base + i] = d;
+  }
+  if (threadIdx.x == 0) {
+    valid_cnt[b] = n_valid;
+    if (!kLeaf) {
+      tau_out[b] = tau;
+      keep_cnt[b] = n_keep;
+    }
+  }
+}
+
+template <bool kLeaf>
+int launch_emit(const Level& L, const float* queries, const float* tau_in,
+                int* out_ids, float* out_d, float* tau_out, int* valid_cnt,
+                int* keep_cnt, int B, int cap, int k, int tighten,
+                cudaStream_t st) {
+  if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(u64) * (size_t)pow2_at_least(cap > 0 ? cap : 1);
+  auto kernel = knn_emit_kernel<PointQuery, kLeaf>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B, kRowThreads, smem, st>>>(
+      L, queries, tau_in, out_ids, out_d, tau_out, valid_cnt, keep_cnt, cap,
+      k, tighten, lane_bytes_for((long long)L.C * L.F));
+  return (int)cudaGetLastError();
+}
+
+Level make_level(const void* ids, const void* lx, const void* ly,
+                 const void* hx, const void* hy, const void* child, int C,
+                 int F) {
+  return Level{(const int*)ids, (const float*)lx, (const float*)ly,
+               (const float*)hx, (const float*)hy, (const int*)child, C, F};
+}
+
+}  // namespace
+
+// The largest cap (B6) or k (B7) whose survivors fit in shared memory.
+extern "C" int rtree_knn_max_cap() { return kMaxCap; }
+
+extern "C" int rtree_knn_dists(const void* ids, const void* points,
+                               const void* lx, const void* ly, const void* hx,
+                               const void* hy, const void* child, void* md,
+                               void* mmd, int B, int C, int F, int leaf,
+                               void* stream) {
+  const Level L = make_level(ids, lx, ly, hx, hy, child, C, F);
+  const int64_t total = (int64_t)B * C * F;
+  const unsigned blocks = (unsigned)((total + kLaneThreads - 1) / kLaneThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (leaf) {
+    knn_dists_kernel<PointQuery, true><<<blocks, kLaneThreads, 0, st>>>(
+        L, (const float*)points, (float*)md, nullptr, total);
+  } else {
+    knn_dists_kernel<PointQuery, false><<<blocks, kLaneThreads, 0, st>>>(
+        L, (const float*)points, (float*)md, (float*)mmd, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtree_knn_level_fused(const void* ids, const void* points,
+                                     const void* lx, const void* ly,
+                                     const void* hx, const void* hy,
+                                     const void* child, const void* tau_in,
+                                     void* next, void* tau_out,
+                                     void* valid_cnt, void* keep_cnt, int B,
+                                     int C, int F, int cap, int k,
+                                     int tighten, void* stream) {
+  return launch_emit<false>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)points,
+      (const float*)tau_in, (int*)next, nullptr, (float*)tau_out,
+      (int*)valid_cnt, (int*)keep_cnt, B, cap, k, tighten,
+      (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_leaf_fused(const void* ids, const void* points,
+                                    const void* lx, const void* ly,
+                                    const void* hx, const void* hy,
+                                    const void* child, void* out_ids,
+                                    void* out_d, void* valid_cnt, int B,
+                                    int C, int F, int k, void* stream) {
+  return launch_emit<true>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)points,
+      nullptr, (int*)out_ids, (float*)out_d, nullptr, (int*)valid_cnt,
+      nullptr, B, k, k, 0, (cudaStream_t)stream);
+}

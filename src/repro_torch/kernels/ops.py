@@ -17,6 +17,7 @@ import torch
 
 from . import ref as _ref
 from . import rtree_join as _join
+from . import rtree_knn as _knn
 from . import rtree_select as _select
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -46,6 +47,12 @@ _KERNELS = {
                         _join.join_pair_masks_cuda),
     ("join", "fused"): (_ref.join_level_fused_ref,
                         _join.join_level_fused_cuda),
+    ("knn", "score"): (_ref.knn_level_dists_ref,
+                       _knn.knn_level_dists_cuda),
+    ("knn", "fused"): (_ref.knn_level_fused_ref,
+                       _knn.knn_level_fused_cuda),
+    ("knn", "fused_leaf"): (_ref.knn_leaf_fused_ref,
+                            _knn.knn_leaf_fused_cuda),
 }
 
 
@@ -72,6 +79,31 @@ def select_level_fused(ids, queries, lx, ly, hx, hy, child, *, cap: int,
     counts (B,), overflow (B,)) — compact_rows' contract, in one step."""
     return kernel_call("select", "fused", ids, queries, lx, ly, hx, hy,
                        child, cap=cap, backend=backend)
+
+
+def knn_level_dists(ids, points, lx, ly, hx, hy, child, *,
+                    leaf: bool = False, backend: str = "auto"):
+    """kNN level-step distances: (B,C) ids × (B,2) points → (mindist
+    (B,C,F), minmaxdist (B,C,F) | None at the leaf) float32, DIST_PAD on
+    invalid lanes."""
+    return kernel_call("knn", "score", ids, points, lx, ly, hx, hy, child,
+                       leaf=leaf, backend=backend)
+
+
+def knn_level_fused(ids, points, lx, ly, hx, hy, child, tau, *, cap: int,
+                    k: int, tighten: bool, backend: str = "auto"):
+    """Fused kNN internal level: (B,C) ids × (B,2) points, τ (B,) →
+    (next_ids (B,cap), τ (B,), valid_cnt (B,), keep_cnt (B,))."""
+    return kernel_call("knn", "fused", ids, points, lx, ly, hx, hy, child,
+                       tau, cap=cap, k=k, tighten=tighten, backend=backend)
+
+
+def knn_leaf_fused(ids, points, lx, ly, hx, hy, child, *, k: int,
+                   backend: str = "auto"):
+    """Fused kNN leaf: (B,C) ids × (B,2) points → (ids (B,k), d (B,k) with
+    (-1, +inf) for missing rows, valid_cnt (B,))."""
+    return kernel_call("knn", "fused_leaf", ids, points, lx, ly, hx, hy,
+                       child, k=k, backend=backend)
 
 
 def join_pair_masks(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords,

@@ -1,18 +1,21 @@
-"""Plain PyTorch twins of the select and join kernels (the reference's
-``kernels/ref.py`` entries for B1–B4).
+"""Plain PyTorch twins of the select, join and kNN kernels (the
+reference's ``kernels/ref.py`` entries for B1–B7).
 
 Each twin has its kernel's contract exactly — same shapes, dtypes and
 padding — and runs on any device.  The CPU tests hold them against the
 JAX package; ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.  All four kernels are compares and integer arithmetic only, so twin
-and kernel agree exactly.
+card.  B1–B4 are compares and integer arithmetic only; B5–B7 compute the
+distances with the roundings pinned in ``core/geometry.py``, which the
+kernels reproduce with explicit intrinsics.  So every twin and its kernel
+agree exactly.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.compaction import compact_pairs, compact_rows
-from ..core.geometry import intersects
+from ..core.geometry import DIST_PAD, intersects, mindist, minmaxdist
+from ..core.traversal import distance_leaf_emit, distance_level_emit
 
 
 def select_level_masks_ref(ids, queries, lx, ly, hx, hy, child):
@@ -86,3 +89,52 @@ def join_level_fused_ref(o_ids, i_ids, alive_cnt, flip_max, o_coords,
     oa, ob, cnt, ovf = compact_pairs(av.reshape(1, -1), bv.reshape(1, -1),
                                      m.reshape(1, -1), cap)
     return oa[0], ob[0], cnt[0], ovf[0]
+
+
+
+# ---------------------------------------------------------------------------
+# kNN: distance scoring (B5) and the fused level / leaf steps (B6, B7)
+# ---------------------------------------------------------------------------
+
+def knn_level_dists_ref(ids, points, lx, ly, hx, hy, child, *,
+                        leaf: bool = False):
+    """Twin of ``knn_level_dists_cuda``: (B, C) ids × (B, 2) points →
+    (mindist (B, C, F), minmaxdist (B, C, F) | None) float32, DIST_PAD on
+    lanes whose frontier slot or child is -1; ``leaf=True`` skips the
+    bound and returns None for it."""
+    safe = ids.clamp(min=0).long()                  # (B, C)
+    glx, gly = lx[safe], ly[safe]                   # (B, C, F)
+    ghx, ghy = hx[safe], hy[safe]
+    px = points[:, 0, None, None]
+    py = points[:, 1, None, None]
+    valid = (child[safe] >= 0) & (ids >= 0)[:, :, None]
+    pad = float(DIST_PAD)
+    md = torch.where(valid, mindist(px, py, glx, gly, ghx, ghy), pad)
+    if leaf:
+        return md, None
+    mmd = minmaxdist(px, py, glx, gly, ghx, ghy)
+    return md, torch.where(valid, mmd, pad)
+
+
+def _make_distance_fused_refs(dists_ref):
+    """The (internal-level, leaf) fused twins of one distance score stage:
+    its scores through the distance engine's emission
+    (``traversal.distance_level_emit`` / ``distance_leaf_emit``), so the
+    kNN and kNN-join twins differ only in the ``dists_ref`` they compose."""
+    def level_fused_ref(ids, queries, lx, ly, hx, hy, child, tau, *,
+                        cap: int, k: int, tighten: bool):
+        md, mmd = dists_ref(ids, queries, lx, ly, hx, hy, child)
+        ptr = child[ids.clamp(min=0).long()]
+        return distance_level_emit(md, mmd, ptr, tau, cap=cap, k=k,
+                                   tighten=tighten)
+
+    def leaf_fused_ref(ids, queries, lx, ly, hx, hy, child, *, k: int):
+        md, _ = dists_ref(ids, queries, lx, ly, hx, hy, child, leaf=True)
+        return distance_leaf_emit(md, child[ids.clamp(min=0).long()], k=k)
+
+    return level_fused_ref, leaf_fused_ref
+
+
+# twins of knn_level_fused_cuda (B6) and knn_leaf_fused_cuda (B7)
+knn_level_fused_ref, knn_leaf_fused_ref = \
+    _make_distance_fused_refs(knn_level_dists_ref)

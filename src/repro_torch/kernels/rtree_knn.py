@@ -1,0 +1,173 @@
+"""Wrappers of the CUDA kNN kernels (``csrc/rtree_knn.cu``).
+
+B5 ``knn_level_dists_cuda`` replaces the Pallas
+``repro/kernels/rtree_knn.py:knn_level_dists`` (line 105); B6
+``knn_level_fused_cuda`` replaces ``knn_level_fused`` (line 454) and B7
+``knn_leaf_fused_cuda`` replaces ``knn_leaf_fused`` (line 467).  The source
+file's header gives each kernel's bound on the card and what its design
+does about it; the plain PyTorch twins are in ``kernels/ref.py``.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, launches on the current CUDA stream, raises if the launch was
+refused, and adds one to its launch count.  Nothing here falls back to the
+twin: CPU tensors raise.  Nothing here waits for the device either.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from . import _build
+
+_LIB = "rtree_knn"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {                           # the stream pointer is appended
+    "rtree_knn_dists": [_P] * 9 + [_I] * 4,
+    "rtree_knn_level_fused": [_P] * 12 + [_I] * 6,
+    "rtree_knn_leaf_fused": [_P] * 10 + [_I] * 4,
+}
+
+# launches per kernel since the last reset (plain integers)
+_launches: Dict[str, int] = {"knn_level_dists": 0, "knn_level_fused": 0,
+                             "knn_leaf_fused": 0}
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _max_cap() -> int:
+    """The largest B6 cap / B7 k of ``csrc/rtree_knn.cu`` (its survivors'
+    keys live in shared memory)."""
+    f = _build.load(_LIB).rtree_knn_max_cap
+    f.argtypes, f.restype = [], ctypes.c_int
+    return int(f())
+
+
+def _check(ids, points, lx, ly, hx, hy, child, **extra):
+    """Validate one level call; returns (B, C, F)."""
+    tensors = dict(ids=ids, points=points, lx=lx, ly=ly, hx=hx, hy=hy,
+                   child=child, **extra)
+    dev = ids.device
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise RuntimeError(
+                f"CUDA kNN kernel: {name} must lie on the CUDA device of "
+                f"ids ({dev}), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"CUDA kNN kernel: {name} must be contiguous")
+        want = torch.int32 if name in ("ids", "child") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if ids.ndim != 2 or 0 in ids.shape:
+        raise ValueError(f"ids must be non-empty (B, C), got "
+                         f"{tuple(ids.shape)}")
+    b, c = ids.shape
+    if tuple(points.shape) != (b, 2):
+        raise ValueError(f"points must be {(b, 2)}, got "
+                         f"{tuple(points.shape)}")
+    if lx.ndim != 2 or 0 in lx.shape:
+        raise ValueError(f"level rows must be non-empty (N, F), got "
+                         f"{tuple(lx.shape)}")
+    for name in ("ly", "hx", "hy", "child"):
+        if tensors[name].shape != lx.shape:
+            raise ValueError(f"{name} must be {tuple(lx.shape)}, got "
+                             f"{tuple(tensors[name].shape)}")
+    if "tau" in extra and tuple(extra["tau"].shape) != (b,):
+        raise ValueError(f"tau must be {(b,)}, got "
+                         f"{tuple(extra['tau'].shape)}")
+    f = lx.shape[1]
+    if c * f >= 2 ** 31:
+        raise ValueError(f"C·F = {c * f} lanes exceed the int32 lane index")
+    return b, c, f
+
+
+def _check_width(name: str, width: int) -> None:
+    if width < 1:
+        raise ValueError(f"{name} must be >= 1, got {width}")
+    most = _max_cap()
+    if width > most:
+        raise ValueError(f"{name} = {width} exceeds the {most} "
+                         f"survivors the CUDA kNN kernels keep in shared "
+                         f"memory")
+
+
+def knn_level_dists_cuda(ids, points, lx, ly, hx, hy, child, *,
+                         leaf: bool = False):
+    """Kernel B5: (B, C) int32 ids (-1 pad) × (B, 2) float32 points over
+    (N, F) SoA rows → (mindist (B, C, F), minmaxdist (B, C, F) | None)
+    float32, DIST_PAD on invalid lanes; ``leaf=True`` computes MINDIST
+    only and returns None for the bound."""
+    b, c, f = _check(ids, points, lx, ly, hx, hy, child)
+    dev = ids.device
+    with torch.cuda.device(dev):
+        md = torch.empty((b, c, f), dtype=torch.float32, device=dev)
+        mmd = None if leaf else torch.empty_like(md)
+        _build.launch(_LIB, "rtree_knn_dists", _ARGTYPES["rtree_knn_dists"],
+                      ids.data_ptr(), points.data_ptr(), lx.data_ptr(),
+                      ly.data_ptr(), hx.data_ptr(), hy.data_ptr(),
+                      child.data_ptr(), md.data_ptr(),
+                      None if leaf else mmd.data_ptr(), b, c, f, int(leaf))
+    _launches["knn_level_dists"] += 1
+    return md, mmd
+
+
+def knn_level_fused_cuda(ids, points, lx, ly, hx, hy, child, tau, *,
+                         cap: int, k: int, tighten: bool):
+    """Kernel B6: one internal level — τ = min(tau, k-th smallest
+    MINMAXDIST over the C·F lanes) when ``tighten``, MINDIST <= τ pruning,
+    and the best-first beam → (next (B, cap) int32 -1 padded, τ (B,)
+    float32, valid_cnt (B,) int32, keep_cnt (B,) int32)."""
+    b, c, f = _check(ids, points, lx, ly, hx, hy, child, tau=tau)
+    _check_width("cap", cap)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if tighten and c * f < k:
+        raise ValueError(f"tightening needs C·F >= k lanes, got {c * f} < "
+                         f"{k}")
+    dev = ids.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        nxt = torch.empty((b, cap), **i32)
+        tau_out = torch.empty((b,), dtype=torch.float32, device=dev)
+        valid_cnt = torch.empty((b,), **i32)
+        keep_cnt = torch.empty((b,), **i32)
+        _build.launch(_LIB, "rtree_knn_level_fused",
+                      _ARGTYPES["rtree_knn_level_fused"], ids.data_ptr(),
+                      points.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                      hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
+                      tau.data_ptr(), nxt.data_ptr(), tau_out.data_ptr(),
+                      valid_cnt.data_ptr(), keep_cnt.data_ptr(), b, c, f,
+                      cap, k, int(bool(tighten)))
+    _launches["knn_level_fused"] += 1
+    return nxt, tau_out, valid_cnt, keep_cnt
+
+
+def knn_leaf_fused_cuda(ids, points, lx, ly, hx, hy, child, *, k: int):
+    """Kernel B7: the leaf — the k valid lanes of smallest (MINDIST, lane)
+    → (ids (B, k) int32, d (B, k) float32 with (-1, +inf) for missing
+    rows, valid_cnt (B,) int32)."""
+    b, c, f = _check(ids, points, lx, ly, hx, hy, child)
+    _check_width("k", k)
+    dev = ids.device
+    with torch.cuda.device(dev):
+        out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+        out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+        valid_cnt = torch.empty((b,), dtype=torch.int32, device=dev)
+        _build.launch(_LIB, "rtree_knn_leaf_fused",
+                      _ARGTYPES["rtree_knn_leaf_fused"], ids.data_ptr(),
+                      points.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                      hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
+                      out_ids.data_ptr(), out_d.data_ptr(),
+                      valid_cnt.data_ptr(), b, c, f, k)
+    _launches["knn_leaf_fused"] += 1
+    return out_ids, out_d, valid_cnt

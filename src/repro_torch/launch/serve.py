@@ -1,17 +1,19 @@
 """Spatial query service of the port: builds a spatially-partitioned
 index fleet on the device (distributed/spatial_shard.py) and serves batched
-range-select requests behind the straggler pool (runtime/straggler.py), or
-spatial joins of a probe relation against the fleet.
+range-select requests behind the straggler pool (runtime/straggler.py),
+spatial joins of a probe relation against the fleet, or batched exact kNN.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 200000 \\
         --partitions 8 --batches 20 --batch-size 64 --selectivity 0.001
     PYTHONPATH=src python -m repro_torch.launch.serve --mode join \\
         --n 200000 --join-cap 131072 --query-eps 0.002
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn \\
+        --n 2000000 --k 8
 
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
-raises.  ``--mode spatial`` (the default), its alias ``select``, and
-``join`` are ported; the other modes of the reference exit with a "not
+raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``
+and ``knn`` are ported; the other modes of the reference exit with a "not
 ported yet" message naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -32,11 +34,12 @@ MODE_TO_SPEC = {
     "spatial": "select",
     "select": "select",
     "join": "join",
+    "knn": "knn",
 }
 
 # modes of the reference that later slices port
 NOT_PORTED = {
-    "knn": "A7", "knn-join": "A8", "knn-filtered": "A10",
+    "knn-join": "A8", "knn-filtered": "A10",
     "browse": "A10", "lm": "A14",
 }
 
@@ -57,6 +60,15 @@ def make_join_inputs(n: int, seed: int, eps: float):
     probe_pts = rng.random((max(n // 10, 64), 2), dtype=np.float32)
     e = np.float32(eps)
     return rects, np.concatenate([probe_pts - e, probe_pts + e], axis=-1)
+
+
+def make_knn_inputs(n: int, seed: int, batches: int, batch_size: int):
+    """The served dataset and the kNN query points, as the reference draws
+    them from one generator: ``make_rects``'s ``n`` data points first, then
+    (batches, batch_size, 2) uniform query points.  Returns (rects, qs)."""
+    rng = np.random.default_rng(seed)
+    rects = str_pack.points_to_rects(rng.random((n, 2), dtype=np.float32))
+    return rects, rng.random((batches, batch_size, 2), dtype=np.float32)
 
 
 def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
@@ -135,9 +147,41 @@ def _serve_join(args, spec):
             "merge_s": merge_s, "last_pairs": pairs}
 
 
+def _serve_knn(args, spec):
+    """Batched exact kNN over the partitioned fleet: each query's primary
+    partition, then the partitions within its k-th distance, merged by
+    (distance, global id).  One fleet and no spare replica, so batches are
+    served directly (the straggler pool could only re-issue the same call).
+    Returns q/s, the neighbour rows returned, the overflow flag, and the
+    first batch's (ids, dists)."""
+    rects, qs = make_knn_inputs(args.n, args.seed, args.batches,
+                                args.batch_size)
+    shards = _build_shards(args, rects)
+    shards.warm("knn", args.batch_size, k=args.k)
+    t0 = time.time()
+    returned = 0
+    overflowed = False
+    first = None
+    for b in range(args.batches):
+        ids, dists, ovf = shards.knn(qs[b], args.k)
+        first = (ids, dists) if first is None else first
+        returned += int((ids >= 0).sum())
+        overflowed |= ovf
+    dt = time.time() - t0
+    qps = args.batches * args.batch_size / dt
+    print(f"served {args.batches} batches × {args.batch_size} kNN queries "
+          f"(k={args.k}) in {dt:.2f}s → {qps:,.0f} q/s, {returned} neighbor "
+          f"rows"
+          + (", WARNING: frontier overflow — results may be approximate"
+             if overflowed else ""))
+    return {"qps": qps, "neighbors": returned, "overflow": overflowed,
+            "first_batch": first}
+
+
 RUNNERS = {
     "select": _serve_select,
     "join": _serve_join,
+    "knn": _serve_knn,
 }
 
 
@@ -153,6 +197,8 @@ def main(argv=None):
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--selectivity", type=float, default=0.001)
+    ap.add_argument("--k", type=int, default=8,
+                    help="neighbours per query (knn mode)")
     ap.add_argument("--join-cap", type=int, default=1 << 17,
                     help="result-pair capacity (join mode)")
     ap.add_argument("--query-eps", type=float, default=0.002,
@@ -180,6 +226,7 @@ def main(argv=None):
         args.batches = min(args.batches, 2)
         args.batch_size = min(args.batch_size, 8)
         args.join_cap = min(args.join_cap, 1 << 15)
+        args.k = min(args.k, 4)
         # slow shared smoke boxes: a lapsed deadline would only add
         # spurious re-issue work, never find a bug
         args.deadline = max(args.deadline, 60.0)

@@ -5,17 +5,21 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-B1–B4 are held against their plain PyTorch twins, and the select and join
-engines on the card against the same engines on the CPU.  Compares and
-integer arithmetic only, so everything is exact.
+B1–B7 are held against their plain PyTorch twins, and the select, join
+and kNN engines on the card against the same engines on the CPU.  B1–B4
+are compares and integer arithmetic; B5–B7 compute distances with the
+roundings pinned in ``core/geometry.py``.  So everything is exact, float
+bits included.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import join_vector, layouts, rtree, select_vector
+from repro_torch.core import (join_vector, knn_vector, layouts, rtree,
+                              select_vector)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rtree_join as jkern
+from repro_torch.kernels import rtree_knn as kkern
 from repro_torch.kernels import rtree_select as kern
 
 from conftest import uniform_rects
@@ -151,3 +155,86 @@ def test_cuda_join_engine_equals_cpu_engine(join_inst, fused, o34):
     np.testing.assert_array_equal(cp.cpu().numpy(), tp.numpy())
     assert int(cn) == int(tn) > 0
     assert ct.asdict() == tc.asdict()
+
+
+def _bits_equal(got, want):
+    """Exact equality of tensors, float bits included (+inf and DIST_PAD
+    alike)."""
+    g, w = got.cpu(), want.cpu()
+    assert g.dtype == w.dtype and g.shape == w.shape
+    if g.dtype == torch.float32:
+        g, w = g.view(torch.int32), w.view(torch.int32)
+    np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.fixture(scope="module")
+def knn_inst():
+    rng = np.random.default_rng(43)
+    rects = uniform_rects(rng, 3000, eps=0.003)
+    pts = (rng.random((6, 2)) * 1.4 - 0.2).astype(np.float32)
+    return rects, pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_cuda_knn_kernels_equal_twins(knn_inst, k):
+    """B5 (both variants), B6 (tighten on and off, a random τ_in, a cap
+    that holds and one that overflows) and B7 ≡ their twins, bit for bit,
+    on every level with random frontiers (shuffled, 20% of slots -1)."""
+    dev = _need_gpu()
+    rects, pts = knn_inst
+    tree = rtree.build_rtree(rects, fanout=16, device=dev)
+    p = torch.from_numpy(pts).to(dev)
+    rng = np.random.default_rng(k)
+    for lvl in tree.levels:
+        c = min(lvl.n_nodes, 48)
+        ids = np.stack([rng.permutation(lvl.n_nodes)[:c]
+                        for _ in range(len(pts))]).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.2] = -1
+        ids = torch.from_numpy(ids).to(dev)
+        rows = [getattr(lvl, f) for f in ROWS]
+        before = kkern.launch_counts()
+        for leaf in (False, True):
+            got = kkern.knn_level_dists_cuda(ids, p, *rows, leaf=leaf)
+            want = ref.knn_level_dists_ref(ids, p, *rows, leaf=leaf)
+            _bits_equal(got[0], want[0])
+            assert (got[1] is None) == (want[1] is None) == leaf
+            if not leaf:
+                _bits_equal(got[1], want[1])
+        tau = torch.from_numpy(rng.random(len(pts)).astype(np.float32)
+                               * 0.05).to(dev)
+        for tighten in ((False, True) if c * 16 >= k else (False,)):
+            for cap in (3, 256):
+                got = kkern.knn_level_fused_cuda(ids, p, *rows, tau,
+                                                 cap=cap, k=k,
+                                                 tighten=tighten)
+                want = ref.knn_level_fused_ref(ids, p, *rows, tau, cap=cap,
+                                               k=k, tighten=tighten)
+                for g, w in zip(got, want):
+                    _bits_equal(g, w)
+        for g, w in zip(kkern.knn_leaf_fused_cuda(ids, p, *rows, k=k),
+                        ref.knn_leaf_fused_ref(ids, p, *rows, k=k)):
+            _bits_equal(g, w)
+        after = kkern.launch_counts()
+        n_fused = 2 * (2 if c * 16 >= k else 1)
+        assert after["knn_level_dists"] == before["knn_level_dists"] + 2
+        assert after["knn_level_fused"] == before["knn_level_fused"] + n_fused
+        assert after["knn_leaf_fused"] == before["knn_leaf_fused"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_cuda_knn_engine_equals_cpu_engine(knn_inst, k, caps_mode, fused):
+    dev = _need_gpu()
+    rects, pts = knn_inst
+    outs = []
+    for device in (dev, "cpu"):
+        tree = rtree.build_rtree(rects, fanout=16, device=device)
+        outs.append(knn_vector.make_knn_bfs(tree, k, fused=fused,
+                                            caps_mode=caps_mode)(pts))
+    (ci, cd, ct), (ti, td, tt) = outs
+    _bits_equal(ci, ti)
+    _bits_equal(cd, td)
+    assert ct.asdict() == tt.asdict()

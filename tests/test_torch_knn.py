@@ -1,0 +1,437 @@
+"""Port (repro_torch) ≡ reference (repro): the kNN slice.
+
+The distance functions and the B5 twin are held against the reference's
+jitted ``ref.knn_level_dists_ref`` and its Pallas kernel run as the
+reference's own tests run it on the CPU (``interpret=True``); the B6/B7
+twins against the reference's jitted fused twins; the kNN engine against
+the reference's jitted ``backend="xla"`` engine; the fleet against its
+host path.  Inputs are made with numpy from a seed and handed to both
+packages.  The port pins the reference's FMA roundings, so every
+comparison is exact: ids, distance bits, overflow and every ``Counters``
+field except ``dispatches``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import caps as jcaps
+from repro.core import compaction as jcompaction
+from repro.core import geometry as jgeometry
+from repro.core import knn_vector as jknn
+from repro.core import rtree as jrtree
+from repro.core import traversal as jtraversal
+from repro.distributed.spatial_shard import SpatialShards as JShards
+from repro.kernels import ref as jref
+from repro.kernels import rtree_knn as jkern
+from repro_torch.core import caps as tcaps
+from repro_torch.core import compaction as tcompaction
+from repro_torch.core import geometry as tgeometry
+from repro_torch.core import knn_vector as tknn
+from repro_torch.core import rtree as trtree
+from repro_torch.core import traversal as ttraversal
+from repro_torch.core.counters import Counters
+from repro_torch.distributed.spatial_shard import SpatialShards as TShards
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rtree_knn as tkern
+from repro_torch.launch import serve
+
+from conftest import uniform_rects
+
+ENGINE_FIELDS = tuple(f for f in Counters.__dataclass_fields__
+                      if f != "dispatches")
+ROWS = ("lx", "ly", "hx", "hy", "child")
+_jit_dists = jax.jit(jref.knn_level_dists_ref, static_argnames=("leaf",))
+_jit_level_fused = jax.jit(jref.knn_level_fused_ref,
+                           static_argnames=("cap", "k", "tighten"))
+_jit_leaf_fused = jax.jit(jref.knn_leaf_fused_ref, static_argnames=("k",))
+
+
+@pytest.fixture(scope="module")
+def inst():
+    """20,000 small rects, fanout 16 (height 4), in both packages, and
+    64 query points (a batch that overflows the adaptive tier at k = 1)."""
+    rng = np.random.default_rng(3)
+    rects = uniform_rects(rng, 20000, eps=0.001)
+    jtree = jrtree.build_rtree(rects, fanout=16)
+    ttree = trtree.build_rtree(rects, fanout=16, device="cpu")
+    assert ttree.height == 4
+    pts = rng.random((64, 2)).astype(np.float32)
+    return rects, jtree, ttree, pts
+
+
+def _with_far_points(pts):
+    """The batch plus 16 points outside the unit square."""
+    far = np.random.default_rng(1).random((16, 2)).astype(np.float32)
+    return np.concatenate([pts, far * 1.6 - 0.3])
+
+
+def _bits(a):
+    """A float32 array's bits (int32), so +inf and DIST_PAD compare
+    exactly; other dtypes as they are."""
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _assert_same(got, want, ctx):
+    assert _bits(got).dtype == _bits(want).dtype, ctx
+    np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=ctx)
+
+
+def _frontier(rng, n_nodes, b=64, c=24, pad=0.2):
+    """(B, C) random node ids of a level, some slots -1."""
+    ids = rng.integers(0, n_nodes, (b, c)).astype(np.int32)
+    ids[rng.random((b, c)) < pad] = -1
+    return ids
+
+
+def _level_args(tree, li, torch_side):
+    lvl = tree.levels[li]
+    return [getattr(lvl, f) if torch_side else jnp.asarray(getattr(lvl, f))
+            for f in ROWS]
+
+
+# ---------------------------------------------------------------------------
+# distances, the B5 twin, the fused twins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+@pytest.mark.parametrize("leaf", [False, True])
+def test_distances_equal_jitted_reference(spread, leaf):
+    """Random node rows and points (``spread`` 3 puts most points outside
+    the unit square): the port's MINDIST/MINMAXDIST ≡ the reference's jitted
+    gather trace, bit for bit."""
+    rng = np.random.default_rng(int(spread * 10) + leaf)
+    n, f = 300, 16
+    lo = rng.random((n, f, 2)).astype(np.float32)
+    ext = (rng.random((n, f, 2)) ** 3 * 0.3).astype(np.float32)
+    rows = [lo[..., 0], lo[..., 1], lo[..., 0] + ext[..., 0],
+            lo[..., 1] + ext[..., 1]]
+    child = rng.integers(-1, 1000, (n, f)).astype(np.int32)
+    ids = _frontier(rng, n, b=64, c=40)
+    pts = ((rng.random((64, 2)) - 0.5) * spread + 0.5).astype(np.float32)
+    want = _jit_dists(ids, pts, *rows, child, leaf=leaf)
+    got = ref.knn_level_dists_ref(*map(torch.from_numpy, (ids, pts, *rows,
+                                                          child)), leaf=leaf)
+    _assert_same(got[0], want[0], "mindist")
+    if leaf:
+        assert got[1] is None and want[1] is None
+    else:
+        _assert_same(got[1], want[1], "minmaxdist")
+    assert (got[0] < float(tgeometry.DIST_VALID_MAX)).any()
+
+
+def test_fma32_rounds_once():
+    """a·a + c lands on a float32 midpoint after a float64 sum (a = 1 +
+    2^-12, c = 2^-60): one rounding gives the upper neighbour, a float64
+    sum rounded again gives the lower one."""
+    a = torch.tensor([1 + 2 ** -12, 0.75, 3.0], dtype=torch.float32)
+    c = torch.tensor([2 ** -60, 0.5, -9.0], dtype=torch.float32)
+    got = tgeometry.fma32(a, a, c)
+    assert got.tolist() == [1 + 2 ** -11 + 2 ** -23, 1.0625, 0.0]
+    naive = (a.double() * a.double() + c.double()).float()
+    assert naive[0].item() == 1 + 2 ** -11
+
+
+def test_numpy_oracles_equal_reference(inst):
+    rects, _, _, pts = inst
+    r = rects[:500].astype(np.float64)
+    p = pts.astype(np.float64)
+    args = (p[:, 0, None], p[:, 1, None], r[None, :, 0], r[None, :, 1],
+            r[None, :, 2], r[None, :, 3])
+    for name in ("mindist_np", "minmaxdist_np"):
+        np.testing.assert_array_equal(getattr(tgeometry, name)(*args),
+                                      getattr(jgeometry, name)(*args))
+    np.testing.assert_array_equal(tgeometry.mindist_matrix_np(pts, rects),
+                                  jgeometry.mindist_matrix_np(pts, rects))
+    for k in (1, 8, 600):                        # 600 > 500 rects: padded
+        for g, w in zip(tgeometry.brute_force_knn(rects[:500], pts, k),
+                        jgeometry.brute_force_knn(rects[:500], pts, k)):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("leaf", [False, True])
+@pytest.mark.parametrize("li", [0, 1, 2])
+def test_level_dists_twin_equals_pallas(inst, li, leaf):
+    _, jtree, ttree, pts = inst
+    rng = np.random.default_rng(10 * li + leaf)
+    ids = _frontier(rng, ttree.levels[li].n_nodes)
+    want = jkern.knn_level_dists(jnp.asarray(ids), jnp.asarray(pts),
+                                 *_level_args(jtree, li, False), leaf=leaf,
+                                 interpret=True)
+    got = ref.knn_level_dists_ref(torch.from_numpy(ids),
+                                  torch.from_numpy(pts),
+                                  *_level_args(ttree, li, True), leaf=leaf)
+    _assert_same(got[0], want[0], "mindist")
+    if not leaf:
+        _assert_same(got[1], want[1], "minmaxdist")
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_fused_twins_equal_jitted_reference(inst, k):
+    """B6 (tighten on and off, random τ_in, a cap that holds and one that
+    overflows) and B7 (also C·F < k) ≡ the reference's jitted twins."""
+    _, jtree, ttree, pts = inst
+    rng = np.random.default_rng(k)
+    for li in range(ttree.height):
+        ids = _frontier(rng, ttree.levels[li].n_nodes, c=8)
+        jargs = [jnp.asarray(ids), jnp.asarray(pts),
+                 *_level_args(jtree, li, False)]
+        targs = [torch.from_numpy(ids), torch.from_numpy(pts),
+                 *_level_args(ttree, li, True)]
+        tau = (rng.random(64) * 0.01).astype(np.float32)
+        for tighten in ((False, True) if 8 * 16 >= k else (False,)):
+            for cap in (4, 64):
+                kw = dict(cap=cap, k=k, tighten=tighten)
+                want = _jit_level_fused(*jargs, jnp.asarray(tau), **kw)
+                got = ref.knn_level_fused_ref(*targs, torch.from_numpy(tau),
+                                              **kw)
+                for g, w, name in zip(got, want, ("next", "tau", "valid",
+                                                  "keep")):
+                    _assert_same(g, w, f"level {li} {kw} {name}")
+        for kk in (k, 200):                           # 200 > C·F = 128
+            want = _jit_leaf_fused(*jargs, k=kk)
+            got = ref.knn_leaf_fused_ref(*targs, k=kk)
+            for g, w, name in zip(got, want, ("ids", "d", "valid")):
+                _assert_same(g, w, f"level {li} leaf k={kk} {name}")
+        assert int((got[0] < 0).sum()) >= 64 * (200 - 128)
+
+
+# ---------------------------------------------------------------------------
+# compaction and caps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [1, 5, 40, 300])
+def test_beam_rows_equal_reference(cap):
+    """Distances drawn from few values (many ties) and a mask: the same
+    beam, order, count and overflow; cap 300 > M pads."""
+    rng = np.random.default_rng(cap)
+    vals = rng.integers(0, 10 ** 6, (6, 200)).astype(np.int32)
+    d = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0, 7.0]), (6, 200))
+    mask = rng.random((6, 200)) < 0.4
+    want = jcompaction.beam_rows(jnp.asarray(vals), jnp.asarray(d),
+                                 jnp.asarray(mask), cap)
+    got = tcompaction.beam_rows(*map(torch.from_numpy, (vals, d, mask)), cap)
+    for g, w in zip(got, want):
+        _assert_same(g, w, f"cap {cap}")
+    assert bool(got[2].any()) == (cap < 200 * 0.3)
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_knn_frontier_caps_equal_reference(inst, k):
+    _, jtree, ttree, _ = inst
+    for policy in ("static", "adaptive"):
+        assert tknn.knn_frontier_caps(ttree, k, policy=policy) == \
+            jknn.knn_frontier_caps(jtree, k, policy=policy)
+    assert tcaps._distance_floor(k, 16, 4) == jcaps._distance_floor(k, 16, 4)
+
+
+# ---------------------------------------------------------------------------
+# the kNN engine ≡ the reference's jitted xla path
+# ---------------------------------------------------------------------------
+
+def _knn_both(jtree, ttree, pts, k, **kw):
+    jout = jknn.make_knn_bfs(jtree, k, backend="xla", **kw)(pts)
+    tfn = tknn.make_knn_bfs(ttree, k, **kw)
+    return jout, tfn(pts), tfn
+
+
+def _assert_knn_equal(jout, tout, ctx):
+    (ji, jd, jc), (ti, td, tc) = jout, tout
+    assert ti.dtype == torch.int32 and td.dtype == torch.float32
+    _assert_same(ti, ji, f"{ctx} ids")
+    _assert_same(td, jd, f"{ctx} dists")
+    for f in ENGINE_FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(tc, f)), np.asarray(getattr(jc, f)),
+            err_msg=f"{ctx}: {f}")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_make_knn_bfs_equals_reference(inst, k, caps_mode, fused):
+    rects, jtree, ttree, pts = inst
+    pts = _with_far_points(pts)
+    jout, tout, tfn = _knn_both(jtree, ttree, pts, k, caps_mode=caps_mode,
+                                fused=fused)
+    _assert_knn_equal(jout, tout, f"k={k} {caps_mode} fused={fused}")
+    ti, td, tc = tout
+    assert int(tc.overflow) == 0
+    if caps_mode == "static":
+        tc.validate_dispatches(tknn.KNN_SPEC.stage_model, ttree.height,
+                               fused=fused)
+    rows = np.r_[0:4, 76:80]                        # near and far queries
+    _, want_d = tgeometry.brute_force_knn(rects, pts[rows], k)
+    np.testing.assert_allclose(td.numpy()[rows], want_d, rtol=1e-4,
+                               atol=1e-9)
+    for i in rows:
+        assert len(set(ti[i].tolist())) == k
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_beam_overflow_equals_reference(inst, fused):
+    """Caps far below the τ band: every level overflows into its
+    best-first beam, identically in both packages."""
+    _, jtree, ttree, pts = inst
+    jout, tout, _ = _knn_both(jtree, ttree, pts, 8, caps=(2, 3, 3),
+                              fused=fused)
+    _assert_knn_equal(jout, tout, f"beam fused={fused}")
+    assert int(tout[2].overflow) == 1
+    assert bool((tout[0] >= 0).all())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_knn_escalation_equals_reference(inst, fused):
+    """k = 1 on the adaptive tier overflows and escalates once per batch;
+    with a tight tier that always overflows, the runner pins itself to
+    the full tier after three batches in a row."""
+    _, jtree, ttree, pts = inst
+    jout, tout, tfn = _knn_both(jtree, ttree, pts, 1, fused=fused)
+    _assert_knn_equal(jout, tout, f"k=1 adaptive fused={fused}")
+    assert int(tout[2].escalations) == 1 and tfn.escalation_count() == 1
+    full = tknn.knn_frontier_caps(ttree, 8)
+    jesc = jtraversal.maybe_escalating(
+        lambda c: jknn.make_knn_bfs(jtree, 8, caps=c, backend="xla",
+                                    fused=fused), (1, 1, 1), full)
+    tesc = ttraversal.maybe_escalating(
+        lambda c: tknn.make_knn_bfs(ttree, 8, caps=c, fused=fused),
+        (1, 1, 1), full)
+    for batch in range(4):
+        _assert_knn_equal(jesc(pts), tesc(pts), f"batch {batch}")
+        assert tesc.escalation_count() == jesc.escalation_count() == \
+            batch + 1
+        assert tesc.stuck() == jesc.stuck() == (batch >= 2)
+    assert tesc.host_syncs() == 3
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_k_above_n_rects_equals_reference(fused):
+    """k > n_rects: the missing rows are (-1, +inf) in both packages."""
+    rng = np.random.default_rng(9)
+    rects = uniform_rects(rng, 40, eps=0.01)
+    jtree = jrtree.build_rtree(rects, fanout=4)
+    ttree = trtree.build_rtree(rects, fanout=4, device="cpu")
+    pts = rng.random((5, 2)).astype(np.float32)
+    jout, tout, _ = _knn_both(jtree, ttree, pts, 64, caps_mode="static",
+                              fused=fused)
+    _assert_knn_equal(jout, tout, f"k > n fused={fused}")
+    ti, td, _ = tout
+    assert bool((ti[:, 40:] == -1).all()) and bool(torch.isinf(
+        td[:, 40:]).all()) and bool((ti[:, :40] >= 0).all())
+
+
+def test_tau_init_and_active_hooks_equal_reference(inst):
+    """The mesh path's hooks: a seeded τ and masked-out queries."""
+    _, jtree, ttree, pts = inst
+    rng = np.random.default_rng(4)
+    tau = (rng.random(64) * 2e-4).astype(np.float32)
+    active = rng.random(64) < 0.7
+    jrun = jknn.make_knn_bfs(jtree, 8, backend="xla", caps_mode="static")
+    trun = tknn.make_knn_bfs(ttree, 8, caps_mode="static")
+    jout = jrun(pts, tau_init=jnp.asarray(tau), active=jnp.asarray(active))
+    tout = trun(pts, tau_init=torch.from_numpy(tau),
+                active=torch.from_numpy(active))
+    _assert_knn_equal(jout, tout, "hooks")
+    assert bool((tout[0][~torch.from_numpy(active)] == -1).all())
+
+
+@pytest.mark.parametrize("layout", ["d0", "d2", "d3"])
+def test_other_layouts_raise_naming_a9(inst, layout):
+    _, _, ttree, _ = inst
+    with pytest.raises(NotImplementedError, match="A9"):
+        tknn.make_knn_bfs(ttree, 8, layout=layout)
+
+
+def test_generic_knn_build_equals_wrapper(inst):
+    _, _, ttree, pts = inst
+    a = ttraversal.build("knn", ttree, k=8)(pts)
+    b = tknn.make_knn_bfs(ttree, 8)(pts)
+    for x, y in zip(a[:2], b[:2]):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    assert a[2].asdict() == b[2].asdict()
+    spec = ttraversal.get_spec("knn")
+    assert spec.kind == "distance" and spec.query_width == 2
+    with pytest.raises(ValueError, match="k must be positive"):
+        tknn.make_knn_bfs(ttree, 0)
+
+
+# ---------------------------------------------------------------------------
+# the fleet and the serve entry point
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_fleet_knn_equals_reference_host_path(k):
+    rng = np.random.default_rng(5 + k)
+    rects = uniform_rects(rng, 6000, eps=0.001)
+    pts = rng.random((40, 2)).astype(np.float32)
+    jshards = JShards.build(rects, 4, fanout=16)
+    tshards = TShards.build(rects, 4, fanout=16, device="cpu")
+    want = jshards.knn(pts, k)
+    got = tshards.knn(pts, k)
+    assert got[0].dtype == np.int64 and got[1].dtype == np.float64
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] is want[2] is False
+    for f in ENGINE_FIELDS + ("dispatches",):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(tshards.last_counters, f)),
+            np.asarray(getattr(jshards.last_counters, f)), err_msg=f)
+    _, want_d = tgeometry.brute_force_knn(rects, pts, k)
+    np.testing.assert_allclose(got[1], want_d, rtol=1e-4, atol=1e-9)
+    n_engines = len(tshards._engines)
+    tshards.warm("knn", 8, k=k)
+    assert len(tshards._engines) == n_engines
+    with pytest.raises(ValueError, match="needs k"):
+        tshards.warm("knn", 8)
+
+
+def test_serve_knn_dryrun_cpu():
+    out = serve.main(["--mode", "knn", "--dryrun", "--device", "cpu"])
+    assert out["qps"] > 0 and not out["overflow"]
+    assert out["neighbors"] == 2 * 8 * 4                  # k capped at 4
+    rects, qs = serve.make_knn_inputs(2000, 0, 2, 8)
+    np.testing.assert_array_equal(serve.make_rects(2000, 0), rects)
+    ids, d = out["first_batch"]
+    want_i, want_d = tgeometry.brute_force_knn(rects, qs[0], 4)
+    np.testing.assert_allclose(d, want_d, rtol=1e-4, atol=1e-9)
+    assert ids.shape == (8, 4) and bool((ids >= 0).all())
+
+
+def test_serve_knn_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mode", "knn", "--dryrun"])
+
+
+# ---------------------------------------------------------------------------
+# no fallback: a CUDA request never quietly becomes the CPU twin
+# ---------------------------------------------------------------------------
+
+def test_cuda_backend_on_cpu_tensors_raises_for_knn(inst):
+    _, _, ttree, pts = inst
+    rows = _level_args(ttree, 0, True)
+    ids = torch.zeros((4, 2), dtype=torch.int32)
+    p = torch.from_numpy(pts[:4])
+    tau = torch.full((4,), 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_level_dists(ids, p, *rows, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_level_fused(ids, p, *rows, tau, cap=8, k=4, tighten=True,
+                            backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_leaf_fused(ids, p, *rows, k=4, backend="cuda")
+    for fn, kw in ((tkern.knn_level_dists_cuda, {}),
+                   (tkern.knn_leaf_fused_cuda, dict(k=4))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(ids, p, *rows, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkern.knn_level_fused_cuda(ids, p, *rows, tau, cap=8, k=4,
+                                   tighten=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tknn.make_knn_bfs(ttree, 8, backend="cuda")
+    before = tkern.launch_counts()
+    assert ops.knn_level_dists(ids, p, *rows)[0].shape == (4, 2, 16)
+    assert ops.knn_leaf_fused(ids, p, *rows, k=4)[0].shape == (4, 4)
+    assert tkern.launch_counts() == before
