@@ -13,8 +13,9 @@ Phases, each of which fails the run loudly:
    (``select_level_fused_cuda``) against their plain PyTorch twins, exact,
    on every level of a 2M-rect fanout-64 tree with B=64 frontiers taken
    from a real descent (columns shuffled, 10% of slots set to -1), plus a
-   cap-64 overflow case; CUDA-event times of kernel and twin at the leaf
-   level beside the bound;
+   cap-64 overflow case; at the leaf level the kernels' device time per
+   call (torch.profiler), their time per call with the wrapper and the
+   twins' (CUDA events), beside the bound;
 4. engine: ``make_select_bfs`` with ``result_cap=4096`` in the four cells
    static/adaptive × unfused/fused against the twin engine on the card
    (ids, counts, every counter, exact) and 8 queries against numpy brute
@@ -28,8 +29,9 @@ Phases, each of which fails the run loudly:
    (``join_pair_masks_cuda``) and B4 (``join_level_fused_cuda``) against
    their twins, exact, on pair frontiers from a real descent (shuffled,
    10% of slots -1) with the pruning bounds from the pre-pass (O3/O4-O5
-   off and on) and random, plus a B4 cap that overflows; CUDA-event times
-   of kernel and twin at the leaf step beside the bound;
+   off and on) and random, plus a B4 cap that overflows; at the leaf step
+   device, per-call and twin times (as phase 3; B4's four kernels summed)
+   beside the bound;
 7. join engine: ``make_join_bfs(result_cap=1048576)`` over the centre
    partition in the four cells {O3/O4 off, on} × {unfused, fused} against
    the twin engine on the card (pairs, count, every counter) and against
@@ -57,7 +59,21 @@ Phases, each of which fails the run loudly:
    cells, B6 and B7 in the fused ones; ms per 64-query batch;
 11. kNN serve: ``serve.main(["--mode", "knn", ...])`` at 2M points with
    k = 8 on cuda; B5's launch count must grow, nothing may overflow, the
-   first batch against a float64 brute force on the card; q/s.
+   first batch against a float64 brute force on the card; q/s;
+12. kNN-join kernels: phase 9 for B8 (``knn_join_level_dists_cuda``), B9
+   (``knn_join_level_fused_cuda``) and B10 (``knn_join_leaf_fused_cuda``)
+   with the first served batch of 64 query rects (half-extent 0.002); the
+   times also at batch 4,096 (the first all-pairs chunk);
+13. kNN-join engine: phase 10 for ``make_knn_join_bfs`` against the
+   reference's numbers for that batch (every k = 8 distance is 0);
+14. all-pairs kNN-join: ``knn_join`` of the 200,000 probe rects of phase 6
+   against the phase-3 tree, k = 8, in chunks of 4,096, unfused and fused:
+   the two equal, the first two chunks ≡ the twin engine, 256 sampled rows
+   against brute force; s per join, rows/s, peak device memory, device
+   busy share;
+15. kNN-join serve: ``serve.main(["--mode", "knn-join", ...])`` at 2M
+   points with k = 8 on cuda; B8's launch count must grow, nothing may
+   overflow, the first batch against a float64 brute force; q/s.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -106,8 +122,30 @@ KNN_REF = {
                      "adaptive": [0, 0, 11629, 11586]},
              ids_sum=4_024_399_365, d_sum=0.022336982976781883),
 }
+# the reference's numbers for the first served kNN-join batch (64 rects of
+# half-extent QUERY_EPS) on the phase-3 tree: the JAX package's
+# make_knn_join_bfs(backend="xla"), equal in both caps tiers and fused or
+# not.  At k = 8 every distance is 0 (each rect holds 20 or more points).
+KNN_JOIN_REF = {
+    8: dict(counters=dict(nodes_visited=2_287, predicates=971_008,
+                          vector_ops=15_172, enqueued=2_223,
+                          pruned_inner=85_841, masked_waste=8_320),
+            live=[64, 576, 866, 781],
+            padded={"static": [0, 7616, 7326, 7411],
+                    "adaptive": [0, 0, 1182, 1267]},
+            ids_sum=515_026_219, d_sum=0.0),
+    64: dict(counters=dict(nodes_visited=10_144, predicates=3_977_728,
+                           vector_ops=62_152, enqueued=10_080,
+                           pruned_inner=321_760, masked_waste=13_376),
+             live=[64, 576, 4754, 4750],
+             padded={"static": [0, 7616, 3438, 11634],
+                     "adaptive": [0, 0, 11630, 11634]},
+             ids_sum=4_034_559_553, d_sum=0.000723181390258329),
+}
+ALL_PAIRS_BATCH = 4096
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
-# selects, products and FMAs counted one each)
+# selects, products and FMAs counted one each), for point and rect queries
+# alike
 MINDIST_OPS, MINMAXDIST_OPS = 13, 29
 
 
@@ -163,12 +201,13 @@ def host_ms(fn, iters: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, names, iters: int = 20):
-    """Device ms per launch of the one kernel whose demangled name holds
-    every string of ``names``: the mean over the launches torch.profiler
-    records in ``iters`` calls of ``fn`` (one launch each; the profiler
-    may miss a few at its start); None when it saw no such kernel.  A
-    kernel shorter than its wrapper's host work cannot be timed with events
+def device_ms(fn, *kernels, iters: int = 20):
+    """Device ms per call of ``fn``: for each kernel of ``kernels`` (a
+    tuple of strings that its demangled name holds, every one), the mean
+    over the launches torch.profiler records in ``iters`` calls of ``fn``
+    (one launch each; the profiler may miss a few at its start), summed
+    over the kernels; None when it saw one of them not at all.  A kernel
+    shorter than its wrapper's host work cannot be timed with events
     around back-to-back calls: the card would wait for the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,14 +218,31 @@ def device_ms(fn, names, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and all(n in e.name for n in names)]
-    if not times:
-        return None
-    check(len(times) <= iters, f"{names}: {len(times)} launches profiled "
-          f"for {iters} calls")
-    return sum(times) / len(times) / 1e3
+    total = 0.0
+    for names in kernels:
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and all(n in e.name for n in names)]
+        if not times:
+            return None
+        check(len(times) <= iters, f"{names}: {len(times)} launches "
+              f"profiled for {iters} calls")
+        total += sum(times) / len(times) / 1e3
+    return total
+
+
+def kernel_times(kfn, tfn, kernels, iters: int = 20, twin_iters: int = 5):
+    """(device ms per call from the profiler, ms per call with the wrapper
+    from CUDA events, the twin's ms) of one kernel wrapper ``kfn`` and its
+    twin ``tfn``; the device time falls back to the event time, with a
+    note, when the profiler saw no device time."""
+    call_ms = cuda_ms(kfn, iters)
+    ms = device_ms(kfn, *kernels)
+    if ms is None:
+        print(f"  {kernels}: the profiler saw no device time; timing calls "
+              f"with events", flush=True)
+        ms = call_ms
+    return ms, call_ms, cuda_ms(tfn, twin_iters)
 
 
 def profile_batches(fn, iters: int = 3, top: int = 6) -> str:
@@ -320,22 +376,24 @@ def phase_kernels(torch, tree, queries, full_caps, kern, ref):
     out = []
     b1_bytes = read + b_ * c_ * f_ * 4
     b2_bytes = read + b_ * RESULT_CAP * 4 + b_ * 4
-    for name, src_line, kfn, tfn, nbytes in (
+    for name, src_line, kernel, kfn, tfn, nbytes in (
             ("select_level_masks", "src/repro/kernels/rtree_select.py:64",
+             ("select_masks_kernel",),
              lambda: kern.select_level_masks_cuda(ids, queries, *leaf),
              lambda: ref.select_level_masks_ref(ids, queries, *leaf),
              b1_bytes),
             ("select_level_fused", "src/repro/kernels/rtree_select.py:111",
+             ("select_fused_kernel",),
              lambda: kern.select_level_fused_cuda(ids, queries, *leaf,
                                                   cap=RESULT_CAP),
              lambda: ref.select_level_fused_ref(ids, queries, *leaf,
                                                 cap=RESULT_CAP),
              b2_bytes)):
-        ms = cuda_ms(kfn, 20)
-        plain_ms = cuda_ms(tfn, 5)
+        ms, call_ms, plain_ms = kernel_times(kfn, tfn, [kernel])
         bound_ms, bound_by = bound(nbytes, ops_)
         print(f"  {name}: leaf (B={b_}, C={c_}, F={f_}, {live.numel()} live "
-              f"slots, {uniq} distinct nodes): kernel {ms:.4f} ms, twin "
+              f"slots, {uniq} distinct nodes): kernel {ms:.4f} ms on the "
+              f"device ({call_ms:.4f} ms per call with the wrapper), twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({nbytes} bytes at 3.35 TB/s)")
         out.append(dict(name=name, route="cuda",
@@ -516,19 +574,23 @@ def phase_join_kernels(torch, lo, li_, pair_caps, jkern, ref, ops):
     b4_bytes = meta + (uo * fo + ui * fi) * 20 + 2 * JOIN_CAP * 4 + 4 + 1
     ops_ = n_live * fo * fi * 6       # 4 compares and 2 tile tests a lane
     out = []
-    for name, line, kfn, tfn, nbytes in (
+    for name, line, kernels, kfn, tfn, nbytes in (
             ("join_pair_masks", "src/repro/kernels/rtree_join.py:73",
+             [("join_masks_kernel",)],
              lambda: jkern.join_pair_masks_cuda(*args[:6]),
              lambda: ref.join_pair_masks_ref(*args[:6]), b3_bytes),
             ("join_level_fused", "src/repro/kernels/rtree_join.py:129",
+             [("join_count_kernel",), ("join_scan_tiles_kernel",),
+              ("join_scan_carry_kernel",), ("join_scatter_kernel",)],
              lambda: jkern.join_level_fused_cuda(*args, cap=JOIN_CAP),
              lambda: ref.join_level_fused_ref(*args, cap=JOIN_CAP),
              b4_bytes)):
-        ms = cuda_ms(kfn, 20)
-        plain_ms = cuda_ms(tfn, 3)
+        ms, call_ms, plain_ms = kernel_times(kfn, tfn, kernels,
+                                             twin_iters=3)
         bound_ms, bound_by = bound(nbytes, ops_)
         print(f"  {name}: leaf step (P={p}, F={fo}x{fi}, {n_live} live "
-              f"pairs, {uo}+{ui} distinct nodes): kernel {ms:.4f} ms, twin "
+              f"pairs, {uo}+{ui} distinct nodes): kernel {ms:.4f} ms on the "
+              f"device ({call_ms:.4f} ms per call with the wrapper), twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes "
               f"at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)", flush=True)
         out.append(dict(name=name, route="cuda",
@@ -612,11 +674,40 @@ def phase_join_serve(torch, dev, jkern, serve):
     return launches, out
 
 
-def knn_frontiers(torch, tree, points, k, caps, ref):
+def distance_ops(kkern, kjkern, ref):
+    """The two distance operators' kernels: per operator, for the score
+    (dists), internal-level (level) and leaf stages, the label, the launch
+    count's name, the CUDA wrapper, the twin and the TPU kernel replaced,
+    and the query functor of the CUDA instantiations."""
+    knn = "src/repro/kernels/rtree_knn.py"
+    kj = "src/repro/kernels/rtree_knn_join.py"
+    return {
+        "knn": dict(
+            labels=("B5", "B6", "B7"), functor="PointQuery",
+            names=("knn_level_dists", "knn_level_fused", "knn_leaf_fused"),
+            kernels=(kkern.knn_level_dists_cuda, kkern.knn_level_fused_cuda,
+                     kkern.knn_leaf_fused_cuda),
+            twins=(ref.knn_level_dists_ref, ref.knn_level_fused_ref,
+                   ref.knn_leaf_fused_ref),
+            lines=(f"{knn}:105", f"{knn}:454", f"{knn}:467")),
+        "knn_join": dict(
+            labels=("B8", "B9", "B10"), functor="RectQuery",
+            names=("knn_join_level_dists", "knn_join_level_fused",
+                   "knn_join_leaf_fused"),
+            kernels=(kjkern.knn_join_level_dists_cuda,
+                     kjkern.knn_join_level_fused_cuda,
+                     kjkern.knn_join_leaf_fused_cuda),
+            twins=(ref.knn_join_level_dists_ref, ref.knn_join_level_fused_ref,
+                   ref.knn_join_leaf_fused_ref),
+            lines=(f"{kj}:87", f"{kj}:224", f"{kj}:237")),
+    }
+
+
+def knn_frontiers(torch, tree, queries, k, caps, level_fused_ref):
     """Each level's (B, C) frontier of a real descent: the twin of the
-    fused engine's internal steps with the static caps."""
+    fused engine's internal steps (``level_fused_ref``) with ``caps``."""
     dev = tree.device
-    b, h = points.shape[0], tree.height
+    b, h = queries.shape[0], tree.height
     ids = torch.zeros((b, 1), dtype=torch.int32, device=dev)
     tau = torch.full((b,), 3.0e38, dtype=torch.float32, device=dev)
     frontiers = {}
@@ -624,35 +715,103 @@ def knn_frontiers(torch, tree, points, k, caps, ref):
         frontiers[li] = ids
         if li:
             lvl = tree.levels[li]
-            ids, tau, _, _ = ref.knn_level_fused_ref(
-                ids, points, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child, tau,
+            ids, tau, _, _ = level_fused_ref(
+                ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child, tau,
                 cap=caps[h - 1 - li], k=k,
                 tighten=ids.shape[1] * tree.fanout >= k)
     return frontiers
 
 
-def phase_knn_kernels(torch, tree, points, kkern, ref, knn_vector):
-    """Phase 9: B5, B6 and B7 ≡ their twins, bit for bit, on every level of
-    a real descent for k in {1, 8, 64}; times at the k = 8 leaf step."""
-    dev = tree.device
-    b, h, f_ = points.shape[0], tree.height, tree.fanout
-    rng = np.random.default_rng(SEED + 13)
+def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
+    """Times of an operator's three distance kernels at the k = KNN_K
+    ``descent`` (static ``caps``): the score kernel's leaf variant and the
+    leaf kernel at the leaf step, the level kernel at the last internal
+    step (the largest it runs).  Each: device time per launch from the
+    profiler, time per call with the wrapper's host work from events, the
+    twin's time, and the bound.  Returns the kernels' line entries."""
+    b, f_ = queries.shape[0], tree.fanout
+    qbytes = queries.shape[1] * 4
     rows = {li: (lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
             for li, lvl in enumerate(tree.levels)}
-    err = {"knn_level_dists": 0, "knn_level_fused": 0, "knn_leaf_fused": 0}
+    pad = torch.full((b,), 3.0e38, dtype=torch.float32, device=tree.device)
+    (kd, kl, kf), (td, tl, tf) = op["kernels"], op["twins"]
+    q = op["functor"]
+    stages = (
+        (0, ("knn_dists_kernel", q, "true>"),
+         lambda ids: kd(ids, queries, *rows[0], leaf=True),
+         lambda ids: td(ids, queries, *rows[0], leaf=True)),
+        (1, ("knn_emit_kernel", q, "false>"),
+         lambda ids: kl(ids, queries, *rows[1], pad, cap=caps[-1], k=KNN_K,
+                        tighten=True),
+         lambda ids: tl(ids, queries, *rows[1], pad, cap=caps[-1], k=KNN_K,
+                        tighten=True)),
+        (0, ("knn_emit_kernel", q, "true>"),
+         lambda ids: kf(ids, queries, *rows[0], k=KNN_K),
+         lambda ids: tf(ids, queries, *rows[0], k=KNN_K)))
+    out = []
+    for i, (li, kernel, kfn, tfn) in enumerate(stages):
+        ids = descent[li]
+        c_ = ids.shape[1]
+        live = ids[ids >= 0]
+        uniq = int(torch.unique(live).numel())
+        n_lanes = live.numel() * f_
+        reads = ids.numel() * 4 + b * qbytes + uniq * 20 * f_
+        if i == 0:
+            nbytes, ops_ = reads + b * c_ * f_ * 4, n_lanes * MINDIST_OPS
+        elif i == 1:
+            nbytes = reads + b * caps[-1] * 4 + 12 * b
+            ops_ = n_lanes * (MINDIST_OPS + MINMAXDIST_OPS)
+        else:
+            nbytes = reads + 8 * b * KNN_K + 4 * b
+            ops_ = n_lanes * MINDIST_OPS
+        ms, call_ms, plain_ms = kernel_times(lambda: kfn(ids),
+                                             lambda: tfn(ids), [kernel],
+                                             iters=50)
+        bound_ms, bound_by = bound(nbytes, ops_)
+        name = op["names"][i]
+        print(f"  {op['labels'][i]} {name}: k={KNN_K} level {li} (B={b}, "
+              f"C={c_}, F={f_}, {live.numel()} live slots, {uniq} distinct "
+              f"nodes): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+              f"per call with the wrapper), twin {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s, {ops_} ops "
+              f"at 67 TFLOP/s)", flush=True)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/rtree_knn.cu",
+                        replaces=op["lines"][i], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None, max_abs_err=err[name]))
+    return out
 
-    def hold(name, got, want, what):
-        for i, (g, w) in enumerate(zip(got, want)):
+
+def phase_distance_kernels(torch, tree, queries, op, knn_vector, seed):
+    """Phases 9 and 12: an operator's score (B5 / B8, both variants), level
+    (B6 / B9, tightening on and off, random τ_in) and leaf (B7 / B10)
+    kernels ≡ their twins, bit for bit, on every level of a real descent
+    for k in {1, 8, 64}, plus a level-kernel cap that overflows; times at
+    the k = 8 descent.  Returns (the kernels' line entries, the static
+    caps at k = 8)."""
+    dev = tree.device
+    b, h, f_ = queries.shape[0], tree.height, tree.fanout
+    rng = np.random.default_rng(seed)
+    rows = {li: (lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
+            for li, lvl in enumerate(tree.levels)}
+    (kd, kl, kf), (td, tl, tf) = op["kernels"], op["twins"]
+    ld, ll, lf = op["labels"]
+    err = dict.fromkeys(op["names"], 0)
+
+    def hold(i, got, want, what):
+        name = op["names"][i]
+        for j, (g, w) in enumerate(zip(got, want)):
             if g is None or w is None:
-                check(g is None and w is None, f"{what} [{i}]: None")
+                check(g is None and w is None, f"{what} [{j}]: None")
                 continue
             err[name] = max(err[name], assert_bits_equal(g, w,
-                                                         f"{what} [{i}]"))
+                                                         f"{what} [{j}]"))
 
     descents = {}
     for k in (1, 8, 64):
         caps = knn_vector.knn_frontier_caps(tree, k)
-        descents[k] = knn_frontiers(torch, tree, points, k, caps, ref)
+        descents[k] = knn_frontiers(torch, tree, queries, k, caps, tl)
         for li, ids in descents[k].items():
             perm = torch.from_numpy(rng.permutation(ids.shape[1])).to(dev)
             ids = ids[:, perm].contiguous()
@@ -662,112 +821,47 @@ def phase_knn_kernels(torch, tree, points, kkern, ref, knn_vector):
                 np.float32)).to(dev)
             cap = caps[h - 1 - li] if li else caps[-1]
             for leaf in (False, True):
-                hold("knn_level_dists",
-                     kkern.knn_level_dists_cuda(ids, points, *rows[li],
-                                                leaf=leaf),
-                     ref.knn_level_dists_ref(ids, points, *rows[li],
-                                             leaf=leaf),
-                     f"B5 k={k} level {li} leaf={leaf}")
+                hold(0, kd(ids, queries, *rows[li], leaf=leaf),
+                     td(ids, queries, *rows[li], leaf=leaf),
+                     f"{ld} k={k} level {li} leaf={leaf}")
             gates = (False, True) if ids.shape[1] * f_ >= k else (False,)
             for tighten in gates:
                 kw = dict(cap=cap, k=k, tighten=tighten)
-                hold("knn_level_fused",
-                     kkern.knn_level_fused_cuda(ids, points, *rows[li], tau,
-                                                **kw),
-                     ref.knn_level_fused_ref(ids, points, *rows[li], tau,
-                                             **kw),
-                     f"B6 k={k} level {li} tighten={tighten}")
-            hold("knn_leaf_fused",
-                 kkern.knn_leaf_fused_cuda(ids, points, *rows[li], k=k),
-                 ref.knn_leaf_fused_ref(ids, points, *rows[li], k=k),
-                 f"B7 k={k} level {li}")
+                hold(1, kl(ids, queries, *rows[li], tau, **kw),
+                     tl(ids, queries, *rows[li], tau, **kw),
+                     f"{ll} k={k} level {li} tighten={tighten}")
+            hold(2, kf(ids, queries, *rows[li], k=k),
+                 tf(ids, queries, *rows[li], k=k), f"{lf} k={k} level {li}")
             print(f"  k={k} level {li}: frontier {tuple(ids.shape)}, "
-                  f"{int((ids >= 0).sum())} live slots, cap {cap} — B5, "
-                  f"B6 (tighten {gates}), B7 bit-exact", flush=True)
+                  f"{int((ids >= 0).sum())} live slots, cap {cap} — {ld}, "
+                  f"{ll} (tighten {gates}), {lf} bit-exact", flush=True)
     # overflow: every valid leaf lane kept (no τ) into a cap of 16
     ids = descents[64][0]
     pad = torch.full((b,), 3.0e38, dtype=torch.float32, device=dev)
     kw = dict(cap=16, k=64, tighten=False)
-    got = kkern.knn_level_fused_cuda(ids, points, *rows[0], pad, **kw)
-    hold("knn_level_fused", got,
-         ref.knn_level_fused_ref(ids, points, *rows[0], pad, **kw),
-         "B6 overflow")
-    check(bool((got[3] > 16).all()), "the cap-16 B6 case did not overflow")
-    print(f"  overflow case: cap 16, kept up to {int(got[3].max())} — B6 "
+    got = kl(ids, queries, *rows[0], pad, **kw)
+    hold(1, got, tl(ids, queries, *rows[0], pad, **kw), f"{ll} overflow")
+    check(bool((got[3] > 16).all()), f"the cap-16 {ll} case did not "
+          f"overflow")
+    print(f"  overflow case: cap 16, kept up to {int(got[3].max())} — {ll} "
           f"bit-exact", flush=True)
-
-    # times at the k = 8 leaf step of the descent (B6 at the last internal
-    # step, the largest it runs): the kernel's device time per launch from
-    # the profiler, and per call with the wrapper's host work from events
     caps8 = knn_vector.knn_frontier_caps(tree, KNN_K)
-    out = []
-    for name, line, li, kernel, kfn, tfn in (
-            ("knn_level_dists", "src/repro/kernels/rtree_knn.py:105", 0,
-             ("knn_dists_kernel", "true>"),
-             lambda ids, tau: kkern.knn_level_dists_cuda(
-                 ids, points, *rows[0], leaf=True),
-             lambda ids, tau: ref.knn_level_dists_ref(
-                 ids, points, *rows[0], leaf=True)),
-            ("knn_level_fused", "src/repro/kernels/rtree_knn.py:454", 1,
-             ("knn_emit_kernel", "false>"),
-             lambda ids, tau: kkern.knn_level_fused_cuda(
-                 ids, points, *rows[1], tau, cap=caps8[-1], k=KNN_K,
-                 tighten=True),
-             lambda ids, tau: ref.knn_level_fused_ref(
-                 ids, points, *rows[1], tau, cap=caps8[-1], k=KNN_K,
-                 tighten=True)),
-            ("knn_leaf_fused", "src/repro/kernels/rtree_knn.py:467", 0,
-             ("knn_emit_kernel", "true>"),
-             lambda ids, tau: kkern.knn_leaf_fused_cuda(
-                 ids, points, *rows[0], k=KNN_K),
-             lambda ids, tau: ref.knn_leaf_fused_ref(
-                 ids, points, *rows[0], k=KNN_K))):
-        ids = descents[KNN_K][li]
-        tau = pad
-        c_ = ids.shape[1]
-        live = ids[ids >= 0]
-        uniq = int(torch.unique(live).numel())
-        n_lanes = live.numel() * f_
-        reads = ids.numel() * 4 + b * 8 + uniq * 20 * f_
-        if name == "knn_level_dists":
-            nbytes, ops_ = reads + b * c_ * f_ * 4, n_lanes * MINDIST_OPS
-        elif name == "knn_level_fused":
-            nbytes = reads + b * caps8[-1] * 4 + 12 * b
-            ops_ = n_lanes * (MINDIST_OPS + MINMAXDIST_OPS)
-        else:
-            nbytes, ops_ = reads + 8 * b * KNN_K + 4 * b, \
-                n_lanes * MINDIST_OPS
-        call_ms = cuda_ms(lambda: kfn(ids, tau), 50)
-        ms = device_ms(lambda: kfn(ids, tau), kernel)
-        if ms is None:
-            print(f"  {name}: the profiler saw no device time; timing "
-                  f"calls with events", flush=True)
-            ms = call_ms
-        plain_ms = cuda_ms(lambda: tfn(ids, tau), 5)
-        bound_ms, bound_by = bound(nbytes, ops_)
-        print(f"  {name}: k={KNN_K} level {li} (B={b}, C={c_}, F={f_}, "
-              f"{live.numel()} live slots, {uniq} distinct nodes): kernel "
-              f"{ms:.4f} ms on the device ({call_ms:.4f} ms per call with "
-              f"the wrapper), twin {plain_ms:.4f} ms, bound {bound_ms:.5f} "
-              f"ms ({nbytes} bytes at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)",
-              flush=True)
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/rtree_knn.cu",
-                        replaces=line, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None, max_abs_err=err[name]))
-    return out
+    return distance_kernel_times(torch, tree, queries, descents[KNN_K], op,
+                                 caps8, err), caps8
 
 
-def check_knn_brute_force(torch, dev, rects, points, ids, d, what) -> None:
+def check_knn_brute_force(torch, dev, rects, queries, ids, d, what) -> None:
     """Fail unless each query's sorted distances equal a float64 brute
     force over all ``rects`` (computed on ``dev``) to rtol 1e-4, and its
-    ids are distinct and sit at their reported distances."""
+    ids are distinct and sit at their reported distances.  A query is a
+    point (px, py) or a rect (lx, ly, hx, hy); a point is the rect of zero
+    extent."""
     r = torch.from_numpy(np.ascontiguousarray(rects)).to(dev).double()
-    for i, q in enumerate(points):
-        px, py = float(q[0]), float(q[1])
-        dx = torch.clamp(torch.maximum(r[:, 0] - px, px - r[:, 2]), min=0)
-        dy = torch.clamp(torch.maximum(r[:, 1] - py, py - r[:, 3]), min=0)
+    for i, q in enumerate(queries):
+        q = [float(v) for v in q]
+        lx, ly, hx, hy = q * 2 if len(q) == 2 else q
+        dx = torch.clamp(torch.maximum(lx - r[:, 2], r[:, 0] - hx), min=0)
+        dy = torch.clamp(torch.maximum(ly - r[:, 3], r[:, 1] - hy), min=0)
         full = dx * dx + dy * dy
         want = torch.topk(full, ids.shape[1], largest=False).values
         want = want.cpu().numpy()
@@ -781,10 +875,17 @@ def check_knn_brute_force(torch, dev, rects, points, ids, d, what) -> None:
         check(ok, f"{what}: query {i} differs from brute force")
 
 
-def phase_knn_engine(torch, tree, rects, points, kkern, knn_vector):
-    """Phase 10: the kNN engine cells ≡ the twin engine and the reference's
-    numbers; k = 1 adaptive escalates; 8 queries ≡ brute force."""
-    kkern.reset_launch_counts()
+def phase_distance_engine(torch, tree, rects, queries, kern, build, refs,
+                          names, what, escalate_k1=False):
+    """Phases 10 and 13: an operator's engine (``build``: make_knn_bfs or
+    make_knn_join_bfs) in six cells — k = 8 static/adaptive ×
+    unfused/fused, k = 64 static unfused/fused — ≡ the twin engine on the
+    card (ids, distance bits, every counter) and the reference's numbers
+    ``refs`` for this batch, with no overflow and no escalation; the
+    kernels ``names`` (score, level, leaf) launched; optionally k = 1
+    adaptive escalates once; 8 queries ≡ a float64 brute force on the card;
+    ms per batch and the device's share.  Returns the launch counts."""
+    kern.reset_launch_counts()
     cells = {}
     for k, caps_mode, fused in ((8, "static", False), (8, "static", True),
                                 (8, "adaptive", False),
@@ -792,85 +893,152 @@ def phase_knn_engine(torch, tree, rects, points, kkern, knn_vector):
                                 (64, "static", True)):
         cell = f"k={k} {caps_mode}/{'fused' if fused else 'unfused'}"
         kw = dict(caps_mode=caps_mode, fused=fused)
-        fn = knn_vector.make_knn_bfs(tree, k, **kw)
-        twin = knn_vector.make_knn_bfs(tree, k, backend="torch", **kw)
-        before = kkern.launch_counts()
-        ids, d, ctr = fn(points)
+        fn = build(tree, k, **kw)
+        twin = build(tree, k, backend="torch", **kw)
+        before = kern.launch_counts()
+        ids, d, ctr = fn(queries)
         torch.cuda.synchronize()
-        after = kkern.launch_counts()
-        grown = ("knn_level_fused", "knn_leaf_fused") if fused else \
-            ("knn_level_dists",)
-        for name in grown:
+        after = kern.launch_counts()
+        for name in (names[1:] if fused else names[:1]):
             check(after[name] > before[name], f"{cell}: {name} not launched")
-        tids, td, tctr = twin(points)
-        assert_bits_equal(ids, tids, f"kNN engine {cell} ids")
-        assert_bits_equal(d, td, f"kNN engine {cell} dists")
+        tids, td, tctr = twin(queries)
+        assert_bits_equal(ids, tids, f"{what} engine {cell} ids")
+        assert_bits_equal(d, td, f"{what} engine {cell} dists")
         got, want = ctr.asdict(), tctr.asdict()
-        check(got == want, f"kNN engine {cell} counters: {got} vs {want}")
-        ref_ = KNN_REF[k]
+        check(got == want, f"{what} engine {cell} counters: {got} vs "
+              f"{want}")
+        ref_ = refs[k]
         for key, v in ref_["counters"].items():
-            check(got[key] == v, f"kNN engine {cell}: {key} {got[key]}, the "
-                  f"reference has {v}")
+            check(got[key] == v, f"{what} engine {cell}: {key} {got[key]}, "
+                  f"the reference has {v}")
         check(got["lanes_live"][:4] == ref_["live"] and
               got["lanes_padded"][:4] == ref_["padded"][caps_mode],
-              f"kNN engine {cell}: occupancy {got['lanes_live']} "
+              f"{what} engine {cell}: occupancy {got['lanes_live']} "
               f"{got['lanes_padded']}")
         check(got["overflow"] == 0 and got["escalations"] == 0,
-              f"kNN engine {cell}: overflow {got['overflow']}, escalations "
-              f"{got['escalations']}")
+              f"{what} engine {cell}: overflow {got['overflow']}, "
+              f"escalations {got['escalations']}")
         ids_np, d_np = ids.cpu().numpy(), d.cpu().numpy()
         check(int(ids_np.astype(np.int64).sum()) == ref_["ids_sum"] and
               float(d_np.astype(np.float64).sum()) == ref_["d_sum"],
-              f"kNN engine {cell}: ids sum {ids_np.astype(np.int64).sum()}, "
-              f"distance sum {d_np.astype(np.float64).sum()!r}")
+              f"{what} engine {cell}: ids sum "
+              f"{ids_np.astype(np.int64).sum()}, distance sum "
+              f"{d_np.astype(np.float64).sum()!r}")
         cells[cell] = (fn, twin, ids_np, d_np)
-    launches = kkern.launch_counts()
+    launches = kern.launch_counts()
     print(f"  six cells ≡ twin engine (ids, distance bits, counters) and the "
           f"reference (counters, occupancy, ids and distance sums); "
           f"launches {launches}", flush=True)
-    for fused in (False, True):
-        fn = knn_vector.make_knn_bfs(tree, 1, caps_mode="adaptive",
-                                     fused=fused)
-        twin = knn_vector.make_knn_bfs(tree, 1, caps_mode="adaptive",
-                                       fused=fused, backend="torch")
-        ids, d, ctr = fn(points)
-        tids, td, tctr = twin(points)
-        assert_bits_equal(ids, tids, f"k=1 fused={fused} ids")
-        assert_bits_equal(d, td, f"k=1 fused={fused} dists")
-        check(ctr.asdict() == tctr.asdict(), f"k=1 fused={fused} counters")
-        check(fn.escalation_count() == 1 and int(ctr.escalations) == 1,
-              f"k=1 adaptive fused={fused}: {fn.escalation_count()} "
-              f"escalations, expected 1")
-    print("  k=1 adaptive (unfused, fused): escalates once, ≡ twin engine",
-          flush=True)
+    if escalate_k1:
+        for fused in (False, True):
+            fn = build(tree, 1, caps_mode="adaptive", fused=fused)
+            twin = build(tree, 1, caps_mode="adaptive", fused=fused,
+                         backend="torch")
+            ids, d, ctr = fn(queries)
+            tids, td, tctr = twin(queries)
+            assert_bits_equal(ids, tids, f"k=1 fused={fused} ids")
+            assert_bits_equal(d, td, f"k=1 fused={fused} dists")
+            check(ctr.asdict() == tctr.asdict(),
+                  f"k=1 fused={fused} counters")
+            check(fn.escalation_count() == 1 and int(ctr.escalations) == 1,
+                  f"k=1 adaptive fused={fused}: {fn.escalation_count()} "
+                  f"escalations, expected 1")
+        print("  k=1 adaptive (unfused, fused): escalates once, ≡ twin "
+              "engine", flush=True)
     _, _, ids_np, d_np = cells["k=8 static/unfused"]
-    check_knn_brute_force(torch, tree.device, rects, points.cpu().numpy()[:8],
-                          ids_np[:8], d_np[:8], "kNN engine")
+    check_knn_brute_force(torch, tree.device, rects,
+                          queries.cpu().numpy()[:8], ids_np[:8], d_np[:8],
+                          f"{what} engine")
     print("  8 queries ≡ brute force over all rects", flush=True)
     for cell, (fn, twin, _, _) in cells.items():
-        print(f"  {cell}: {host_ms(lambda: fn(points), 10):.3f} ms per "
-              f"{BATCH}-query batch (twin engine "
-              f"{host_ms(lambda: twin(points), 3):.3f} ms)", flush=True)
-        print(f"    {profile_batches(lambda: fn(points))}", flush=True)
+        print(f"  {cell}: {host_ms(lambda: fn(queries), 10):.3f} ms per "
+              f"{queries.shape[0]}-query batch (twin engine "
+              f"{host_ms(lambda: twin(queries), 3):.3f} ms)", flush=True)
+        print(f"    {profile_batches(lambda: fn(queries))}", flush=True)
     return launches
 
 
-def phase_knn_serve(torch, dev, kkern, serve):
-    """Phase 11: the served kNN through the CLI entry point."""
-    argv = ["--mode", "knn", "--n", str(N_RECTS), "--k", str(KNN_K),
-            "--batches", str(KNN_BATCHES), "--batch-size", str(BATCH)]
-    kkern.reset_launch_counts()
-    out = serve.main(argv)
-    launches = kkern.launch_counts()
+def phase_knn_join_all_pairs(torch, tree, rects, probes, kjkern,
+                             knn_join_vector, rtree):
+    """Phase 14: ``knn_join(probe_tree, tree, k=8)``, the 200,000 probe
+    rects in chunks of 4,096 against the 2M tree, unfused and fused: the
+    two runs equal, the first two chunks ≡ the twin engine, 256 sampled
+    rows ≡ brute force; s per join, rows/s, peak device memory, and the
+    device's busy share and largest items over one more join.  Returns
+    {fused: (s, rows/s, peak bytes)}."""
+    dev = tree.device
+    batch = ALL_PAIRS_BATCH
+    probe_tree = rtree.build_rtree(probes, fanout=FANOUT, device=dev)
+    runs, out = {}, {}
+    for fused in (False, True):
+        kjkern.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ids, d, ctr = knn_join_vector.knn_join(probe_tree, tree, KNN_K,
+                                               fused=fused, batch=batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        c = ctr.asdict()
+        check(c["overflow"] == 0, f"all-pairs fused={fused} overflowed")
+        launches = kjkern.launch_counts()
+        grown = ("knn_join_level_fused", "knn_join_leaf_fused") if fused \
+            else ("knn_join_level_dists",)
+        check(all(launches[n] > 0 for n in grown),
+              f"all-pairs fused={fused}: launches {launches}")
+        runs[fused] = (ids, d)
+        out[fused] = (secs, len(probes) / secs, peak)
+        print(f"  fused={fused}: {secs:.3f} s per join of {len(probes)} "
+              f"rects ({-(-len(probes) // batch)} chunks of {batch}), "
+              f"{len(probes) / secs:,.0f} rows/s, peak device memory "
+              f"{peak / 2**30:.2f} GiB, {c['escalations']} escalations; "
+              f"launches {launches}; counters {c}", flush=True)
+        print("    per join: " + profile_batches(
+            lambda: knn_join_vector.knn_join(probe_tree, tree, KNN_K,
+                                             fused=fused, batch=batch),
+            iters=1), flush=True)
+    check(np.array_equal(runs[False][0], runs[True][0]) and
+          np.array_equal(runs[False][1], runs[True][1]),
+          "all-pairs: fused and unfused differ")
+    ids, d = runs[True]
+    twin = knn_join_vector.make_knn_join_bfs(tree, KNN_K, backend="torch")
+    for lo in (0, batch):
+        tid, td, _ = twin(probe_tree.rects[lo:lo + batch])
+        check(np.array_equal(tid.cpu().numpy(), ids[lo:lo + batch]) and
+              np.array_equal(td.cpu().numpy().astype(np.float64),
+                             d[lo:lo + batch]),
+              f"all-pairs chunk at {lo} differs from the twin engine")
+    rng = np.random.default_rng(SEED + 17)
+    rows = np.sort(rng.choice(len(probes), 256, replace=False))
+    check_knn_brute_force(torch, dev, rects, probes[rows], ids[rows],
+                          d[rows], "all-pairs")
+    print(f"  fused ≡ unfused; the first two chunks ≡ twin engine; 256 "
+          f"sampled rows ≡ brute force over all {len(rects)} rects; "
+          f"{int((d == 0).sum())} of {d.size} distances are 0", flush=True)
+    return out
+
+
+def phase_distance_serve(torch, dev, kern, serve, mode, score_name, argv,
+                         queries):
+    """Phases 11 and 15: a served distance mode through the CLI entry
+    point (k = 8); its score kernel's launch count must grow, nothing may
+    overflow, the first batch ≡ a float64 brute force on the card over all
+    rects.  Returns (launches, q/s)."""
+    kern.reset_launch_counts()
+    out = serve.main(["--mode", mode, "--n", str(N_RECTS), "--k",
+                      str(KNN_K), "--batches", str(KNN_BATCHES),
+                      "--batch-size", str(BATCH), *argv])
+    launches = kern.launch_counts()
     print(f"  serve launches {launches}")
-    check(launches["knn_level_dists"] > 0,
-          "kNN serve did not launch knn_level_dists")
-    check(not out["overflow"], "the served kNN overflowed")
-    rects, qs = serve.make_knn_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH)
+    check(launches[score_name] > 0, f"{mode} serve did not launch "
+          f"{score_name}")
+    check(not out["overflow"], f"the served {mode} overflowed")
+    rects, qs = queries
     ids, d = out["first_batch"]
     check(ids.shape == (BATCH, KNN_K) and bool((ids >= 0).all()),
-          f"served kNN ids {ids.shape}, {int((ids < 0).sum())} missing")
-    check_knn_brute_force(torch, dev, rects, qs[0], ids, d, "kNN serve")
+          f"served {mode} ids {ids.shape}, {int((ids < 0).sum())} missing")
+    check_knn_brute_force(torch, dev, rects, qs[0], ids, d, f"{mode} serve")
     print(f"  first served batch ≡ brute force over all {N_RECTS} rects "
           f"({BATCH} queries)", flush=True)
     return launches, out["qps"]
@@ -883,14 +1051,15 @@ def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
-    from repro_torch.core import join_vector, knn_vector, rtree, \
-        select_vector
+    from repro_torch.core import join_vector, knn_join_vector, knn_vector, \
+        rtree, select_vector
     from repro_torch.core.join_scalar import elevate
     from repro_torch.core.layouts import tree_layout
     from repro_torch.distributed.spatial_shard import SpatialShards
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import rtree_join as jkern
     from repro_torch.kernels import rtree_knn as kkern
+    from repro_torch.kernels import rtree_knn_join as kjkern
     from repro_torch.kernels import rtree_select as kern
     from repro_torch.launch import serve
 
@@ -962,26 +1131,72 @@ def main() -> None:
 
     _, qs = serve.make_knn_inputs(N_RECTS, SEED, 1, BATCH)
     points = torch.from_numpy(qs[0]).to(dev)
+    dops = distance_ops(kkern, kjkern, ref)
     print(f"[9] kNN kernels on the phase-3 tree; static caps k=1 "
           f"{knn_vector.knn_frontier_caps(tree, 1)}, k=8 "
           f"{knn_vector.knn_frontier_caps(tree, 8)}, k=64 "
           f"{knn_vector.knn_frontier_caps(tree, 64)}", flush=True)
-    kernels += phase_knn_kernels(torch, tree, points, kkern, ref, knn_vector)
+    knn_kernels, _ = phase_distance_kernels(torch, tree, points, dops["knn"],
+                                            knn_vector, SEED + 13)
+    kernels += knn_kernels
 
     print("[10] kNN engine", flush=True)
-    knn_eng_launches = phase_knn_engine(torch, tree, serve.make_rects(
-        N_RECTS, SEED), points, kkern, knn_vector)
-    del tree
+    data = serve.make_rects(N_RECTS, SEED)
+    knn_eng_launches = phase_distance_engine(
+        torch, tree, data, points, kkern, knn_vector.make_knn_bfs, KNN_REF,
+        dops["knn"]["names"], "kNN", escalate_k1=True)
 
     print("[11] kNN serve", flush=True)
-    knn_serve_launches, knn_qps = phase_knn_serve(torch, dev, kkern, serve)
+    knn_serve_launches, knn_qps = phase_distance_serve(
+        torch, dev, kkern, serve, "knn", "knn_level_dists", [],
+        serve.make_knn_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH))
     print(f"  served {knn_qps:,.1f} kNN q/s (k={KNN_K}) on {name} ({smi})",
           flush=True)
 
-    # launches: B1, B3 and B5 from the served paths (phases 5, 8 and 11);
-    # B2, B4, B6 and B7, which serve does not drive, from the fused engine
-    # cells (phases 4, 7 and 10); every count was reset just before its
-    # phase
+    _, qs = serve.make_knn_join_inputs(N_RECTS, SEED, 1, BATCH, QUERY_EPS)
+    qrects = torch.from_numpy(qs[0]).to(dev)
+    print(f"[12] kNN-join kernels on the phase-3 tree with the first served "
+          f"batch of {BATCH} query rects (half-extent {QUERY_EPS})",
+          flush=True)
+    kj_kernels, caps8 = phase_distance_kernels(
+        torch, tree, qrects, dops["knn_join"], knn_vector, SEED + 19)
+    kernels += kj_kernels
+    big = torch.from_numpy(probes[:ALL_PAIRS_BATCH]).to(dev)
+    print(f"  at batch {ALL_PAIRS_BATCH} (the first all-pairs chunk), k = "
+          f"{KNN_K} static descent:", flush=True)
+    distance_kernel_times(
+        torch, tree, big, knn_frontiers(torch, tree, big, KNN_K, caps8,
+                                        ref.knn_join_level_fused_ref),
+        dops["knn_join"], caps8, dict.fromkeys(dops["knn_join"]["names"], 0))
+    del big
+
+    print("[13] kNN-join engine", flush=True)
+    kj_eng_launches = phase_distance_engine(
+        torch, tree, data, qrects, kjkern, knn_join_vector.make_knn_join_bfs,
+        KNN_JOIN_REF, dops["knn_join"]["names"], "kNN-join")
+
+    print(f"[14] all-pairs kNN-join: {len(probes)} probe rects × {N_RECTS} "
+          f"rects, k = {KNN_K}", flush=True)
+    all_pairs = phase_knn_join_all_pairs(torch, tree, data, probes, kjkern,
+                                         knn_join_vector, rtree)
+    print(f"  {all_pairs[True][0]:.3f} s per join fused, "
+          f"{all_pairs[False][0]:.3f} s unfused on {name} ({smi})",
+          flush=True)
+    del tree
+
+    print("[15] kNN-join serve", flush=True)
+    kj_serve_launches, kj_qps = phase_distance_serve(
+        torch, dev, kjkern, serve, "knn-join", "knn_join_level_dists",
+        ["--query-eps", str(QUERY_EPS)],
+        serve.make_knn_join_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH,
+                                   QUERY_EPS))
+    print(f"  served {kj_qps:,.1f} kNN-join q/s (k={KNN_K}) on {name} "
+          f"({smi})", flush=True)
+
+    # launches: B1, B3, B5 and B8 from the served paths (phases 5, 8, 11
+    # and 15); B2, B4, B6, B7, B9 and B10, which serve does not drive, from
+    # the fused engine cells (phases 4, 7, 10 and 13); every count was reset
+    # just before its phase
     path_launches = {
         "select_level_masks": serve_launches,
         "select_level_fused": eng_launches,
@@ -990,6 +1205,9 @@ def main() -> None:
         "knn_level_dists": knn_serve_launches,
         "knn_level_fused": knn_eng_launches,
         "knn_leaf_fused": knn_eng_launches,
+        "knn_join_level_dists": kj_serve_launches,
+        "knn_join_level_fused": kj_eng_launches,
+        "knn_join_leaf_fused": kj_eng_launches,
     }
     for k in kernels:
         k["launches"] = path_launches[k["name"]][k["name"]]

@@ -5,11 +5,13 @@ predicate, four compares ANDed, written exactly as the four key-excerpt
 comparisons so every path agrees bit-for-bit (closed intervals, as in
 Guttman's R-tree).
 
-``mindist`` / ``minmaxdist`` are the kNN distance functions on tensors,
-rounded exactly as the reference's jitted traces round them (see
-``fma32``); the CUDA kernels (``kernels/csrc/rtree_knn.cu``) use the same
-forms through explicit intrinsics.  The ``*_np`` functions and
-``brute_force_knn`` are the host-side numpy oracles and the shard router.
+``mindist`` / ``minmaxdist`` are the kNN distance functions on tensors and
+``mindist_rect`` / ``minmaxdist_rect`` the kNN-join's, rounded exactly as
+the reference's jitted traces round them (see ``fma32``); the CUDA kernels
+(``kernels/csrc/rtree_knn.cu``) use the same forms through explicit
+intrinsics.  The ``*_np`` functions, ``brute_force_knn`` and
+``brute_force_knn_join`` are the host-side numpy oracles and the shard
+router.
 
 Padding convention: absent children carry an *empty* MBR (``low = +PAD,
 high = -PAD``) so every intersection predicate is False without a separate
@@ -129,6 +131,56 @@ def minmaxdist(px, py, lx, ly, hx, hy):
                          fma32(dmy, dmy, dMx * dMx))
 
 
+# ---------------------------------------------------------------------------
+# rect-to-rect distances (kNN-join), squared Euclidean
+#
+# The point gap becomes an interval gap: query interval [a_lo, a_hi] to MBR
+# interval [b_lo, b_hi] is max(a_lo - b_hi, b_lo - a_hi, 0).  A degenerate
+# (point) query reduces every rect function to its point twin.
+# ---------------------------------------------------------------------------
+
+def rect_axis_gap(a_lo, a_hi, b_lo, b_hi):
+    """Per-axis interval-to-interval outside gap, clamped finite.  Exact:
+    one rounded subtraction per side, then compares."""
+    return torch.clamp(torch.maximum(a_lo - b_hi, b_lo - a_hi), min=0.0,
+                       max=float(_DELTA_CLAMP))
+
+
+def mindist_rect(qlx, qly, qhx, qhy, lx, ly, hx, hy):
+    """Squared MINDIST(rect, rect), broadcast over float32 tensors: 0 when
+    the rects intersect, else the squared distance between their nearest
+    faces or corners.  Rounded as ``fma(dx, dx, dy*dy)``, the form of the
+    reference's gather trace (every lane of it)."""
+    dx = rect_axis_gap(qlx, qhx, lx, hx)
+    dy = rect_axis_gap(qly, qhy, ly, hy)
+    return fma32(dx, dx, dy * dy)
+
+
+def _face_gap(a_lo, a_hi, face):
+    """Gap from query interval [a_lo, a_hi] to the coordinate ``face``,
+    clamped finite (exact, as ``rect_axis_gap``)."""
+    return torch.clamp(torch.maximum(a_lo - face, face - a_hi), min=0.0,
+                       max=float(_DELTA_CLAMP))
+
+
+def minmaxdist_rect(qlx, qly, qhx, qhy, lx, ly, hx, hy):
+    """Squared MINMAXDIST(rect, rect): the Roussopoulos bound with rect
+    queries.  An object on the nearer x-face of a tight MBR lies at gap
+    ``min(gap(lx), gap(hx))`` on x and at most ``max(gap(ly), gap(hy))`` on
+    y; the minimum over the axis choice bounds the distance to some object
+    of the MBR, so the k-th smallest over a frontier is a sound τ.  Rounded
+    as ``min(fma(mgy, mgy, ngx*ngx), fma(ngy, ngy, mgx*mgx))``, the form of
+    the reference's gather trace (every lane of it)."""
+    gxl = _face_gap(qlx, qhx, lx)
+    gxh = _face_gap(qlx, qhx, hx)
+    gyl = _face_gap(qly, qhy, ly)
+    gyh = _face_gap(qly, qhy, hy)
+    ngx, mgx = torch.minimum(gxl, gxh), torch.maximum(gxl, gxh)
+    ngy, mgy = torch.minimum(gyl, gyh), torch.maximum(gyl, gyh)
+    return torch.minimum(fma32(mgy, mgy, ngx * ngx),
+                         fma32(ngy, ngy, mgx * mgx))
+
+
 def mindist_np(px, py, lx, ly, hx, hy) -> np.ndarray:
     """Numpy MINDIST for host-side code (the shard router and the oracle),
     unclamped: host paths never see the padded-MBR sentinels."""
@@ -148,6 +200,25 @@ def minmaxdist_np(px, py, lx, ly, hx, hy) -> np.ndarray:
     return np.minimum(dmx * dmx + dMy * dMy, dmy * dmy + dMx * dMx)
 
 
+def mindist_rect_np(qlx, qly, qhx, qhy, lx, ly, hx, hy) -> np.ndarray:
+    """Numpy rect MINDIST (host side, unclamped; the precision of its
+    arguments, float64 in the oracle and the router)."""
+    dx = np.maximum(np.maximum(qlx - hx, lx - qhx), 0.0)
+    dy = np.maximum(np.maximum(qly - hy, ly - qhy), 0.0)
+    return dx * dx + dy * dy
+
+
+def minmaxdist_rect_np(qlx, qly, qhx, qhy, lx, ly, hx, hy) -> np.ndarray:
+    """Numpy rect MINMAXDIST (see ``minmaxdist_rect`` for the bound)."""
+    def face_gap(a_lo, a_hi, face):
+        return np.maximum(np.maximum(a_lo - face, face - a_hi), 0.0)
+    gxl, gxh = face_gap(qlx, qhx, lx), face_gap(qlx, qhx, hx)
+    gyl, gyh = face_gap(qly, qhy, ly), face_gap(qly, qhy, hy)
+    ngx, mgx = np.minimum(gxl, gxh), np.maximum(gxl, gxh)
+    ngy, mgy = np.minimum(gyl, gyh), np.maximum(gyl, gyh)
+    return np.minimum(ngx * ngx + mgy * mgy, ngy * ngy + mgx * mgx)
+
+
 def mindist_matrix_np(points, rects) -> np.ndarray:
     """Squared point-to-rect MINDIST matrix: points (B, 2) or (2,), rects
     (N, 4) → (B, N) float64.  The one definition behind the brute-force
@@ -158,12 +229,20 @@ def mindist_matrix_np(points, rects) -> np.ndarray:
                       r[None, :, 1], r[None, :, 2], r[None, :, 3])
 
 
-def brute_force_knn(rects, points, k):
-    """Oracle: the k nearest rects to each query point (numpy, O(B·N)).
+def mindist_rect_matrix_np(rects_a, rects_b) -> np.ndarray:
+    """Squared rect-to-rect MINDIST matrix: rects_a (B, 4) or (4,), rects_b
+    (N, 4) → (B, N) float64.  The one definition behind the kNN-join
+    oracle and the shard router."""
+    a = np.atleast_2d(np.asarray(rects_a, np.float64))
+    b = np.asarray(rects_b, np.float64)
+    return mindist_rect_np(a[:, 0, None], a[:, 1, None], a[:, 2, None],
+                           a[:, 3, None], b[None, :, 0], b[None, :, 1],
+                           b[None, :, 2], b[None, :, 3])
 
-    Returns (ids (B, k) int64, squared distances (B, k) float64) sorted by
-    distance, ties by id; rows are padded with (-1, inf) when k > N."""
-    d = mindist_matrix_np(points, rects)                     # (B, N)
+
+def _k_smallest(d: np.ndarray, k: int):
+    """The k smallest of each row of ``d`` (B, N), ties by column →
+    (ids (B, k) int64, d (B, k) float64), (-1, inf) padded when k > N."""
     b, n = d.shape
     kk = min(k, n)
     order = np.argsort(d, axis=1, kind="stable")[:, :kk]     # ties → low id
@@ -172,3 +251,19 @@ def brute_force_knn(rects, points, k):
     ids[:, :kk] = order
     out[:, :kk] = np.take_along_axis(d, order, axis=1)
     return ids, out
+
+
+def brute_force_knn(rects, points, k):
+    """Oracle: the k nearest rects to each query point (numpy, O(B·N)).
+
+    Returns (ids (B, k) int64, squared distances (B, k) float64) sorted by
+    distance, ties by id; rows are padded with (-1, inf) when k > N."""
+    return _k_smallest(mindist_matrix_np(points, rects), k)
+
+
+def brute_force_knn_join(outer_rects, inner_rects, k):
+    """Oracle: the k nearest inner rects to each outer rect (numpy,
+    O(B·N)): outer (B, 4) or (4,), inner (N, 4).  Returns (ids (B, k)
+    int64, squared distances (B, k) float64) sorted by distance, ties by
+    id; rows are padded with (-1, inf) when k > N."""
+    return _k_smallest(mindist_rect_matrix_np(outer_rects, inner_rects), k)

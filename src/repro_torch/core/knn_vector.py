@@ -53,14 +53,20 @@ def make_knn_score(tree: RTree, layout: str, backend: str):
     distance engine's contract.  D1 only: the level-global SoA rows feed
     the kernel directly; the other layouts raise (ROADMAP A9).
     """
+    return make_distance_score(tree, layout, backend, ops.knn_level_dists)
+
+
+def make_distance_score(tree: RTree, layout: str, backend: str, dists_op):
+    """(ctx, score) of a D1 distance operator whose level scores come from
+    ``dists_op`` (a ``kernels/ops`` function: B5 for kNN, B8 for the
+    kNN-join)."""
     layout_lanes(layout)                 # d0 / d2 / d3 raise naming A9
     ops.resolve_backend(backend, tree.rects)
 
-    def score(ctx, li, ids, points, leaf):
+    def score(ctx, li, ids, queries, leaf):
         lvl = ctx[li]
-        md, mmd = ops.knn_level_dists(ids, points, lvl.lx, lvl.ly, lvl.hx,
-                                      lvl.hy, lvl.child, leaf=leaf,
-                                      backend=backend)
+        md, mmd = dists_op(ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy,
+                           lvl.child, leaf=leaf, backend=backend)
         return md, mmd, lvl.child[ids.clamp(min=0).long()], 4
 
     return tree.levels, score
@@ -84,20 +90,36 @@ def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
     'static' the single static-caps engine.  ``points`` may be any
     array-like; it is moved to the tree's device.
     """
+    return make_distance_bfs(
+        KNN_SPEC, tree, k, make_knn_score(tree, layout, backend),
+        ops.knn_level_fused, ops.knn_leaf_fused, layout=layout, caps=caps,
+        backend=backend, fused=fused, caps_mode=caps_mode)
+
+
+def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
+                      ctx_score, level_fused_op, leaf_fused_op, *,
+                      layout: str, caps: Optional[Sequence[int]],
+                      backend: str, fused: bool, caps_mode: str):
+    """The builder behind ``make_knn_bfs`` and the kNN-join's
+    ``make_knn_join_bfs``, which differ only in their score stage
+    (``ctx_score`` = (ctx, score)) and fused kernels (``level_fused_op`` /
+    ``leaf_fused_op``, the ``kernels/ops`` functions): the distance engine
+    over ``tree.levels`` with static caps or the two-tier escalating
+    runner."""
     if k <= 0:
         raise ValueError("k must be positive")
-    ctx, score = make_knn_score(tree, layout, backend)
+    ctx, score = ctx_score
 
-    def fused_level(ctx_, li, ids, points, tau, leaf, cap):
+    def fused_level(ctx_, li, ids, queries, tau, leaf, cap):
         lvl = ctx_[li]
         f = lvl.lx.shape[1]
-        args = (ids, points, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
+        args = (ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
         if leaf:
-            return ops.knn_leaf_fused(*args, k=k, backend=backend) + (f,)
+            return leaf_fused_op(*args, k=k, backend=backend) + (f,)
         # the τ gate of the unfused loop, C·F >= k, from the shapes
-        return ops.knn_level_fused(*args, tau, cap=cap, k=k,
-                                   tighten=ids.shape[1] * f >= k,
-                                   backend=backend) + (f,)
+        return level_fused_op(*args, tau, cap=cap, k=k,
+                              tighten=ids.shape[1] * f >= k,
+                              backend=backend) + (f,)
 
     def build(caps_):
         caps_ = tuple(caps_)
@@ -105,13 +127,13 @@ def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
             raise ValueError(
                 f"need {tree.height - 1} caps, got {len(caps_)}")
         run = traversal.make_distance_engine(
-            KNN_SPEC, height=tree.height, k=k, caps=caps_, score=score,
+            spec, height=tree.height, k=k, caps=caps_, score=score,
             fused_level=fused_level if fused else None)
 
-        def fn(points, tau_init=None, active=None):
-            p = torch.as_tensor(points, dtype=torch.float32,
+        def fn(queries, tau_init=None, active=None):
+            q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=tree.device).contiguous()
-            return run(ctx, p, tau_init=tau_init, active=active)
+            return run(ctx, q, tau_init=tau_init, active=active)
         return fn
 
     if caps is not None:

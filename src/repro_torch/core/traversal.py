@@ -15,8 +15,8 @@ shares (the reference's ``core/traversal.py``).
                            best-first beam enqueue → leaf top-k.
   ``make_escalating_engine`` — the two-tier overflow-escalating runner.
 
-The select, join and kNN specs are registered; kNN-join, browse and the
-mesh engine arrive with their slices.
+The select, join, kNN and kNN-join specs are registered; browse,
+filtered kNN and the mesh engine arrive with their slices.
 """
 from __future__ import annotations
 
@@ -77,6 +77,7 @@ _OPERATOR_MODULES = (
     "repro_torch.core.select_vector",
     "repro_torch.core.join_vector",
     "repro_torch.core.knn_vector",
+    "repro_torch.core.knn_join_vector",
 )
 
 

@@ -9,10 +9,10 @@ tile holding ~N/P rects, so most range queries touch few partitions (the
 partition MBRs act as a replicated, tiny "root router" level).  Select rows
 merge by sorted global id, an order with no dependence on partition
 placement.  The spatial join of a probe relation merges its (probe id,
-global data id) pairs by a lexicographic sort on the host.  kNN routes in
-two phases on the partition MBRs (primary partition, then the partitions
-within the primary's k-th distance) and merges the candidates by
-(distance, global id).
+global data id) pairs by a lexicographic sort on the host.  kNN and the
+kNN-join route in two phases on the partition MBRs (primary partition,
+then the partitions within the primary's k-th distance) and merge the
+candidates by (distance, global id).
 
 The single-program mesh path arrives with the fleet slice (ROADMAP A11).
 """
@@ -27,7 +27,7 @@ import torch
 
 from ..core import rtree, traversal
 from ..core.geometry import intersects as np_intersects
-from ..core.geometry import mindist_matrix_np
+from ..core.geometry import mindist_matrix_np, mindist_rect_matrix_np
 from ..core.layouts import layout_lanes
 
 
@@ -198,7 +198,7 @@ class SpatialShards:
         return out, ovf
 
     # ------------------------------------------------------------------
-    # distance operators (kNN)
+    # distance operators (kNN, kNN-join)
     # ------------------------------------------------------------------
 
     def _run_partition(self, op: str, pi: int, queries: np.ndarray,
@@ -231,6 +231,17 @@ class SpatialShards:
         points = np.asarray(points, np.float32)
         dmat = mindist_matrix_np(points, self.router_mbrs)   # (B, P)
         return self._two_phase_knn(points, k, dmat, "knn")
+
+    def knn_join(self, qrects: np.ndarray, k: int
+                 ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Distributed kNN-join → (global ids (B, k) int64, squared rect
+        distances (B, k) float64, overflow flag): for each outer rect, its
+        k nearest data rects across all partitions under squared
+        rect-to-rect MINDIST.  Routed as ``knn``, with the router matrix
+        of rect-to-MBR MINDISTs."""
+        qrects = np.asarray(qrects, np.float32)
+        dmat = mindist_rect_matrix_np(qrects, self.router_mbrs)   # (B, P)
+        return self._two_phase_knn(qrects, k, dmat, "knn_join")
 
     def _two_phase_knn(self, queries: np.ndarray, k: int, dmat: np.ndarray,
                        op: str) -> Tuple[np.ndarray, np.ndarray, bool]:

@@ -1,19 +1,23 @@
-// R-tree kNN level steps, hand-written for Hopper (sm_90a).
+// R-tree kNN and kNN-join level steps, hand-written for Hopper (sm_90a).
 //
-// Three kernels behind plain C entry points (loaded with ctypes by
-// kernels/_build.py and wrapped by kernels/rtree_knn.py).  A query row b
-// scores the C frontier nodes ids[b, :] of one level; lane l = c * F + f
-// of the row is child f of node ids[b, c].  A lane is valid iff
-// ids[b, c] >= 0 and child[node, f] >= 0; an invalid lane's distances are
-// DIST_PAD.  Distances are squared Euclidean, rounded exactly as the
-// reference's jitted traces round them (core/geometry.py):
-//     MINDIST     fma(dx, dx, dy*dy)
-//     MINMAXDIST  min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy, dMx*dMx))
-//     centre      (lo + hi) * 0.5
+// Six kernels behind plain C entry points (loaded with ctypes by
+// kernels/_build.py and wrapped by kernels/rtree_knn.py and
+// kernels/rtree_knn_join.py).  A query row b scores the C frontier nodes
+// ids[b, :] of one level; lane l = c * F + f of the row is child f of node
+// ids[b, c].  A lane is valid iff ids[b, c] >= 0 and child[node, f] >= 0;
+// an invalid lane's distances are DIST_PAD.  Distances are squared
+// Euclidean, rounded exactly as the reference's jitted gather traces round
+// them (core/geometry.py):
+//     point MINDIST     fma(dx, dx, dy*dy)
+//     point MINMAXDIST  min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy, dMx*dMx))
+//     centre            (lo + hi) * 0.5
+//     rect MINDIST      fma(dx, dx, dy*dy)      (dx, dy interval gaps)
+//     rect MINMAXDIST   min(fma(mgy, mgy, ngx*ngx), fma(ngy, ngy, mgx*mgx))
+//                       (ngx, mgx = min, max of the two x face gaps; y alike)
 // written with explicit intrinsics, so nvcc's --fmad cannot choose another
-// contraction.  The distance functions live in a query functor
-// (PointQuery), the template parameter of every kernel, so rect queries
-// (kNN-join) reuse the bodies with their own functor.
+// contraction.  The distance functions live in a query functor (PointQuery
+// for kNN, RectQuery for kNN-join), the template parameter of every
+// kernel, so both operators run one body per kernel.
 //
 // B5  rtree_knn_dists — replaces the Pallas kernel
 //     src/repro/kernels/rtree_knn.py:knn_level_dists (line 105; bodies
@@ -56,6 +60,26 @@
 //     nodes, and the (B, cap) or (B, k) outputs.  At batch 64 the work is
 //     a few MB, so both kernels are launch- and latency-bound.
 //
+// B8  rtree_knn_join_dists — replaces
+//     src/repro/kernels/rtree_knn_join.py:knn_join_level_dists (line 87;
+//     bodies _knn_join_kernel line 47, _knn_join_leaf_kernel line 69).
+//     B5's kernel with RectQuery: rect MINDIST and (not at the leaf) rect
+//     MINMAXDIST.  Bound on the card: memory, as B5, with 16-byte query
+//     rows; at the served leaf step (64 x 128 x 64 lanes) ~3.1 MB, about
+//     0.001 ms at 3.35 TB/s.
+//
+// B9  rtree_knn_join_level_fused — replaces
+//     src/repro/kernels/rtree_knn_join.py:knn_join_level_fused (line 224,
+//     through rtree_knn.py:fused_inner_call line 241).  B6's kernel with
+//     RectQuery: the query row is 16 bytes instead of 8, all else as B6.
+//
+// B10 rtree_knn_join_leaf_fused — replaces
+//     src/repro/kernels/rtree_knn_join.py:knn_join_leaf_fused (line 237,
+//     through rtree_knn.py:fused_leaf_call line 361).  B7's kernel with
+//     RectQuery (16-byte query rows), all else as B7.
+//     B9 and B10 are bound by memory as B6 and B7.  The all-pairs join
+//     runs them at batch 4096, one block per query: 4096 blocks a launch.
+//
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
 
@@ -89,6 +113,16 @@ __device__ __forceinline__ float face_dist(float p, float face) {
   return fminf(fabsf(__fsub_rn(p, face)), kDeltaClamp);
 }
 
+// Gap between the intervals [a_lo, a_hi] and [b_lo, b_hi], with the
+// operand order of geometry.rect_axis_gap; b_lo == b_hi gives the gap to
+// one face (geometry._face_gap).
+__device__ __forceinline__ float interval_gap(float a_lo, float a_hi,
+                                              float b_lo, float b_hi) {
+  return fminf(fmaxf(fmaxf(__fsub_rn(a_lo, b_hi), __fsub_rn(b_lo, a_hi)),
+                     0.0f),
+               kDeltaClamp);
+}
+
 // A query point (px, py): the kNN distance functions.
 struct PointQuery {
   static constexpr int kWidth = 2;        // floats per query row
@@ -112,6 +146,33 @@ struct PointQuery {
     const float dMy = face_dist(py, py >= cy ? ly : hy);
     return fminf(__fmaf_rn(dMy, dMy, __fmul_rn(dmx, dmx)),
                  __fmaf_rn(dmy, dmy, __fmul_rn(dMx, dMx)));
+  }
+};
+
+// A query rect (qlx, qly, qhx, qhy): the kNN-join distance functions.
+struct RectQuery {
+  static constexpr int kWidth = 4;        // floats per query row
+  float qlx, qly, qhx, qhy;
+  __device__ explicit RectQuery(const float* q)
+      : qlx(q[0]), qly(q[1]), qhx(q[2]), qhy(q[3]) {}
+
+  __device__ __forceinline__ float mindist(float lx, float ly, float hx,
+                                           float hy) const {
+    const float dx = interval_gap(qlx, qhx, lx, hx);
+    const float dy = interval_gap(qly, qhy, ly, hy);
+    return __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+  }
+
+  __device__ __forceinline__ float minmaxdist(float lx, float ly, float hx,
+                                              float hy) const {
+    const float gxl = interval_gap(qlx, qhx, lx, lx);
+    const float gxh = interval_gap(qlx, qhx, hx, hx);
+    const float gyl = interval_gap(qly, qhy, ly, ly);
+    const float gyh = interval_gap(qly, qhy, hy, hy);
+    const float ngx = fminf(gxl, gxh), mgx = fmaxf(gxl, gxh);
+    const float ngy = fminf(gyl, gyh), mgy = fmaxf(gyl, gyh);
+    return fminf(__fmaf_rn(mgy, mgy, __fmul_rn(ngx, ngx)),
+                 __fmaf_rn(ngy, ngy, __fmul_rn(mgx, mgx)));
   }
 };
 
@@ -302,9 +363,10 @@ knn_dists_kernel(Level L, const float* __restrict__ queries,
   if (!kLeaf) mmd[g] = u;
 }
 
-// B6 (kLeaf false) and B7 (kLeaf true): one block per query row.
-//   B6: out_ids (B, cap) next frontier; tau_out, valid_cnt, keep_cnt (B,).
-//   B7: cap == k; out_ids (B, k), out_d (B, k); valid_cnt (B,).
+// B6 / B9 (kLeaf false) and B7 / B10 (kLeaf true): one block per query row.
+//   B6 / B9: out_ids (B, cap) next frontier; tau_out, valid_cnt, keep_cnt
+//            (B,).
+//   B7 / B10: cap == k; out_ids (B, k), out_d (B, k); valid_cnt (B,).
 template <class Q, bool kLeaf>
 __global__ void __launch_bounds__(kRowThreads)
 knn_emit_kernel(Level L, const float* __restrict__ queries,
@@ -384,14 +446,31 @@ knn_emit_kernel(Level L, const float* __restrict__ queries,
   }
 }
 
-template <bool kLeaf>
+// B5 / B8: one thread per output lane.
+template <class Q>
+int launch_dists(const Level& L, const float* queries, float* md, float* mmd,
+                 int B, int leaf, cudaStream_t st) {
+  const int64_t total = (int64_t)B * L.C * L.F;
+  const unsigned blocks = (unsigned)((total + kLaneThreads - 1) / kLaneThreads);
+  if (leaf) {
+    knn_dists_kernel<Q, true><<<blocks, kLaneThreads, 0, st>>>(
+        L, queries, md, nullptr, total);
+  } else {
+    knn_dists_kernel<Q, false><<<blocks, kLaneThreads, 0, st>>>(
+        L, queries, md, mmd, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6 / B9 and B7 / B10: one block per query row.
+template <class Q, bool kLeaf>
 int launch_emit(const Level& L, const float* queries, const float* tau_in,
                 int* out_ids, float* out_d, float* tau_out, int* valid_cnt,
                 int* keep_cnt, int B, int cap, int k, int tighten,
                 cudaStream_t st) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(u64) * (size_t)pow2_at_least(cap > 0 ? cap : 1);
-  auto kernel = knn_emit_kernel<PointQuery, kLeaf>;
+  auto kernel = knn_emit_kernel<Q, kLeaf>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -412,7 +491,8 @@ Level make_level(const void* ids, const void* lx, const void* ly,
 
 }  // namespace
 
-// The largest cap (B6) or k (B7) whose survivors fit in shared memory.
+// The largest cap (B6, B9) or k (B7, B10) whose survivors fit in shared
+// memory.
 extern "C" int rtree_knn_max_cap() { return kMaxCap; }
 
 extern "C" int rtree_knn_dists(const void* ids, const void* points,
@@ -420,18 +500,9 @@ extern "C" int rtree_knn_dists(const void* ids, const void* points,
                                const void* hy, const void* child, void* md,
                                void* mmd, int B, int C, int F, int leaf,
                                void* stream) {
-  const Level L = make_level(ids, lx, ly, hx, hy, child, C, F);
-  const int64_t total = (int64_t)B * C * F;
-  const unsigned blocks = (unsigned)((total + kLaneThreads - 1) / kLaneThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (leaf) {
-    knn_dists_kernel<PointQuery, true><<<blocks, kLaneThreads, 0, st>>>(
-        L, (const float*)points, (float*)md, nullptr, total);
-  } else {
-    knn_dists_kernel<PointQuery, false><<<blocks, kLaneThreads, 0, st>>>(
-        L, (const float*)points, (float*)md, (float*)mmd, total);
-  }
-  return (int)cudaGetLastError();
+  return launch_dists<PointQuery>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)points,
+      (float*)md, (float*)mmd, B, leaf, (cudaStream_t)stream);
 }
 
 extern "C" int rtree_knn_level_fused(const void* ids, const void* points,
@@ -442,7 +513,7 @@ extern "C" int rtree_knn_level_fused(const void* ids, const void* points,
                                      void* valid_cnt, void* keep_cnt, int B,
                                      int C, int F, int cap, int k,
                                      int tighten, void* stream) {
-  return launch_emit<false>(
+  return launch_emit<PointQuery, false>(
       make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)points,
       (const float*)tau_in, (int*)next, nullptr, (float*)tau_out,
       (int*)valid_cnt, (int*)keep_cnt, B, cap, k, tighten,
@@ -455,8 +526,47 @@ extern "C" int rtree_knn_leaf_fused(const void* ids, const void* points,
                                     const void* child, void* out_ids,
                                     void* out_d, void* valid_cnt, int B,
                                     int C, int F, int k, void* stream) {
-  return launch_emit<true>(
+  return launch_emit<PointQuery, true>(
       make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)points,
+      nullptr, (int*)out_ids, (float*)out_d, nullptr, (int*)valid_cnt,
+      nullptr, B, k, k, 0, (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_join_dists(const void* ids, const void* qrects,
+                                    const void* lx, const void* ly,
+                                    const void* hx, const void* hy,
+                                    const void* child, void* md, void* mmd,
+                                    int B, int C, int F, int leaf,
+                                    void* stream) {
+  return launch_dists<RectQuery>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)qrects,
+      (float*)md, (float*)mmd, B, leaf, (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_join_level_fused(const void* ids,
+                                          const void* qrects, const void* lx,
+                                          const void* ly, const void* hx,
+                                          const void* hy, const void* child,
+                                          const void* tau_in, void* next,
+                                          void* tau_out, void* valid_cnt,
+                                          void* keep_cnt, int B, int C,
+                                          int F, int cap, int k, int tighten,
+                                          void* stream) {
+  return launch_emit<RectQuery, false>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)qrects,
+      (const float*)tau_in, (int*)next, nullptr, (float*)tau_out,
+      (int*)valid_cnt, (int*)keep_cnt, B, cap, k, tighten,
+      (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_join_leaf_fused(const void* ids, const void* qrects,
+                                         const void* lx, const void* ly,
+                                         const void* hx, const void* hy,
+                                         const void* child, void* out_ids,
+                                         void* out_d, void* valid_cnt, int B,
+                                         int C, int F, int k, void* stream) {
+  return launch_emit<RectQuery, true>(
+      make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)qrects,
       nullptr, (int*)out_ids, (float*)out_d, nullptr, (int*)valid_cnt,
       nullptr, B, k, k, 0, (cudaStream_t)stream);
 }

@@ -18,6 +18,7 @@ import torch
 from . import ref as _ref
 from . import rtree_join as _join
 from . import rtree_knn as _knn
+from . import rtree_knn_join as _knn_join
 from . import rtree_select as _select
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -53,6 +54,12 @@ _KERNELS = {
                        _knn.knn_level_fused_cuda),
     ("knn", "fused_leaf"): (_ref.knn_leaf_fused_ref,
                             _knn.knn_leaf_fused_cuda),
+    ("knn_join", "score"): (_ref.knn_join_level_dists_ref,
+                            _knn_join.knn_join_level_dists_cuda),
+    ("knn_join", "fused"): (_ref.knn_join_level_fused_ref,
+                            _knn_join.knn_join_level_fused_cuda),
+    ("knn_join", "fused_leaf"): (_ref.knn_join_leaf_fused_ref,
+                                 _knn_join.knn_join_leaf_fused_cuda),
 }
 
 
@@ -104,6 +111,33 @@ def knn_leaf_fused(ids, points, lx, ly, hx, hy, child, *, k: int,
     (-1, +inf) for missing rows, valid_cnt (B,))."""
     return kernel_call("knn", "fused_leaf", ids, points, lx, ly, hx, hy,
                        child, k=k, backend=backend)
+
+
+def knn_join_level_dists(ids, qrects, lx, ly, hx, hy, child, *,
+                         leaf: bool = False, backend: str = "auto"):
+    """kNN-join level-step distances: (B,C) ids × (B,4) rects → (mindist
+    (B,C,F), minmaxdist (B,C,F) | None at the leaf) float32, DIST_PAD on
+    invalid lanes."""
+    return kernel_call("knn_join", "score", ids, qrects, lx, ly, hx, hy,
+                       child, leaf=leaf, backend=backend)
+
+
+def knn_join_level_fused(ids, qrects, lx, ly, hx, hy, child, tau, *,
+                         cap: int, k: int, tighten: bool,
+                         backend: str = "auto"):
+    """Fused kNN-join internal level (rect queries): contract as
+    ``knn_level_fused``."""
+    return kernel_call("knn_join", "fused", ids, qrects, lx, ly, hx, hy,
+                       child, tau, cap=cap, k=k, tighten=tighten,
+                       backend=backend)
+
+
+def knn_join_leaf_fused(ids, qrects, lx, ly, hx, hy, child, *, k: int,
+                        backend: str = "auto"):
+    """Fused kNN-join leaf (rect queries): contract as
+    ``knn_leaf_fused``."""
+    return kernel_call("knn_join", "fused_leaf", ids, qrects, lx, ly, hx,
+                       hy, child, k=k, backend=backend)
 
 
 def join_pair_masks(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords,

@@ -1,10 +1,10 @@
-"""Plain PyTorch twins of the select, join and kNN kernels (the
-reference's ``kernels/ref.py`` entries for B1–B7).
+"""Plain PyTorch twins of the select, join, kNN and kNN-join kernels (the
+reference's ``kernels/ref.py`` entries for B1–B10).
 
 Each twin has its kernel's contract exactly — same shapes, dtypes and
 padding — and runs on any device.  The CPU tests hold them against the
 JAX package; ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.  B1–B4 are compares and integer arithmetic only; B5–B7 compute the
+card.  B1–B4 are compares and integer arithmetic only; B5–B10 compute the
 distances with the roundings pinned in ``core/geometry.py``, which the
 kernels reproduce with explicit intrinsics.  So every twin and its kernel
 agree exactly.
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..core.compaction import compact_pairs, compact_rows
-from ..core.geometry import DIST_PAD, intersects, mindist, minmaxdist
+from ..core.geometry import (DIST_PAD, intersects, mindist, mindist_rect,
+                             minmaxdist, minmaxdist_rect)
 from ..core.traversal import distance_leaf_emit, distance_level_emit
 
 
@@ -138,3 +139,32 @@ def _make_distance_fused_refs(dists_ref):
 # twins of knn_level_fused_cuda (B6) and knn_leaf_fused_cuda (B7)
 knn_level_fused_ref, knn_leaf_fused_ref = \
     _make_distance_fused_refs(knn_level_dists_ref)
+
+
+# ---------------------------------------------------------------------------
+# kNN-join: rect-query scoring (B8) and the fused level / leaf steps (B9,
+# B10)
+# ---------------------------------------------------------------------------
+
+def knn_join_level_dists_ref(ids, qrects, lx, ly, hx, hy, child, *,
+                             leaf: bool = False):
+    """Twin of ``knn_join_level_dists_cuda``: (B, C) ids × (B, 4) query
+    rects → (mindist (B, C, F), minmaxdist (B, C, F) | None) float32 rect
+    distances, DIST_PAD on lanes whose frontier slot or child is -1;
+    ``leaf=True`` skips the bound and returns None for it."""
+    safe = ids.clamp(min=0).long()                  # (B, C)
+    glx, gly = lx[safe], ly[safe]                   # (B, C, F)
+    ghx, ghy = hx[safe], hy[safe]
+    q = [qrects[:, j, None, None] for j in range(4)]
+    valid = (child[safe] >= 0) & (ids >= 0)[:, :, None]
+    pad = float(DIST_PAD)
+    md = torch.where(valid, mindist_rect(*q, glx, gly, ghx, ghy), pad)
+    if leaf:
+        return md, None
+    mmd = minmaxdist_rect(*q, glx, gly, ghx, ghy)
+    return md, torch.where(valid, mmd, pad)
+
+
+# twins of knn_join_level_fused_cuda (B9) and knn_join_leaf_fused_cuda (B10)
+knn_join_level_fused_ref, knn_join_leaf_fused_ref = \
+    _make_distance_fused_refs(knn_join_level_dists_ref)

@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA kNN kernels (``csrc/rtree_knn.cu``).
+"""Wrappers of the CUDA kNN kernels (``csrc/rtree_knn.cu``), and the
+launchers that the kNN-join wrappers (``kernels/rtree_knn_join.py``) share.
 
 B5 ``knn_level_dists_cuda`` replaces the Pallas
 ``repro/kernels/rtree_knn.py:knn_level_dists`` (line 105); B6
@@ -28,6 +29,9 @@ _ARGTYPES = {                           # the stream pointer is appended
     "rtree_knn_dists": [_P] * 9 + [_I] * 4,
     "rtree_knn_level_fused": [_P] * 12 + [_I] * 6,
     "rtree_knn_leaf_fused": [_P] * 10 + [_I] * 4,
+    "rtree_knn_join_dists": [_P] * 9 + [_I] * 4,
+    "rtree_knn_join_level_fused": [_P] * 12 + [_I] * 6,
+    "rtree_knn_join_leaf_fused": [_P] * 10 + [_I] * 4,
 }
 
 # launches per kernel since the last reset (plain integers)
@@ -53,9 +57,10 @@ def _max_cap() -> int:
     return int(f())
 
 
-def _check(ids, points, lx, ly, hx, hy, child, **extra):
-    """Validate one level call; returns (B, C, F)."""
-    tensors = dict(ids=ids, points=points, lx=lx, ly=ly, hx=hx, hy=hy,
+def _check(ids, queries, lx, ly, hx, hy, child, *, width: int, **extra):
+    """Validate one level call with (B, ``width``) query rows; returns
+    (B, C, F)."""
+    tensors = dict(ids=ids, queries=queries, lx=lx, ly=ly, hx=hx, hy=hy,
                    child=child, **extra)
     dev = ids.device
     for name, t in tensors.items():
@@ -72,9 +77,9 @@ def _check(ids, points, lx, ly, hx, hy, child, **extra):
         raise ValueError(f"ids must be non-empty (B, C), got "
                          f"{tuple(ids.shape)}")
     b, c = ids.shape
-    if tuple(points.shape) != (b, 2):
-        raise ValueError(f"points must be {(b, 2)}, got "
-                         f"{tuple(points.shape)}")
+    if tuple(queries.shape) != (b, width):
+        raise ValueError(f"queries must be {(b, width)}, got "
+                         f"{tuple(queries.shape)}")
     if lx.ndim != 2 or 0 in lx.shape:
         raise ValueError(f"level rows must be non-empty (N, F), got "
                          f"{tuple(lx.shape)}")
@@ -101,33 +106,28 @@ def _check_width(name: str, width: int) -> None:
                          f"memory")
 
 
-def knn_level_dists_cuda(ids, points, lx, ly, hx, hy, child, *,
-                         leaf: bool = False):
-    """Kernel B5: (B, C) int32 ids (-1 pad) × (B, 2) float32 points over
-    (N, F) SoA rows → (mindist (B, C, F), minmaxdist (B, C, F) | None)
-    float32, DIST_PAD on invalid lanes; ``leaf=True`` computes MINDIST
-    only and returns None for the bound."""
-    b, c, f = _check(ids, points, lx, ly, hx, hy, child)
+# One launcher per kernel body, shared by the kNN (point, width 2) and the
+# kNN-join (rect, width 4) entry points; the callers count the launches.
+
+def launch_dists(entry: str, width: int, ids, queries, lx, ly, hx, hy,
+                 child, leaf: bool):
+    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width)
     dev = ids.device
     with torch.cuda.device(dev):
         md = torch.empty((b, c, f), dtype=torch.float32, device=dev)
         mmd = None if leaf else torch.empty_like(md)
-        _build.launch(_LIB, "rtree_knn_dists", _ARGTYPES["rtree_knn_dists"],
-                      ids.data_ptr(), points.data_ptr(), lx.data_ptr(),
-                      ly.data_ptr(), hx.data_ptr(), hy.data_ptr(),
-                      child.data_ptr(), md.data_ptr(),
-                      None if leaf else mmd.data_ptr(), b, c, f, int(leaf))
-    _launches["knn_level_dists"] += 1
+        _build.launch(_LIB, entry, _ARGTYPES[entry], ids.data_ptr(),
+                      queries.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+                      hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
+                      md.data_ptr(), None if leaf else mmd.data_ptr(), b, c,
+                      f, int(leaf))
     return md, mmd
 
 
-def knn_level_fused_cuda(ids, points, lx, ly, hx, hy, child, tau, *,
-                         cap: int, k: int, tighten: bool):
-    """Kernel B6: one internal level — τ = min(tau, k-th smallest
-    MINMAXDIST over the C·F lanes) when ``tighten``, MINDIST <= τ pruning,
-    and the best-first beam → (next (B, cap) int32 -1 padded, τ (B,)
-    float32, valid_cnt (B,) int32, keep_cnt (B,) int32)."""
-    b, c, f = _check(ids, points, lx, ly, hx, hy, child, tau=tau)
+def launch_level_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
+                       child, tau, cap: int, k: int, tighten: bool):
+    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width,
+                     tau=tau)
     _check_width("cap", cap)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -141,33 +141,61 @@ def knn_level_fused_cuda(ids, points, lx, ly, hx, hy, child, tau, *,
         tau_out = torch.empty((b,), dtype=torch.float32, device=dev)
         valid_cnt = torch.empty((b,), **i32)
         keep_cnt = torch.empty((b,), **i32)
-        _build.launch(_LIB, "rtree_knn_level_fused",
-                      _ARGTYPES["rtree_knn_level_fused"], ids.data_ptr(),
-                      points.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+        _build.launch(_LIB, entry, _ARGTYPES[entry], ids.data_ptr(),
+                      queries.data_ptr(), lx.data_ptr(), ly.data_ptr(),
                       hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
                       tau.data_ptr(), nxt.data_ptr(), tau_out.data_ptr(),
                       valid_cnt.data_ptr(), keep_cnt.data_ptr(), b, c, f,
                       cap, k, int(bool(tighten)))
-    _launches["knn_level_fused"] += 1
     return nxt, tau_out, valid_cnt, keep_cnt
 
 
-def knn_leaf_fused_cuda(ids, points, lx, ly, hx, hy, child, *, k: int):
-    """Kernel B7: the leaf — the k valid lanes of smallest (MINDIST, lane)
-    → (ids (B, k) int32, d (B, k) float32 with (-1, +inf) for missing
-    rows, valid_cnt (B,) int32)."""
-    b, c, f = _check(ids, points, lx, ly, hx, hy, child)
+def launch_leaf_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
+                      child, k: int):
+    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width)
     _check_width("k", k)
     dev = ids.device
     with torch.cuda.device(dev):
         out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
         out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
         valid_cnt = torch.empty((b,), dtype=torch.int32, device=dev)
-        _build.launch(_LIB, "rtree_knn_leaf_fused",
-                      _ARGTYPES["rtree_knn_leaf_fused"], ids.data_ptr(),
-                      points.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+        _build.launch(_LIB, entry, _ARGTYPES[entry], ids.data_ptr(),
+                      queries.data_ptr(), lx.data_ptr(), ly.data_ptr(),
                       hx.data_ptr(), hy.data_ptr(), child.data_ptr(),
                       out_ids.data_ptr(), out_d.data_ptr(),
                       valid_cnt.data_ptr(), b, c, f, k)
-    _launches["knn_leaf_fused"] += 1
     return out_ids, out_d, valid_cnt
+
+
+def knn_level_dists_cuda(ids, points, lx, ly, hx, hy, child, *,
+                         leaf: bool = False):
+    """Kernel B5: (B, C) int32 ids (-1 pad) × (B, 2) float32 points over
+    (N, F) SoA rows → (mindist (B, C, F), minmaxdist (B, C, F) | None)
+    float32, DIST_PAD on invalid lanes; ``leaf=True`` computes MINDIST
+    only and returns None for the bound."""
+    out = launch_dists("rtree_knn_dists", 2, ids, points, lx, ly, hx, hy,
+                       child, leaf)
+    _launches["knn_level_dists"] += 1
+    return out
+
+
+def knn_level_fused_cuda(ids, points, lx, ly, hx, hy, child, tau, *,
+                         cap: int, k: int, tighten: bool):
+    """Kernel B6: one internal level — τ = min(tau, k-th smallest
+    MINMAXDIST over the C·F lanes) when ``tighten``, MINDIST <= τ pruning,
+    and the best-first beam → (next (B, cap) int32 -1 padded, τ (B,)
+    float32, valid_cnt (B,) int32, keep_cnt (B,) int32)."""
+    out = launch_level_fused("rtree_knn_level_fused", 2, ids, points, lx,
+                             ly, hx, hy, child, tau, cap, k, tighten)
+    _launches["knn_level_fused"] += 1
+    return out
+
+
+def knn_leaf_fused_cuda(ids, points, lx, ly, hx, hy, child, *, k: int):
+    """Kernel B7: the leaf — the k valid lanes of smallest (MINDIST, lane)
+    → (ids (B, k) int32, d (B, k) float32 with (-1, +inf) for missing
+    rows, valid_cnt (B,) int32)."""
+    out = launch_leaf_fused("rtree_knn_leaf_fused", 2, ids, points, lx, ly,
+                            hx, hy, child, k)
+    _launches["knn_leaf_fused"] += 1
+    return out

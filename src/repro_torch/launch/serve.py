@@ -1,7 +1,8 @@
 """Spatial query service of the port: builds a spatially-partitioned
 index fleet on the device (distributed/spatial_shard.py) and serves batched
 range-select requests behind the straggler pool (runtime/straggler.py),
-spatial joins of a probe relation against the fleet, or batched exact kNN.
+spatial joins of a probe relation against the fleet, batched exact kNN, or
+the batched kNN-join of query rects.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 200000 \\
         --partitions 8 --batches 20 --batch-size 64 --selectivity 0.001
@@ -9,12 +10,14 @@ spatial joins of a probe relation against the fleet, or batched exact kNN.
         --n 200000 --join-cap 131072 --query-eps 0.002
     PYTHONPATH=src python -m repro_torch.launch.serve --mode knn \\
         --n 2000000 --k 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn-join \\
+        --n 2000000 --k 8 --query-eps 0.002
 
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
-raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``
-and ``knn`` are ported; the other modes of the reference exit with a "not
-ported yet" message naming their ROADMAP item.
+raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``,
+``knn`` and ``knn-join`` are ported; the other modes of the reference exit
+with a "not ported yet" message naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,13 +38,11 @@ MODE_TO_SPEC = {
     "select": "select",
     "join": "join",
     "knn": "knn",
+    "knn-join": "knn_join",
 }
 
 # modes of the reference that later slices port
-NOT_PORTED = {
-    "knn-join": "A8", "knn-filtered": "A10",
-    "browse": "A10", "lm": "A14",
-}
+NOT_PORTED = {"knn-filtered": "A10", "browse": "A10", "lm": "A14"}
 
 
 def make_rects(n: int, seed: int) -> np.ndarray:
@@ -69,6 +70,17 @@ def make_knn_inputs(n: int, seed: int, batches: int, batch_size: int):
     rng = np.random.default_rng(seed)
     rects = str_pack.points_to_rects(rng.random((n, 2), dtype=np.float32))
     return rects, rng.random((batches, batch_size, 2), dtype=np.float32)
+
+
+def make_knn_join_inputs(n: int, seed: int, batches: int, batch_size: int,
+                         eps: float):
+    """The served dataset and the kNN-join's query rects, as the reference
+    draws them from one generator: ``make_knn_inputs``' data points and
+    query points, the latter as centres widened to rects of half-extent
+    ``eps``.  Returns (rects, qs (batches, batch_size, 4))."""
+    rects, centres = make_knn_inputs(n, seed, batches, batch_size)
+    e = np.float32(eps)
+    return rects, np.concatenate([centres - e, centres + e], axis=-1)
 
 
 def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
@@ -178,10 +190,40 @@ def _serve_knn(args, spec):
             "first_batch": first}
 
 
+def _serve_knn_join(args, spec):
+    """Batched kNN-join: for each query rect (half-extent ``--query-eps``),
+    its k nearest data rects across the fleet under rect-to-rect MINDIST,
+    routed in two phases as kNN.  Returns q/s, the neighbour rows
+    returned, the overflow flag, and the first batch's (ids, dists)."""
+    rects, qs = make_knn_join_inputs(args.n, args.seed, args.batches,
+                                     args.batch_size, args.query_eps)
+    shards = _build_shards(args, rects)
+    shards.warm("knn_join", args.batch_size, k=args.k)
+    t0 = time.time()
+    returned = 0
+    overflowed = False
+    first = None
+    for b in range(args.batches):
+        ids, dists, ovf = shards.knn_join(qs[b], args.k)
+        first = (ids, dists) if first is None else first
+        returned += int((ids >= 0).sum())
+        overflowed |= ovf
+    dt = time.time() - t0
+    qps = args.batches * args.batch_size / dt
+    print(f"served {args.batches} batches × {args.batch_size} kNN-join "
+          f"queries (k={args.k}, eps={args.query_eps}) in {dt:.2f}s → "
+          f"{qps:,.0f} q/s, {returned} neighbor rows"
+          + (", WARNING: beam truncation — results may be approximate"
+             if overflowed else ""))
+    return {"qps": qps, "neighbors": returned, "overflow": overflowed,
+            "first_batch": first}
+
+
 RUNNERS = {
     "select": _serve_select,
     "join": _serve_join,
     "knn": _serve_knn,
+    "knn_join": _serve_knn_join,
 }
 
 
@@ -198,11 +240,12 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--selectivity", type=float, default=0.001)
     ap.add_argument("--k", type=int, default=8,
-                    help="neighbours per query (knn mode)")
+                    help="neighbours per query (knn, knn-join modes)")
     ap.add_argument("--join-cap", type=int, default=1 << 17,
                     help="result-pair capacity (join mode)")
     ap.add_argument("--query-eps", type=float, default=0.002,
-                    help="half-extent of the probe rects (join mode)")
+                    help="half-extent of the probe rects (join mode) and "
+                         "of the query rects (knn-join mode)")
     ap.add_argument("--deadline", type=float, default=5.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

@@ -5,21 +5,22 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-B1–B7 are held against their plain PyTorch twins, and the select, join
-and kNN engines on the card against the same engines on the CPU.  B1–B4
-are compares and integer arithmetic; B5–B7 compute distances with the
-roundings pinned in ``core/geometry.py``.  So everything is exact, float
-bits included.
+B1–B10 are held against their plain PyTorch twins, and the select, join,
+kNN and kNN-join engines on the card against the same engines on the CPU.
+B1–B4 are compares and integer arithmetic; B5–B10 compute distances with
+the roundings pinned in ``core/geometry.py``.  So everything is exact,
+float bits included.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (join_vector, knn_vector, layouts, rtree,
-                              select_vector)
+from repro_torch.core import (join_vector, knn_join_vector, knn_vector,
+                              layouts, rtree, select_vector)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rtree_join as jkern
 from repro_torch.kernels import rtree_knn as kkern
+from repro_torch.kernels import rtree_knn_join as kjkern
 from repro_torch.kernels import rtree_select as kern
 
 from conftest import uniform_rects
@@ -237,4 +238,117 @@ def test_cuda_knn_engine_equals_cpu_engine(knn_inst, k, caps_mode, fused):
     (ci, cd, ct), (ti, td, tt) = outs
     _bits_equal(ci, ti)
     _bits_equal(cd, td)
+    assert ct.asdict() == tt.asdict()
+
+
+@pytest.fixture(scope="module")
+def knn_join_inst():
+    rng = np.random.default_rng(47)
+    rects = uniform_rects(rng, 3000, eps=0.003)
+    c = (rng.random((6, 2)) * 1.4 - 0.2).astype(np.float32)
+    e = (rng.random((6, 2)) * 0.05).astype(np.float32)
+    e[0] = 0                                       # one point query
+    return rects, np.concatenate([c - e, c + e], axis=1)
+
+
+def _real_frontiers(tree, q, k):
+    """Each level's frontier of a real descent (the B9 twin, cap 64),
+    columns shuffled and 20% of slots -1."""
+    rng = np.random.default_rng(k)
+    ids = torch.zeros((q.shape[0], 1), dtype=torch.int32, device=q.device)
+    tau = torch.full((q.shape[0],), 3.0e38, device=q.device)
+    out = {}
+    for li in range(tree.height - 1, -1, -1):
+        lvl = tree.levels[li]
+        perm = torch.from_numpy(rng.permutation(ids.shape[1])).to(q.device)
+        drop = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.2)
+        out[li] = torch.where(drop.to(q.device), -1,
+                              ids[:, perm]).contiguous()
+        if li:
+            ids, tau, _, _ = ref.knn_join_level_fused_ref(
+                ids, q, *[getattr(lvl, f) for f in ROWS], tau, cap=64, k=k,
+                tighten=ids.shape[1] * 16 >= k)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_cuda_knn_join_kernels_equal_twins(knn_join_inst, k):
+    """B8 (both variants), B9 (tighten on and off, a random τ_in, a cap
+    that holds and one that overflows) and B10 ≡ their twins, bit for
+    bit, on every level of a real descent."""
+    dev = _need_gpu()
+    rects, q = knn_join_inst
+    tree = rtree.build_rtree(rects, fanout=16, device=dev)
+    qr = torch.from_numpy(q).to(dev)
+    rng = np.random.default_rng(k + 1)
+    for li, ids in _real_frontiers(tree, qr, k).items():
+        rows = [getattr(tree.levels[li], f) for f in ROWS]
+        c = ids.shape[1]
+        before = kjkern.launch_counts()
+        for leaf in (False, True):
+            got = kjkern.knn_join_level_dists_cuda(ids, qr, *rows, leaf=leaf)
+            want = ref.knn_join_level_dists_ref(ids, qr, *rows, leaf=leaf)
+            _bits_equal(got[0], want[0])
+            assert (got[1] is None) == (want[1] is None) == leaf
+            if not leaf:
+                _bits_equal(got[1], want[1])
+        tau = torch.from_numpy(rng.random(len(q)).astype(np.float32)
+                               * 0.05).to(dev)
+        gates = (False, True) if c * 16 >= k else (False,)
+        for tighten in gates:
+            for cap in (3, 256):
+                got = kjkern.knn_join_level_fused_cuda(
+                    ids, qr, *rows, tau, cap=cap, k=k, tighten=tighten)
+                want = ref.knn_join_level_fused_ref(
+                    ids, qr, *rows, tau, cap=cap, k=k, tighten=tighten)
+                for g, w in zip(got, want):
+                    _bits_equal(g, w)
+        for g, w in zip(kjkern.knn_join_leaf_fused_cuda(ids, qr, *rows, k=k),
+                        ref.knn_join_leaf_fused_ref(ids, qr, *rows, k=k)):
+            _bits_equal(g, w)
+        after = kjkern.launch_counts()
+        assert after["knn_join_level_dists"] == \
+            before["knn_join_level_dists"] + 2
+        assert after["knn_join_level_fused"] == \
+            before["knn_join_level_fused"] + 2 * len(gates)
+        assert after["knn_join_leaf_fused"] == \
+            before["knn_join_leaf_fused"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_cuda_knn_join_engine_equals_cpu_engine(knn_join_inst, k, caps_mode,
+                                                fused):
+    dev = _need_gpu()
+    rects, q = knn_join_inst
+    outs = []
+    for device in (dev, "cpu"):
+        tree = rtree.build_rtree(rects, fanout=16, device=device)
+        outs.append(knn_join_vector.make_knn_join_bfs(
+            tree, k, fused=fused, caps_mode=caps_mode)(q))
+    (ci, cd, ct), (ti, td, tt) = outs
+    _bits_equal(ci, ti)
+    _bits_equal(cd, td)
+    assert ct.asdict() == tt.asdict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_all_pairs_knn_join_equals_cpu(knn_join_inst, fused):
+    """700 outer rects in chunks of 256 (the last one padded)."""
+    dev = _need_gpu()
+    rects, _ = knn_join_inst
+    outer = uniform_rects(np.random.default_rng(48), 700, eps=0.004)
+    outs = []
+    for device in (dev, "cpu"):
+        trees = [rtree.build_rtree(r, fanout=16, device=device)
+                 for r in (outer, rects)]
+        outs.append(knn_join_vector.knn_join(*trees, 8, fused=fused,
+                                             batch=256))
+    (ci, cd, ct), (ti, td, tt) = outs
+    np.testing.assert_array_equal(ci, ti)
+    np.testing.assert_array_equal(cd, td)
     assert ct.asdict() == tt.asdict()

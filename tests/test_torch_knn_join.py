@@ -1,0 +1,511 @@
+"""Port (repro_torch) ≡ reference (repro): the kNN-join slice.
+
+The rect distance functions and the B8 twin are held against the
+reference's jitted ``ref.knn_join_level_dists_ref`` and its Pallas kernel
+run as the reference's own tests run it on the CPU (``interpret=True``);
+the B9/B10 twins against the reference's jitted fused twins; the kNN-join
+engine and the all-pairs ``knn_join`` against the reference's jitted
+``backend="xla"`` path; the fleet against its host path.  Inputs are made
+with numpy from a seed and handed to both packages.  The port pins the
+reference's FMA roundings, so every comparison is exact: ids, distance
+bits, overflow and every ``Counters`` field except ``dispatches``.  Only
+the numpy oracles are held loosely (rtol 1e-4, float64 against float32).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import geometry as jgeometry
+from repro.core import knn_join_vector as jkj
+from repro.core import rtree as jrtree
+from repro.core import traversal as jtraversal
+from repro.distributed.spatial_shard import SpatialShards as JShards
+from repro.kernels import ref as jref
+from repro.kernels import rtree_knn_join as jkern
+from repro_torch.core import geometry as tgeometry
+from repro_torch.core import knn_join_vector as tkj
+from repro_torch.core import rtree as trtree
+from repro_torch.core import traversal as ttraversal
+from repro_torch.core.counters import Counters
+from repro_torch.distributed.spatial_shard import SpatialShards as TShards
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rtree_knn_join as tkern
+from repro_torch.launch import serve
+
+from conftest import uniform_rects
+
+ENGINE_FIELDS = tuple(f for f in Counters.__dataclass_fields__
+                      if f != "dispatches")
+ROWS = ("lx", "ly", "hx", "hy", "child")
+_jit_dists = jax.jit(jref.knn_join_level_dists_ref, static_argnames=("leaf",))
+_jit_level_fused = jax.jit(jref.knn_join_level_fused_ref,
+                           static_argnames=("cap", "k", "tighten"))
+_jit_leaf_fused = jax.jit(jref.knn_join_leaf_fused_ref,
+                          static_argnames=("k",))
+
+
+def _qrects(rng, n, spread=1.0, eps=0.01):
+    """``n`` query rects: centres over ``spread`` times the unit square,
+    half-extents up to ``eps`` (0: degenerate point queries)."""
+    c = ((rng.random((n, 2)) - 0.5) * spread + 0.5).astype(np.float32)
+    e = (rng.random((n, 2)) * eps).astype(np.float32)
+    return np.concatenate([c - e, c + e], axis=1)
+
+
+@pytest.fixture(scope="module")
+def inst():
+    """20,000 small rects, fanout 16 (height 4), in both packages, and 64
+    query rects of half-extent up to 0.01 (a batch that overflows the
+    adaptive tier at k = 1)."""
+    rng = np.random.default_rng(3)
+    rects = uniform_rects(rng, 20000, eps=0.001)
+    jtree = jrtree.build_rtree(rects, fanout=16)
+    ttree = trtree.build_rtree(rects, fanout=16, device="cpu")
+    assert ttree.height == 4
+    return rects, jtree, ttree, _qrects(rng, 64)
+
+
+def _with_far_rects(q):
+    """The batch plus 16 rects outside the unit square."""
+    return np.concatenate([q, _qrects(np.random.default_rng(1), 16,
+                                      spread=2.5)])
+
+
+def _bits(a):
+    """A float32 array's bits (int32), so +inf and DIST_PAD compare
+    exactly; other dtypes as they are."""
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _assert_same(got, want, ctx):
+    assert _bits(got).dtype == _bits(want).dtype, ctx
+    np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=ctx)
+
+
+def _level_args(tree, li, torch_side):
+    lvl = tree.levels[li]
+    return [getattr(lvl, f) if torch_side else jnp.asarray(getattr(lvl, f))
+            for f in ROWS]
+
+
+def _real_frontiers(ttree, q, k, cap, rng):
+    """Each level's (B, C) frontier of a real descent (the port's B9 twin
+    with cap ``cap``), columns shuffled and 10% of slots set to -1."""
+    qt = torch.from_numpy(q)
+    ids = torch.zeros((len(q), 1), dtype=torch.int32)
+    tau = torch.full((len(q),), 3.0e38)
+    out = {}
+    for li in range(ttree.height - 1, -1, -1):
+        perm = torch.from_numpy(rng.permutation(ids.shape[1]))
+        drop = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1)
+        out[li] = torch.where(drop, -1, ids[:, perm]).contiguous().numpy()
+        if li:
+            ids, tau, _, _ = ref.knn_join_level_fused_ref(
+                ids, qt, *_level_args(ttree, li, True), tau, cap=cap, k=k,
+                tighten=ids.shape[1] * 16 >= k)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rect distances, the numpy oracles, the B8 twin, the fused twins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spread,eps", [(1.0, 0.01), (3.0, 0.05),
+                                        (1.0, 0.0), (1.0, 0.3)])
+@pytest.mark.parametrize("leaf", [False, True])
+def test_rect_distances_equal_jitted_reference(spread, eps, leaf):
+    """Random node rows and query rects (``spread`` 3 puts most outside
+    the unit square, ``eps`` 0 makes them points, 0.3 makes most overlap
+    their rows): the port's rect MINDIST/MINMAXDIST ≡ the reference's
+    jitted gather trace, bit for bit."""
+    rng = np.random.default_rng(int(spread * 10 + eps * 100) + leaf)
+    n, f = 300, 16
+    lo = rng.random((n, f, 2)).astype(np.float32)
+    ext = (rng.random((n, f, 2)) ** 3 * 0.3).astype(np.float32)
+    rows = [lo[..., 0], lo[..., 1], lo[..., 0] + ext[..., 0],
+            lo[..., 1] + ext[..., 1]]
+    child = rng.integers(-1, 1000, (n, f)).astype(np.int32)
+    ids = rng.integers(0, n, (64, 40)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    q = _qrects(rng, 64, spread, eps)
+    want = _jit_dists(ids, q, *rows, child, leaf=leaf)
+    got = ref.knn_join_level_dists_ref(
+        *map(torch.from_numpy, (ids, q, *rows, child)), leaf=leaf)
+    _assert_same(got[0], want[0], "mindist")
+    if leaf:
+        assert got[1] is None and want[1] is None
+    else:
+        _assert_same(got[1], want[1], "minmaxdist")
+    real = got[0][got[0] < float(tgeometry.DIST_VALID_MAX)]
+    assert real.numel() > 0
+    if eps >= 0.3:
+        assert (real == 0).float().mean() > 0.05     # overlaps score 0
+
+
+def test_degenerate_rect_mindist_is_point_mindist():
+    """A point query as a rect: rect MINDIST ≡ point MINDIST, bit for
+    bit."""
+    rng = np.random.default_rng(2)
+    r = torch.from_numpy(uniform_rects(rng, 500, eps=0.05))
+    p = torch.from_numpy(((rng.random((200, 2)) - 0.5) * 2 + 0.5)
+                         .astype(np.float32))
+    box = [r[None, :, j] for j in range(4)]
+    px, py = p[:, 0, None], p[:, 1, None]
+    got = tgeometry.mindist_rect(px, py, px, py, *box)
+    want = tgeometry.mindist(px, py, *box)
+    _assert_same(got, want, "degenerate")
+    assert (got > 0).any() and (got == 0).any()
+
+
+def test_numpy_oracles_equal_reference(inst):
+    rects, _, _, q = inst
+    r = rects[:500].astype(np.float64)
+    qd = q.astype(np.float64)
+    args = tuple(qd[:, j, None] for j in range(4)) + tuple(
+        r[None, :, j] for j in range(4))
+    for name in ("mindist_rect_np", "minmaxdist_rect_np"):
+        np.testing.assert_array_equal(getattr(tgeometry, name)(*args),
+                                      getattr(jgeometry, name)(*args))
+    np.testing.assert_array_equal(
+        tgeometry.mindist_rect_matrix_np(q, rects),
+        jgeometry.mindist_rect_matrix_np(q, rects))
+    np.testing.assert_array_equal(
+        tgeometry.mindist_rect_matrix_np(q[0], rects),
+        jgeometry.mindist_rect_matrix_np(q[0], rects))
+    for k in (1, 8, 600):                        # 600 > 500 rects: padded
+        for g, w in zip(tgeometry.brute_force_knn_join(q, rects[:500], k),
+                        jgeometry.brute_force_knn_join(q, rects[:500], k)):
+            np.testing.assert_array_equal(g, w)
+    # the oracles agree with the float32 forms to rtol 1e-4
+    qt, rt = torch.from_numpy(q), torch.from_numpy(rects[:500])
+    qa = [qt[:, j, None] for j in range(4)]
+    ra = [rt[None, :, j] for j in range(4)]
+    np.testing.assert_allclose(
+        tgeometry.mindist_rect(*qa, *ra).numpy(),
+        tgeometry.mindist_rect_np(*args), rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(
+        tgeometry.minmaxdist_rect(*qa, *ra).numpy(),
+        tgeometry.minmaxdist_rect_np(*args), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("leaf", [False, True])
+def test_level_dists_twin_equals_pallas(inst, leaf):
+    """The B8 twin ≡ the Pallas kernel (interpret mode) on every level of
+    a real descent."""
+    _, jtree, ttree, q = inst
+    fronts = _real_frontiers(ttree, q[:16], 8, 32,
+                             np.random.default_rng(20 + leaf))
+    for li, ids in fronts.items():
+        want = jkern.knn_join_level_dists(
+            jnp.asarray(ids), jnp.asarray(q[:16]),
+            *_level_args(jtree, li, False), leaf=leaf, interpret=True)
+        got = ref.knn_join_level_dists_ref(
+            torch.from_numpy(ids), torch.from_numpy(q[:16]),
+            *_level_args(ttree, li, True), leaf=leaf)
+        _assert_same(got[0], want[0], f"level {li} mindist")
+        if not leaf:
+            _assert_same(got[1], want[1], f"level {li} minmaxdist")
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_fused_twins_equal_jitted_reference(inst, k):
+    """B9 (tighten on and off, random τ_in, a cap that holds and one that
+    overflows) and B10 (also C·F < k) ≡ the reference's jitted twins, on
+    every level of a real descent."""
+    _, jtree, ttree, q = inst
+    rng = np.random.default_rng(k)
+    fronts = _real_frontiers(ttree, q, k, 64, rng)
+    for li, ids in fronts.items():
+        c = ids.shape[1]
+        jargs = [jnp.asarray(ids), jnp.asarray(q),
+                 *_level_args(jtree, li, False)]
+        targs = [torch.from_numpy(ids), torch.from_numpy(q),
+                 *_level_args(ttree, li, True)]
+        tau = (rng.random(64) * 0.01).astype(np.float32)
+        for tighten in ((False, True) if c * 16 >= k else (False,)):
+            for cap in (4, 64):
+                kw = dict(cap=cap, k=k, tighten=tighten)
+                want = _jit_level_fused(*jargs, jnp.asarray(tau), **kw)
+                got = ref.knn_join_level_fused_ref(
+                    *targs, torch.from_numpy(tau), **kw)
+                for g, w, name in zip(got, want, ("next", "tau", "valid",
+                                                  "keep")):
+                    _assert_same(g, w, f"level {li} {kw} {name}")
+        for kk in (k, c * 16 + 9):                    # C·F < kk: padded
+            want = _jit_leaf_fused(*jargs, k=kk)
+            got = ref.knn_join_leaf_fused_ref(*targs, k=kk)
+            for g, w, name in zip(got, want, ("ids", "d", "valid")):
+                _assert_same(g, w, f"level {li} leaf k={kk} {name}")
+        assert int((got[0] < 0).sum()) >= 64 * 9
+
+
+# ---------------------------------------------------------------------------
+# the kNN-join engine ≡ the reference's jitted xla path
+# ---------------------------------------------------------------------------
+
+def _join_both(jtree, ttree, q, k, **kw):
+    jout = jkj.make_knn_join_bfs(jtree, k, backend="xla", **kw)(
+        jnp.asarray(q))
+    tfn = tkj.make_knn_join_bfs(ttree, k, **kw)
+    return jout, tfn(q), tfn
+
+
+def _assert_counters_equal(jc, tc, ctx):
+    for f in ENGINE_FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(tc, f)), np.asarray(getattr(jc, f)),
+            err_msg=f"{ctx}: {f}")
+
+
+def _assert_join_equal(jout, tout, ctx):
+    (ji, jd, jc), (ti, td, tc) = jout, tout
+    assert ti.dtype == torch.int32 and td.dtype == torch.float32
+    _assert_same(ti, ji, f"{ctx} ids")
+    _assert_same(td, jd, f"{ctx} dists")
+    _assert_counters_equal(jc, tc, ctx)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_make_knn_join_bfs_equals_reference(inst, k, caps_mode, fused):
+    rects, jtree, ttree, q = inst
+    q = _with_far_rects(q)
+    jout, tout, tfn = _join_both(jtree, ttree, q, k, caps_mode=caps_mode,
+                                 fused=fused)
+    _assert_join_equal(jout, tout, f"k={k} {caps_mode} fused={fused}")
+    ti, td, tc = tout
+    assert int(tc.overflow) == 0
+    if caps_mode == "static":
+        tc.validate_dispatches(tkj.KNN_JOIN_SPEC.stage_model, ttree.height,
+                               fused=fused)
+    rows = np.r_[0:4, 76:80]                        # near and far queries
+    _, want_d = tgeometry.brute_force_knn_join(q[rows], rects, k)
+    np.testing.assert_allclose(td.numpy()[rows], want_d, rtol=1e-4,
+                               atol=1e-9)
+    for i in rows:
+        assert len(set(ti[i].tolist())) == k
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_beam_overflow_equals_reference(inst, fused):
+    """Caps far below the τ band: every level overflows into its
+    best-first beam, identically in both packages."""
+    _, jtree, ttree, q = inst
+    jout, tout, _ = _join_both(jtree, ttree, q, 8, caps=(2, 3, 3),
+                               fused=fused)
+    _assert_join_equal(jout, tout, f"beam fused={fused}")
+    assert int(tout[2].overflow) == 1
+    assert bool((tout[0] >= 0).all())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_knn_join_escalation_equals_reference(inst, fused):
+    """k = 1 on the adaptive tier overflows and escalates once per batch;
+    with a tight tier that always overflows, the runner pins itself to
+    the full tier after three batches in a row."""
+    _, jtree, ttree, q = inst
+    jout, tout, tfn = _join_both(jtree, ttree, q, 1, fused=fused)
+    _assert_join_equal(jout, tout, f"k=1 adaptive fused={fused}")
+    assert int(tout[2].escalations) == 1 and tfn.escalation_count() == 1
+    full = tkj.knn_frontier_caps(ttree, 8)
+    jesc = jtraversal.maybe_escalating(
+        lambda c: jkj.make_knn_join_bfs(jtree, 8, caps=c, backend="xla",
+                                        fused=fused), (1, 1, 1), full)
+    tesc = ttraversal.maybe_escalating(
+        lambda c: tkj.make_knn_join_bfs(ttree, 8, caps=c, fused=fused),
+        (1, 1, 1), full)
+    for batch in range(4):
+        _assert_join_equal(jesc(jnp.asarray(q)), tesc(q), f"batch {batch}")
+        assert tesc.escalation_count() == jesc.escalation_count() == \
+            batch + 1
+        assert tesc.stuck() == jesc.stuck() == (batch >= 2)
+    assert tesc.host_syncs() == 3
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_k_above_n_rects_equals_reference(fused):
+    """k > n_rects: the missing rows are (-1, +inf) in both packages."""
+    rng = np.random.default_rng(9)
+    rects = uniform_rects(rng, 40, eps=0.01)
+    jtree = jrtree.build_rtree(rects, fanout=4)
+    ttree = trtree.build_rtree(rects, fanout=4, device="cpu")
+    q = _qrects(rng, 5)
+    jout, tout, _ = _join_both(jtree, ttree, q, 64, caps_mode="static",
+                               fused=fused)
+    _assert_join_equal(jout, tout, f"k > n fused={fused}")
+    ti, td, _ = tout
+    assert bool((ti[:, 40:] == -1).all()) and bool(torch.isinf(
+        td[:, 40:]).all()) and bool((ti[:, :40] >= 0).all())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+def test_distance_zero_ties_equal_reference(caps_mode, fused):
+    """Query rects that each contain far more than k data points: every
+    answer is at distance 0, so the ids are decided by the tie order
+    alone, and must still equal the reference's exactly; brute force
+    holds them to distances and membership."""
+    rng = np.random.default_rng(17)
+    rects = uniform_rects(rng, 20000)                # points as rects
+    jtree = jrtree.build_rtree(rects, fanout=16)
+    ttree = trtree.build_rtree(rects, fanout=16, device="cpu")
+    c = rng.random((48, 2)).astype(np.float32) * 0.9 + 0.05
+    q = np.concatenate([c - 0.03, c + 0.03], axis=1)  # ~72 points inside
+    jout, tout, _ = _join_both(jtree, ttree, q, 8, caps_mode=caps_mode,
+                               fused=fused)
+    _assert_join_equal(jout, tout, f"ties {caps_mode} fused={fused}")
+    ti, td, tc = tout
+    assert bool((td == 0).all()) and int(tc.overflow) == 0
+    d = tgeometry.mindist_rect_matrix_np(q, rects)
+    inside = d == 0
+    assert int(inside.sum(axis=1).min()) > 30
+    for i in range(len(q)):
+        assert inside[i, ti[i].numpy()].all()
+        assert len(set(ti[i].tolist())) == 8
+
+
+def test_tau_init_and_active_hooks_equal_reference(inst):
+    """The mesh path's hooks: a seeded τ and masked-out queries."""
+    _, jtree, ttree, q = inst
+    rng = np.random.default_rng(4)
+    tau = (rng.random(64) * 2e-4).astype(np.float32)
+    active = rng.random(64) < 0.7
+    jrun = jkj.make_knn_join_bfs(jtree, 8, backend="xla", caps_mode="static")
+    trun = tkj.make_knn_join_bfs(ttree, 8, caps_mode="static")
+    jout = jrun(jnp.asarray(q), tau_init=jnp.asarray(tau),
+                active=jnp.asarray(active))
+    tout = trun(q, tau_init=torch.from_numpy(tau),
+                active=torch.from_numpy(active))
+    _assert_join_equal(jout, tout, "hooks")
+    assert bool((tout[0][~torch.from_numpy(active)] == -1).all())
+
+
+@pytest.mark.parametrize("layout", ["d0", "d2", "d3"])
+def test_other_layouts_raise_naming_a9(inst, layout):
+    _, _, ttree, _ = inst
+    with pytest.raises(NotImplementedError, match="A9"):
+        tkj.make_knn_join_bfs(ttree, 8, layout=layout)
+
+
+def test_generic_knn_join_build_equals_wrapper(inst):
+    _, _, ttree, q = inst
+    a = ttraversal.build("knn_join", ttree, k=8)(q)
+    b = tkj.make_knn_join_bfs(ttree, 8)(q)
+    for x, y in zip(a[:2], b[:2]):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    assert a[2].asdict() == b[2].asdict()
+    spec = ttraversal.get_spec("knn_join")
+    assert spec.kind == "distance" and spec.query_width == 4
+    assert spec.stage_model == tkj.KNN_JOIN_SPEC.stage_model
+    assert (spec.stage_model.inner, spec.stage_model.leaf,
+            spec.stage_model.fused) == (4, 3, 1)
+    with pytest.raises(ValueError, match="k must be positive"):
+        tkj.make_knn_join_bfs(ttree, 0)
+
+
+# ---------------------------------------------------------------------------
+# the all-pairs join, the fleet and the serve entry point
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_all_pairs_knn_join_equals_reference(fused):
+    """1,000 outer rects in chunks of 256 (the last one padded) against a
+    6,000-rect inner tree: ids, distances and summed counters."""
+    rng = np.random.default_rng(12 + fused)
+    inner = uniform_rects(rng, 6000, eps=0.002)
+    outer = uniform_rects(rng, 1000, eps=0.004)
+    ji, jd, jc = jkj.knn_join(jrtree.build_rtree(outer, fanout=16),
+                              jrtree.build_rtree(inner, fanout=16), 8,
+                              backend="xla", fused=fused, batch=256)
+    tree_o = trtree.build_rtree(outer, fanout=16, device="cpu")
+    ti, td, tc = tkj.knn_join(tree_o, trtree.build_rtree(
+        inner, fanout=16, device="cpu"), 8, fused=fused, batch=256)
+    assert ti.dtype == np.int64 and td.dtype == np.float64
+    assert ti.shape == td.shape == (1000, 8)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    _assert_counters_equal(jc, tc, f"all-pairs fused={fused}")
+    assert int(tc.overflow) == 0
+    rows = np.r_[0:8, 992:1000]                       # first and last chunk
+    bi, bd = tgeometry.brute_force_knn_join(
+        tree_o.rects.numpy()[rows], inner, 8)
+    np.testing.assert_allclose(td[rows], bd, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_fleet_knn_join_equals_reference_host_path(k):
+    rng = np.random.default_rng(5 + k)
+    rects = uniform_rects(rng, 6000, eps=0.001)
+    q = _qrects(rng, 40, eps=0.02)
+    jshards = JShards.build(rects, 4, fanout=16)
+    tshards = TShards.build(rects, 4, fanout=16, device="cpu")
+    want = jshards.knn_join(q, k)
+    got = tshards.knn_join(q, k)
+    assert got[0].dtype == np.int64 and got[1].dtype == np.float64
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] is want[2] is False
+    for f in ENGINE_FIELDS + ("dispatches",):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(tshards.last_counters, f)),
+            np.asarray(getattr(jshards.last_counters, f)), err_msg=f)
+    _, want_d = tgeometry.brute_force_knn_join(q, rects, k)
+    np.testing.assert_allclose(got[1], want_d, rtol=1e-4, atol=1e-9)
+    n_engines = len(tshards._engines)
+    tshards.warm("knn_join", 8, k=k)
+    assert len(tshards._engines) == n_engines
+
+
+def test_serve_knn_join_dryrun_cpu():
+    out = serve.main(["--mode", "knn-join", "--dryrun", "--device", "cpu"])
+    assert out["qps"] > 0 and not out["overflow"]
+    assert out["neighbors"] == 2 * 8 * 4                  # k capped at 4
+    rects, qs = serve.make_knn_join_inputs(2000, 0, 2, 8, 0.002)
+    np.testing.assert_array_equal(serve.make_rects(2000, 0), rects)
+    np.testing.assert_allclose(qs[..., 2:] - qs[..., :2], 0.004, rtol=1e-3)
+    ids, d = out["first_batch"]
+    _, want_d = tgeometry.brute_force_knn_join(qs[0], rects, 4)
+    np.testing.assert_allclose(d, want_d, rtol=1e-4, atol=1e-9)
+    assert ids.shape == (8, 4) and bool((ids >= 0).all())
+
+
+def test_serve_knn_join_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mode", "knn-join", "--dryrun"])
+
+
+# ---------------------------------------------------------------------------
+# no fallback: a CUDA request never quietly becomes the CPU twin
+# ---------------------------------------------------------------------------
+
+def test_cuda_backend_on_cpu_tensors_raises_for_knn_join(inst):
+    _, _, ttree, q = inst
+    rows = _level_args(ttree, 0, True)
+    ids = torch.zeros((4, 2), dtype=torch.int32)
+    qr = torch.from_numpy(q[:4])
+    tau = torch.full((4,), 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_join_level_dists(ids, qr, *rows, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_join_level_fused(ids, qr, *rows, tau, cap=8, k=4,
+                                 tighten=True, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.knn_join_leaf_fused(ids, qr, *rows, k=4, backend="cuda")
+    for fn, kw in ((tkern.knn_join_level_dists_cuda, {}),
+                   (tkern.knn_join_leaf_fused_cuda, dict(k=4))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(ids, qr, *rows, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkern.knn_join_level_fused_cuda(ids, qr, *rows, tau, cap=8, k=4,
+                                        tighten=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkj.make_knn_join_bfs(ttree, 8, backend="cuda")
+    before = tkern.launch_counts()
+    assert ops.knn_join_level_dists(ids, qr, *rows)[0].shape == (4, 2, 16)
+    assert ops.knn_join_leaf_fused(ids, qr, *rows, k=4)[0].shape == (4, 4)
+    assert tkern.launch_counts() == before

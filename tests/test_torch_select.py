@@ -148,7 +148,7 @@ def test_generic_build_equals_wrapper(inst):
     for x, y in zip(a[:2], b[:2]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert a[2].asdict() == b[2].asdict()
-    assert ttraversal.spec_names() == ("join", "knn", "select")
+    assert ttraversal.spec_names() == ("join", "knn", "knn_join", "select")
 
 
 def test_escalation_equals_reference():
@@ -219,7 +219,7 @@ def test_serve_dryrun_cpu():
 
 def test_serve_unported_mode_exits():
     with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--mode", "knn-join", "--device", "cpu"])
+        serve.main(["--mode", "knn-filtered", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
