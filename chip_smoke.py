@@ -73,7 +73,29 @@ Phases, each of which fails the run loudly:
    busy share;
 15. kNN-join serve: ``serve.main(["--mode", "knn-join", ...])`` at 2M
    points with k = 8 on cuda; B8's launch count must grow, nothing may
-   overflow, the first batch against a float64 brute force; q/s.
+   overflow, the first batch against a float64 brute force; q/s;
+16. D3 build: the phase-3 tree quantized on the card (timed), bytes per
+   node beside D1's, every level's codes, scale, bias and slack
+   byte-equal to the same quantization of the tree's CPU copy;
+17. D3 kernels: on every internal level, B11
+   (``select_level_masks_d3_cuda``), B12 (``select_level_fused_d3_cuda``),
+   B13 (``knn_level_dists_d3_cuda``, the first served kNN batch) and B14
+   (``knn_join_level_dists_d3_cuda``, the first served kNN-join batch)
+   against their twins, exact, on frontiers of a real D3 descent (columns
+   shuffled, 10% of slots -1), plus a B12 cap that overflows; device,
+   per-call and twin times beside the bound at batch 64 on the widest D3
+   step (level 1) and at batch 4,096;
+18. D3 engines: ``make_select_bfs(layout="d3")`` static/adaptive ×
+   unfused/fused and ``make_knn_bfs`` / ``make_knn_join_bfs(layout="d3")``
+   k in {8, 64} static/adaptive against the twin engine on the card (ids,
+   counts or distance bits, every counter) and the reference's D3 numbers
+   (``SELECT_D3_REF``, ``KNN_D3_REF``, ``KNN_JOIN_D3_REF``); results equal
+   the D1 results of phases 4, 10 and 13; B11–B14 launches grow in their
+   cells; ms per batch and busy share;
+19. D3 serve: ``serve.main([... "--layout", "d3"])`` at 2M points for
+   spatial, kNN and kNN-join; B11, B13 and B14 launches grow, nothing
+   overflows, the first batch equals the D1 path's of phases 5, 11 and 15;
+   q/s.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -142,11 +164,59 @@ KNN_JOIN_REF = {
                      "adaptive": [0, 0, 11630, 11634]},
              ids_sum=4_034_559_553, d_sum=0.000723181390258329),
 }
+# the reference's numbers for the same inputs on the D3 layout: the JAX
+# package's make_select_bfs / make_knn_bfs / make_knn_join_bfs(layout="d3",
+# backend="xla") on the phase-3 tree, equal in both caps tiers (padded
+# slots per tier) and, for select, fused or not, as
+# scripts/d3_reference_numbers.py prints them.  The ids and distances are
+# D1's (the leaf re-check is exact); the counters are D3's own.
+SELECT_D3_REF = dict(
+    counters=dict(nodes_visited=3_100, predicates=746_496, vector_ops=11_664,
+                  enqueued=3_036, masked_waste=67_132),
+    live=[64, 88, 216, 2732],
+    padded={"static": [0, 16296, 16168, 1045844],
+            "adaptive": [0, 168, 16168, 1045844]},
+    ids_sum=127_911_487_263, counts_sum=128_232)
+KNN_D3_REF = {
+    8: dict(counters=dict(nodes_visited=2_525, predicates=646_400,
+                          vector_ops=10_100, enqueued=2_461,
+                          pruned_inner=90_439, masked_waste=8_412),
+            live=[64, 576, 943, 942],
+            padded={"static": [0, 15808, 15441, 15442],
+                    "adaptive": [0, 0, 1105, 1106]},
+            ids_sum=500_525_860, d_sum=0.0003939492196707306),
+    64: dict(counters=dict(nodes_visited=10_568, predicates=2_705_408,
+                           vector_ops=42_272, enqueued=10_504,
+                           pruned_inner=331_356, masked_waste=13_468),
+             live=[64, 576, 4912, 5016],
+             padded={"static": [0, 15808, 11472, 11368],
+                     "adaptive": [0, 0, 11472, 11368]},
+             ids_sum=4_024_399_365, d_sum=0.022336982976781883),
+}
+KNN_JOIN_D3_REF = {
+    8: dict(counters=dict(nodes_visited=2_466, predicates=631_296,
+                          vector_ops=9_864, enqueued=2_402,
+                          pruned_inner=89_986, masked_waste=8_412),
+            live=[64, 576, 935, 891],
+            padded={"static": [0, 15808, 15449, 15493],
+                    "adaptive": [0, 0, 1113, 1157]},
+            ids_sum=515_026_219, d_sum=0.0),
+    64: dict(counters=dict(nodes_visited=10_475, predicates=2_681_600,
+                           vector_ops=41_900, enqueued=10_411,
+                           pruned_inner=331_019, masked_waste=13_514),
+             live=[64, 576, 4906, 4929],
+             padded={"static": [0, 15808, 11478, 11455],
+                     "adaptive": [0, 0, 11478, 11455]},
+             ids_sum=4_034_559_553, d_sum=0.000723181390258329),
+}
 ALL_PAIRS_BATCH = 4096
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
 MINDIST_OPS, MINMAXDIST_OPS = 13, 29
+# D3: dequantizing a box (4 products, 4 adds), the slack correction (max,
+# sqrt, 2 adds, 2 products)
+D3_DEQUANT_OPS, D3_SLACK_OPS = 8, 6
 
 
 def fail(msg: str) -> None:
@@ -206,25 +276,29 @@ def device_ms(fn, *kernels, iters: int = 20):
     tuple of strings that its demangled name holds, every one), the mean
     over the launches torch.profiler records in ``iters`` calls of ``fn``
     (one launch each; the profiler may miss a few at its start), summed
-    over the kernels; None when it saw one of them not at all.  A kernel
-    shorter than its wrapper's host work cannot be timed with events
-    around back-to-back calls: the card would wait for the host."""
+    over the kernels; None when, in two profiled runs, it saw one of them
+    not at all.  A kernel shorter than its wrapper's host work cannot be
+    timed with events around back-to-back calls: the card would wait for
+    the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(2):          # a profiled run now and then sees nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = [[e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and all(n in e.name for n in names)] for names in kernels]
+        if all(found):
+            break
+    else:
+        return None
     total = 0.0
-    for names in kernels:
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and all(n in e.name for n in names)]
-        if not times:
-            return None
+    for names, times in zip(kernels, found):
         check(len(times) <= iters, f"{names}: {len(times)} launches "
               f"profiled for {iters} calls")
         total += sum(times) / len(times) / 1e3
@@ -446,7 +520,7 @@ def phase_engine(tree, rects, queries, select_vector, kern):
               f"{BATCH}-query batch (twin engine "
               f"{host_ms(lambda: twin(queries), 3):.3f} ms)")
         print(f"    {profile_batches(lambda: fn(queries))}")
-    return launches
+    return launches, (ids, counts)
 
 
 def phase_serve(kern, serve):
@@ -467,7 +541,7 @@ def phase_serve(kern, serve):
         check(np.array_equal(got, brute_force_select(rects, q)),
               f"served query {i} differs from brute force")
     print(f"  first served batch ≡ brute force ({BATCH} queries)")
-    return launches, out["qps"]
+    return launches, out["qps"], out["first_batch"]
 
 
 def sample_probes_equal_brute_force(torch, dev, pairs, probes, rects, what,
@@ -884,7 +958,8 @@ def phase_distance_engine(torch, tree, rects, queries, kern, build, refs,
     ``refs`` for this batch, with no overflow and no escalation; the
     kernels ``names`` (score, level, leaf) launched; optionally k = 1
     adaptive escalates once; 8 queries ≡ a float64 brute force on the card;
-    ms per batch and the device's share.  Returns the launch counts."""
+    ms per batch and the device's share.  Returns the launch counts and
+    the static unfused cells' (ids, dists) by k."""
     kern.reset_launch_counts()
     cells = {}
     for k, caps_mode, fused in ((8, "static", False), (8, "static", True),
@@ -955,7 +1030,7 @@ def phase_distance_engine(torch, tree, rects, queries, kern, build, refs,
               f"{queries.shape[0]}-query batch (twin engine "
               f"{host_ms(lambda: twin(queries), 3):.3f} ms)", flush=True)
         print(f"    {profile_batches(lambda: fn(queries))}", flush=True)
-    return launches
+    return launches, {k: cells[f"k={k} static/unfused"][2:] for k in (8, 64)}
 
 
 def phase_knn_join_all_pairs(torch, tree, rects, probes, kjkern,
@@ -1024,7 +1099,7 @@ def phase_distance_serve(torch, dev, kern, serve, mode, score_name, argv,
     """Phases 11 and 15: a served distance mode through the CLI entry
     point (k = 8); its score kernel's launch count must grow, nothing may
     overflow, the first batch ≡ a float64 brute force on the card over all
-    rects.  Returns (launches, q/s)."""
+    rects.  Returns (launches, q/s, the first batch's (ids, dists))."""
     kern.reset_launch_counts()
     out = serve.main(["--mode", mode, "--n", str(N_RECTS), "--k",
                       str(KNN_K), "--batches", str(KNN_BATCHES),
@@ -1041,7 +1116,350 @@ def phase_distance_serve(torch, dev, kern, serve, mode, score_name, argv,
     check_knn_brute_force(torch, dev, rects, qs[0], ids, d, f"{mode} serve")
     print(f"  first served batch ≡ brute force over all {N_RECTS} rects "
           f"({BATCH} queries)", flush=True)
-    return launches, out["qps"]
+    return launches, out["qps"], out["first_batch"]
+
+
+# ---------------------------------------------------------------------------
+# the D3 layout (phases 16-19)
+# ---------------------------------------------------------------------------
+
+def same_bytes(a, b) -> bool:
+    """Byte equality of two tensors of one dtype (uint16 included, which
+    PyTorch cannot compare on the CPU)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+
+
+def phase_d3_build(torch, tree, layouts, rtree):
+    """Phase 16: quantize the phase-3 tree on the card (timed), bytes per
+    node beside D1's, and every level ≡ the quantization of its CPU copy.
+    Returns the D3 levels."""
+    times = []
+    for _ in range(2):                      # the first call includes set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layers = layouts.tree_layout(tree, "d3")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    f = tree.fanout
+    d1_bytes, d3_bytes = 16 * f + 4 * f, 4 * f + 24 + 4 * f
+    print(f"  quantized {[l.qlo.shape[0] for l in layers]} nodes on the card "
+          f"in {times[0]:.3f} ms (again: {times[1]:.3f} ms); bytes per node "
+          f"(F={f}): D3 {d3_bytes} (MBR {4 * f + 24} + ptr {4 * f}) vs D1 "
+          f"{d1_bytes} (MBR {16 * f} + ptr {4 * f}), MBR "
+          f"{16 * f / (4 * f + 24):.3f}x smaller", flush=True)
+    for li, lvl in enumerate(tree.levels):
+        cpu = layouts.level_to_d3(rtree.RTreeLevel(**{
+            k: getattr(lvl, k).cpu() for k in rtree.LEVEL_FIELDS}))
+        for k in layouts.D3_FIELDS:
+            check(same_bytes(getattr(layers[li], k), getattr(cpu, k)),
+                  f"D3 level {li} {k}: the card's quantization differs from "
+                  f"the CPU's")
+    print("  every level's codes, scale, bias, slack, ptr ≡ the CPU "
+          "quantization (bytes)", flush=True)
+    return layers
+
+
+def d3_rows(lvl3, dist: bool):
+    names = ("qlo", "qhi", "scale", "bias") + (("slack",) if dist else ()) \
+        + ("ptr",)
+    return tuple(getattr(lvl3, n) for n in names)
+
+
+def d3_frontiers(torch, layers, queries, caps, step):
+    """Each internal level's (B, C) frontier of a real D3 descent: ``step``
+    (level, ids, state) → (next ids, state) from the root down."""
+    h = len(layers)
+    ids = torch.zeros((queries.shape[0], 1), dtype=torch.int32,
+                      device=queries.device)
+    state = torch.full((queries.shape[0],), 3.0e38, dtype=torch.float32,
+                       device=queries.device)
+    out = {}
+    for li in range(h - 1, 0, -1):
+        out[li] = ids
+        ids, state = step(li, ids, state, caps[h - 1 - li])
+    return out
+
+
+def d3_descents(torch, layers, queries, points, qrects, caps_sel, caps_knn,
+                ref, traversal):
+    """Frontiers of a real D3 select descent (the B12 twin) and of real D3
+    kNN and kNN-join descents at k = KNN_K (the B13 / B14 twins and the
+    engine's emission)."""
+    f = layers[0].qlo.shape[1]
+
+    def sel(li, ids, st, cap):
+        nxt, _, _ = ref.select_level_fused_d3_ref(
+            ids, queries, *d3_rows(layers[li], False), cap=cap)
+        return nxt, st
+
+    def dist(twin, q):
+        def step(li, ids, tau, cap):
+            md, mmd = twin(ids, q, *d3_rows(layers[li], True))
+            ptr = layers[li].ptr[ids.clamp(min=0).long()]
+            nxt, tau, _, _ = traversal.distance_level_emit(
+                md, mmd, ptr, tau, cap=cap, k=KNN_K,
+                tighten=ids.shape[1] * f >= KNN_K)
+            return nxt, tau
+        return step
+
+    return (d3_frontiers(torch, layers, queries, caps_sel, sel),
+            d3_frontiers(torch, layers, points, caps_knn,
+                         dist(ref.knn_level_dists_d3_ref, points)),
+            d3_frontiers(torch, layers, qrects, caps_knn,
+                         dist(ref.knn_join_level_dists_d3_ref, qrects)))
+
+
+def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
+                     caps_sel, caps_knn, kern, kkern, kjkern, ref, traversal):
+    """Phase 17: B11-B14 ≡ their twins on every internal level of real D3
+    descents (shuffled, 10% of slots -1), a B12 overflow; times at level 1
+    at batch 64 and at batch ``big`` (rects; their lower corners as kNN
+    points).  Returns the kernels' line entries (batch 64)."""
+    dev = tree.device
+    f_ = tree.fanout
+    rng = np.random.default_rng(SEED + 23)
+    sel_src = "src/repro/kernels/rtree_select.py"
+    specs = (      # name, label, wrapper, twin, dist rows?, descent index
+        ("select_level_masks_d3", "B11", kern.select_level_masks_d3_cuda,
+         ref.select_level_masks_d3_ref, False, 0, f"{sel_src}:213",
+         ("select_masks_kernel", "D3Rows"), "rtree_select.cu"),
+        ("select_level_fused_d3", "B12", kern.select_level_fused_d3_cuda,
+         ref.select_level_fused_d3_ref, False, 0, f"{sel_src}:256",
+         ("select_fused_kernel", "D3Rows"), "rtree_select.cu"),
+        ("knn_level_dists_d3", "B13", kkern.knn_level_dists_d3_cuda,
+         ref.knn_level_dists_d3_ref, True, 1,
+         "src/repro/kernels/rtree_knn.py:190",
+         ("knn_dists_kernel", "PointQuery", "LevelD3"), "rtree_knn.cu"),
+        ("knn_join_level_dists_d3", "B14",
+         kjkern.knn_join_level_dists_d3_cuda,
+         ref.knn_join_level_dists_d3_ref, True, 2,
+         "src/repro/kernels/rtree_knn_join.py:168",
+         ("knn_dists_kernel", "RectQuery", "LevelD3"), "rtree_knn.cu"))
+    h = len(layers)
+    err = {sp[0]: 0 for sp in specs}
+
+    def call(sp, fn, ids, q, li, cap):
+        kw = dict(cap=cap) if sp[0] == "select_level_fused_d3" else {}
+        return fn(ids, q, *d3_rows(layers[li], sp[4]), **kw)
+
+    def hold(sp, got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for j, (g, w) in enumerate(zip(got, want)):
+            err[sp[0]] = max(err[sp[0]],
+                             assert_bits_equal(g, w, f"{what} [{j}]"))
+
+    qsets = (queries, points, qrects)
+    descents = d3_descents(torch, layers, queries, points, qrects, caps_sel,
+                           caps_knn, ref, traversal)
+    for li in range(h - 1, 0, -1):
+        for sp in specs:
+            q = qsets[sp[5]]
+            ids = descents[sp[5]][li]
+            perm = torch.from_numpy(rng.permutation(ids.shape[1])).to(dev)
+            ids = ids[:, perm].contiguous()
+            drop = torch.from_numpy(rng.random(tuple(ids.shape)) < 0.1)
+            ids = torch.where(drop.to(dev), -1, ids)
+            cap = (caps_sel[h - 1 - li] if sp[5] == 0 else None)
+            hold(sp, call(sp, sp[2], ids, q, li, cap),
+                 call(sp, sp[3], ids, q, li, cap), f"{sp[1]} level {li}")
+        print(f"  level {li}: frontiers "
+              f"{[tuple(d[li].shape) for d in descents]} (select, kNN, "
+              f"kNN-join) — B11, B12, B13, B14 exact", flush=True)
+    # overflow: wide queries over random level-1 frontiers at cap 64
+    n1 = layers[1].qlo.shape[0]
+    b = queries.shape[0]
+    wide = torch.from_numpy(np.concatenate(
+        [rng.random((b, 2), dtype=np.float32) * 0.7] * 2, axis=1)).to(dev)
+    wide[:, 2:] += 0.3
+    ids = torch.from_numpy(rng.integers(0, n1, (b, 256)).astype(
+        np.int32)).to(dev)
+    ids = torch.where(torch.from_numpy(rng.random((b, 256)) < 0.1).to(dev),
+                      -1, ids)
+    got = call(specs[1], specs[1][2], ids, wide, 1, 64)
+    hold(specs[1], got, call(specs[1], specs[1][3], ids, wide, 1, 64),
+         "B12 overflow")
+    check(bool(got[2].any()), "the cap-64 B12 case did not overflow")
+    print(f"  overflow case: cap 64, counts up to {int(got[1].max())} — B12 "
+          f"exact", flush=True)
+
+    # times at level 1, the widest D3 step: batch 64, then batch ``big``
+    big_pts = big[:, :2].contiguous()
+    big_desc = d3_descents(torch, layers, big, big_pts, big, caps_sel,
+                           caps_knn, ref, traversal)
+    out = []
+    for tag, qs, desc in (("batch 64", qsets, descents),
+                          (f"batch {big.shape[0]}", (big, big_pts, big),
+                           big_desc)):
+        for sp in specs:
+            q, ids = qs[sp[5]], desc[sp[5]][1]
+            b_, c_ = ids.shape
+            live = ids[ids >= 0]
+            uniq = int(torch.unique(live).numel())
+            n_lanes = live.numel() * f_
+            qb = q.shape[1] * 4
+            if sp[4]:
+                nbytes = 4 * b_ * c_ + qb * b_ + (8 * f_ + 24) * uniq + \
+                    8 * b_ * c_ * f_
+                ops_ = n_lanes * (MINDIST_OPS + MINMAXDIST_OPS +
+                                  D3_DEQUANT_OPS + D3_SLACK_OPS)
+            else:
+                nbytes = 4 * b_ * c_ + qb * b_ + (8 * f_ + 16) * uniq
+                nbytes += 4 * b_ * c_ * f_ if sp[1] == "B11" else \
+                    4 * b_ * caps_sel[h - 2] + 4 * b_
+                ops_ = n_lanes * (6 + D3_DEQUANT_OPS)
+            cap = caps_sel[h - 2]
+            ms, call_ms, plain_ms = kernel_times(
+                lambda: call(sp, sp[2], ids, q, 1, cap),
+                lambda: call(sp, sp[3], ids, q, 1, cap), [sp[7]], iters=50)
+            bound_ms, bound_by = bound(nbytes, ops_)
+            print(f"  {sp[1]} {sp[0]}: {tag}, level 1 (B={b_}, C={c_}, "
+                  f"F={f_}, {live.numel()} live slots, {uniq} distinct "
+                  f"nodes): kernel {ms:.4f} ms on the device ({call_ms:.4f} "
+                  f"ms per call with the wrapper), twin {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s, "
+                  f"{ops_} ops at 67 TFLOP/s)", flush=True)
+            if tag == "batch 64":
+                out.append(dict(
+                    name=sp[0], route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{sp[8]}",
+                    replaces=sp[6], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    max_abs_err=err[sp[0]]))
+    return out
+
+
+def phase_d3_engines(torch, tree, queries, points, qrects, d1, kern, kkern,
+                     kjkern, select_vector, knn_vector, knn_join_vector):
+    """Phase 18: the D3 engines ≡ the twin engine on the card and the
+    reference's D3 numbers; their results ≡ the D1 results ``d1`` of
+    phases 4, 10 and 13; B11-B14 launches grow in their cells; ms per
+    batch and busy share.  Returns {kernel name: launches}."""
+    for m in (kern, kkern, kjkern):
+        m.reset_launch_counts()
+    cells = []
+    for caps_mode in ("static", "adaptive"):
+        for fused in (False, True):
+            cells.append(("select", f"{caps_mode}/"
+                          f"{'fused' if fused else 'unfused'}", caps_mode,
+                          dict(result_cap=RESULT_CAP, fused=fused), kern,
+                          "select_level_fused_d3" if fused
+                          else "select_level_masks_d3"))
+    for op, mod, name in (("knn", kkern, "knn_level_dists_d3"),
+                          ("knn_join", kjkern, "knn_join_level_dists_d3")):
+        for k in (8, 64):
+            for caps_mode in ("static", "adaptive"):
+                cells.append((op, f"k={k} {caps_mode}", caps_mode,
+                              dict(k=k), mod, name))
+    build = {"select": lambda t, **kw: select_vector.make_select_bfs(t, **kw),
+             "knn": lambda t, k, **kw: knn_vector.make_knn_bfs(t, k, **kw),
+             "knn_join": lambda t, k, **kw:
+             knn_join_vector.make_knn_join_bfs(t, k, **kw)}
+    qs = {"select": queries, "knn": points, "knn_join": qrects}
+    refs = {"select": SELECT_D3_REF, "knn": KNN_D3_REF,
+            "knn_join": KNN_JOIN_D3_REF}
+    timed = []
+    for op, cell, caps_mode, kw, mod, name in cells:
+        what = f"D3 {op} engine {cell}"
+        kw = dict(kw, layout="d3", caps_mode=caps_mode)
+        if "k" in kw:
+            k = kw.pop("k")
+            fn = build[op](tree, k, **kw)
+            twin = build[op](tree, k, backend="torch", **kw)
+            ref_ = refs[op][k]
+        else:
+            fn = build[op](tree, **kw)
+            twin = build[op](tree, backend="torch", **kw)
+            ref_ = refs[op]
+        q = qs[op]
+        before = mod.launch_counts()[name]
+        a, b, ctr = fn(q)
+        torch.cuda.synchronize()
+        check(mod.launch_counts()[name] > before, f"{what}: {name} not "
+              f"launched")
+        ta, tb, tctr = twin(q)
+        assert_bits_equal(a, ta, f"{what} ids")
+        assert_bits_equal(b, tb, f"{what} counts/dists")
+        got, want = ctr.asdict(), tctr.asdict()
+        check(got == want, f"{what} counters: {got} vs {want}")
+        for key, v in ref_["counters"].items():
+            check(got[key] == v, f"{what}: {key} {got[key]}, the reference "
+                  f"has {v}")
+        check(got["lanes_live"][:4] == ref_["live"] and
+              got["lanes_padded"][:4] == ref_["padded"][caps_mode],
+              f"{what}: occupancy {got['lanes_live']} {got['lanes_padded']}")
+        check(got["overflow"] == 0 and got["escalations"] == 0,
+              f"{what}: overflow {got['overflow']}, escalations "
+              f"{got['escalations']}")
+        a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+        if op == "select":
+            check(int(a_np[a_np >= 0].astype(np.int64).sum()) ==
+                  ref_["ids_sum"] and int(b_np.sum()) == ref_["counts_sum"],
+                  f"{what}: ids/counts sums")
+            d1a, d1b = d1["select"]
+            assert_equal(a, d1a, f"{what} ids vs D1")
+            assert_equal(b, d1b, f"{what} counts vs D1")
+        else:
+            check(int(a_np.astype(np.int64).sum()) == ref_["ids_sum"] and
+                  float(b_np.astype(np.float64).sum()) == ref_["d_sum"],
+                  f"{what}: ids sum {a_np.astype(np.int64).sum()}, distance "
+                  f"sum {b_np.astype(np.float64).sum()!r}")
+            d1a, d1b = d1[op][k]
+            check(np.array_equal(a_np, d1a) and
+                  np.array_equal(b_np.view(np.int32), d1b.view(np.int32)),
+                  f"{what}: results differ from the D1 engine's")
+        timed.append((what, fn, twin, q))
+    launches = {}
+    for m in (kern, kkern, kjkern):
+        launches.update(m.launch_counts())
+    print(f"  {len(cells)} cells ≡ twin engine (ids, counts or distance "
+          f"bits, counters), the reference's D3 numbers and the D1 results; "
+          f"launches {launches}", flush=True)
+    for what, fn, twin, q in timed:
+        print(f"  {what}: {host_ms(lambda: fn(q), 10):.3f} ms per "
+              f"{q.shape[0]}-query batch (twin engine "
+              f"{host_ms(lambda: twin(q), 2):.3f} ms)", flush=True)
+        print(f"    {profile_batches(lambda: fn(q))}", flush=True)
+    return launches
+
+
+def phase_d3_serve(kern, kkern, kjkern, serve, d1_first):
+    """Phase 19: the three D3 serve modes through the CLI entry point; the
+    D3 score kernels launched, no overflow, the first batch ≡ the D1
+    path's (``d1_first`` by mode).  Returns ({kernel name: launches}, {mode:
+    q/s})."""
+    launches, qps = {}, {}
+    for mode, mod, name, argv in (
+            ("spatial", kern, "select_level_masks_d3",
+             ["--partitions", "8", "--fanout", str(FANOUT), "--batches",
+              "20"]),
+            ("knn", kkern, "knn_level_dists_d3",
+             ["--k", str(KNN_K), "--batches", str(KNN_BATCHES)]),
+            ("knn-join", kjkern, "knn_join_level_dists_d3",
+             ["--k", str(KNN_K), "--batches", str(KNN_BATCHES),
+              "--query-eps", str(QUERY_EPS)])):
+        mod.reset_launch_counts()
+        out = serve.main(["--mode", mode, "--n", str(N_RECTS),
+                          "--batch-size", str(BATCH), "--layout", "d3",
+                          *argv])
+        got = mod.launch_counts()
+        launches.update(got)
+        check(got[name] > 0, f"D3 {mode} serve did not launch {name}")
+        check(not out["overflow"], f"the served D3 {mode} overflowed")
+        first = out["first_batch"]
+        if mode == "spatial":
+            check(len(first) == len(d1_first[mode]) and all(
+                np.array_equal(a, b) for a, b in zip(first, d1_first[mode])),
+                "D3 spatial serve: the first batch differs from D1's")
+        else:
+            check(all(np.array_equal(a, b)
+                      for a, b in zip(first, d1_first[mode])),
+                  f"D3 {mode} serve: the first batch differs from D1's")
+        qps[mode] = out["qps"]
+        print(f"  {mode}: {name} launched {got[name]} times; first batch ≡ "
+              f"the D1 path's; {out['qps']:,.1f} q/s", flush=True)
+    return launches, qps
 
 
 def main() -> None:
@@ -1052,7 +1470,7 @@ def main() -> None:
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
     from repro_torch.core import join_vector, knn_join_vector, knn_vector, \
-        rtree, select_vector
+        layouts, rtree, select_vector, traversal
     from repro_torch.core.join_scalar import elevate
     from repro_torch.core.layouts import tree_layout
     from repro_torch.distributed.spatial_shard import SpatialShards
@@ -1089,10 +1507,11 @@ def main() -> None:
     kernels = phase_kernels(torch, tree, queries, full_caps, kern, ref)
 
     print("[4] engine", flush=True)
-    eng_launches = phase_engine(tree, rects, queries, select_vector, kern)
+    eng_launches, d1_select = phase_engine(tree, rects, queries,
+                                           select_vector, kern)
 
     print("[5] serve", flush=True)
-    serve_launches, qps = phase_serve(kern, serve)
+    serve_launches, qps, d1_first_select = phase_serve(kern, serve)
     print(f"  served {qps:,.1f} q/s on {name} ({smi})", flush=True)
 
     t0 = time.time()
@@ -1142,12 +1561,12 @@ def main() -> None:
 
     print("[10] kNN engine", flush=True)
     data = serve.make_rects(N_RECTS, SEED)
-    knn_eng_launches = phase_distance_engine(
+    knn_eng_launches, d1_knn = phase_distance_engine(
         torch, tree, data, points, kkern, knn_vector.make_knn_bfs, KNN_REF,
         dops["knn"]["names"], "kNN", escalate_k1=True)
 
     print("[11] kNN serve", flush=True)
-    knn_serve_launches, knn_qps = phase_distance_serve(
+    knn_serve_launches, knn_qps, d1_first_knn = phase_distance_serve(
         torch, dev, kkern, serve, "knn", "knn_level_dists", [],
         serve.make_knn_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH))
     print(f"  served {knn_qps:,.1f} kNN q/s (k={KNN_K}) on {name} ({smi})",
@@ -1171,7 +1590,7 @@ def main() -> None:
     del big
 
     print("[13] kNN-join engine", flush=True)
-    kj_eng_launches = phase_distance_engine(
+    kj_eng_launches, d1_kj = phase_distance_engine(
         torch, tree, data, qrects, kjkern, knn_join_vector.make_knn_join_bfs,
         KNN_JOIN_REF, dops["knn_join"]["names"], "kNN-join")
 
@@ -1182,10 +1601,9 @@ def main() -> None:
     print(f"  {all_pairs[True][0]:.3f} s per join fused, "
           f"{all_pairs[False][0]:.3f} s unfused on {name} ({smi})",
           flush=True)
-    del tree
 
     print("[15] kNN-join serve", flush=True)
-    kj_serve_launches, kj_qps = phase_distance_serve(
+    kj_serve_launches, kj_qps, d1_first_kj = phase_distance_serve(
         torch, dev, kjkern, serve, "knn-join", "knn_join_level_dists",
         ["--query-eps", str(QUERY_EPS)],
         serve.make_knn_join_inputs(N_RECTS, SEED, KNN_BATCHES, BATCH,
@@ -1193,10 +1611,38 @@ def main() -> None:
     print(f"  served {kj_qps:,.1f} kNN-join q/s (k={KNN_K}) on {name} "
           f"({smi})", flush=True)
 
-    # launches: B1, B3, B5 and B8 from the served paths (phases 5, 8, 11
-    # and 15); B2, B4, B6, B7, B9 and B10, which serve does not drive, from
-    # the fused engine cells (phases 4, 7, 10 and 13); every count was reset
-    # just before its phase
+    print("[16] D3 build of the phase-3 tree", flush=True)
+    layers = phase_d3_build(torch, tree, layouts, rtree)
+    caps_sel = select_vector.frontier_caps(tree, RESULT_CAP, lanes=256)
+    caps_knn = knn_vector.knn_frontier_caps(tree, KNN_K, lanes=256)
+    check(layouts.layout_lanes("d3") == 256, "D3 lanes")
+    print(f"[17] D3 kernels; D3 static caps: select {caps_sel}, kNN k=8 "
+          f"{caps_knn}", flush=True)
+    kernels += phase_d3_kernels(
+        torch, tree, layers, queries, points, qrects,
+        torch.from_numpy(probes[:ALL_PAIRS_BATCH]).to(dev), caps_sel,
+        caps_knn, kern, kkern, kjkern, ref, traversal)
+    del layers
+
+    print("[18] D3 engines", flush=True)
+    d3_eng_launches = phase_d3_engines(
+        torch, tree, queries, points, qrects,
+        {"select": d1_select, "knn": d1_knn, "knn_join": d1_kj}, kern, kkern,
+        kjkern, select_vector, knn_vector, knn_join_vector)
+    del tree
+
+    print("[19] D3 serve", flush=True)
+    d3_serve_launches, d3_qps = phase_d3_serve(
+        kern, kkern, kjkern, serve, {"spatial": d1_first_select,
+                                     "knn": d1_first_knn,
+                                     "knn-join": d1_first_kj})
+    print(f"  served D3 q/s on {name} ({smi}): " + ", ".join(
+        f"{m} {v:,.1f}" for m, v in d3_qps.items()), flush=True)
+
+    # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
+    # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which
+    # serve does not drive, from the fused engine cells (phases 4, 7, 10, 13
+    # and 18); every count was reset just before its phase
     path_launches = {
         "select_level_masks": serve_launches,
         "select_level_fused": eng_launches,
@@ -1208,6 +1654,10 @@ def main() -> None:
         "knn_join_level_dists": kj_serve_launches,
         "knn_join_level_fused": kj_eng_launches,
         "knn_join_leaf_fused": kj_eng_launches,
+        "select_level_masks_d3": d3_serve_launches,
+        "select_level_fused_d3": d3_eng_launches,
+        "knn_level_dists_d3": d3_serve_launches,
+        "knn_join_level_dists_d3": d3_serve_launches,
     }
     for k in kernels:
         k["launches"] = path_launches[k["name"]][k["name"]]

@@ -7,7 +7,9 @@ Guttman's R-tree).
 
 ``mindist`` / ``minmaxdist`` are the kNN distance functions on tensors and
 ``mindist_rect`` / ``minmaxdist_rect`` the kNN-join's, rounded exactly as
-the reference's jitted traces round them (see ``fma32``); the CUDA kernels
+the reference's jitted traces round them (see ``fma32``; the D3 layout's
+trace rounds MINMAXDIST in another form, ``minmaxdist_d3`` and
+``minmaxdist_rect_d3``); the CUDA kernels
 (``kernels/csrc/rtree_knn.cu``) use the same forms through explicit
 intrinsics.  The ``*_np`` functions, ``brute_force_knn`` and
 ``brute_force_knn_join`` are the host-side numpy oracles and the shard
@@ -112,14 +114,9 @@ def mindist(px, py, lx, ly, hx, hy):
     return fma32(dx, dx, dy * dy)
 
 
-def minmaxdist(px, py, lx, ly, hx, hy):
-    """Squared MINMAXDIST(point, rect) (Roussopoulos & Kelley): the minimum
-    over axes of (distance to the nearer face on that axis)² + (distance
-    to the farther face on the other)².  A non-empty rect holds an object
-    within it, so the k-th smallest over a frontier bounds the k-th
-    neighbour.  Rounded as ``min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy,
-    dMx*dMx))``, the form of the reference's gather trace and its Pallas
-    kernel."""
+def _minmax_gaps(px, py, lx, ly, hx, hy):
+    """The point MINMAXDIST's four face distances (dmx, dmy: to the nearer
+    face on x, y; dMx, dMy: to the farther), clamped finite (exact)."""
     cx = (lx + hx) * 0.5
     cy = (ly + hy) * 0.5
     clamp = float(_DELTA_CLAMP)
@@ -127,7 +124,30 @@ def minmaxdist(px, py, lx, ly, hx, hy):
     dmy = torch.abs(py - torch.where(py <= cy, ly, hy)).clamp(max=clamp)
     dMx = torch.abs(px - torch.where(px >= cx, lx, hx)).clamp(max=clamp)
     dMy = torch.abs(py - torch.where(py >= cy, ly, hy)).clamp(max=clamp)
+    return dmx, dmy, dMx, dMy
+
+
+def minmaxdist(px, py, lx, ly, hx, hy):
+    """Squared MINMAXDIST(point, rect) (Roussopoulos & Kelley): the minimum
+    over axes of (distance to the nearer face on that axis)² + (distance
+    to the farther face on the other)².  A non-empty rect holds an object
+    within it, so the k-th smallest over a frontier bounds the k-th
+    neighbour.  Rounded as ``min(fma(dMy, dMy, dmx*dmx), fma(dmy, dmy,
+    dMx*dMx))``, the form of the reference's D1 gather trace and its
+    Pallas kernel."""
+    dmx, dmy, dMx, dMy = _minmax_gaps(px, py, lx, ly, hx, hy)
     return torch.minimum(fma32(dMy, dMy, dmx * dmx),
+                         fma32(dmy, dmy, dMx * dMx))
+
+
+def minmaxdist_d3(px, py, lx, ly, hx, hy):
+    """``minmaxdist`` rounded as the reference's D3 trace rounds it (its
+    ``knn_level_dists_d3_ref`` and the D3 kNN engine, which fold the other
+    product of the first term): ``min(fma(dmx, dmx, dMy*dMy), fma(dmy,
+    dmy, dMx*dMx))``.  The two forms differ by a few ULP on some lanes,
+    and MINMAXDIST sets τ, so each layout keeps its own."""
+    dmx, dmy, dMx, dMy = _minmax_gaps(px, py, lx, ly, hx, hy)
+    return torch.minimum(fma32(dmx, dmx, dMy * dMy),
                          fma32(dmy, dmy, dMx * dMx))
 
 
@@ -163,6 +183,17 @@ def _face_gap(a_lo, a_hi, face):
                        max=float(_DELTA_CLAMP))
 
 
+def _minmax_rect_gaps(qlx, qly, qhx, qhy, lx, ly, hx, hy):
+    """The rect MINMAXDIST's gaps (ngx, mgx: the nearer and farther x face;
+    ngy, mgy alike), exact."""
+    gxl = _face_gap(qlx, qhx, lx)
+    gxh = _face_gap(qlx, qhx, hx)
+    gyl = _face_gap(qly, qhy, ly)
+    gyh = _face_gap(qly, qhy, hy)
+    return (torch.minimum(gxl, gxh), torch.maximum(gxl, gxh),
+            torch.minimum(gyl, gyh), torch.maximum(gyl, gyh))
+
+
 def minmaxdist_rect(qlx, qly, qhx, qhy, lx, ly, hx, hy):
     """Squared MINMAXDIST(rect, rect): the Roussopoulos bound with rect
     queries.  An object on the nearer x-face of a tight MBR lies at gap
@@ -170,14 +201,20 @@ def minmaxdist_rect(qlx, qly, qhx, qhy, lx, ly, hx, hy):
     y; the minimum over the axis choice bounds the distance to some object
     of the MBR, so the k-th smallest over a frontier is a sound τ.  Rounded
     as ``min(fma(mgy, mgy, ngx*ngx), fma(ngy, ngy, mgx*mgx))``, the form of
-    the reference's gather trace (every lane of it)."""
-    gxl = _face_gap(qlx, qhx, lx)
-    gxh = _face_gap(qlx, qhx, hx)
-    gyl = _face_gap(qly, qhy, ly)
-    gyh = _face_gap(qly, qhy, hy)
-    ngx, mgx = torch.minimum(gxl, gxh), torch.maximum(gxl, gxh)
-    ngy, mgy = torch.minimum(gyl, gyh), torch.maximum(gyl, gyh)
+    the reference's D1 gather trace (every lane of it)."""
+    ngx, mgx, ngy, mgy = _minmax_rect_gaps(qlx, qly, qhx, qhy, lx, ly, hx,
+                                           hy)
     return torch.minimum(fma32(mgy, mgy, ngx * ngx),
+                         fma32(ngy, ngy, mgx * mgx))
+
+
+def minmaxdist_rect_d3(qlx, qly, qhx, qhy, lx, ly, hx, hy):
+    """``minmaxdist_rect`` rounded as the reference's D3 trace rounds it
+    (its ``knn_join_level_dists_d3_ref`` and the D3 kNN-join engine):
+    ``min(fma(ngx, ngx, mgy*mgy), fma(ngy, ngy, mgx*mgx))``."""
+    ngx, mgx, ngy, mgy = _minmax_rect_gaps(qlx, qly, qhx, qhy, lx, ly, hx,
+                                           hy)
+    return torch.minimum(fma32(ngx, ngx, mgy * mgy),
                          fma32(ngy, ngy, mgx * mgx))
 
 

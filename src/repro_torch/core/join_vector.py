@@ -34,8 +34,12 @@ from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
 from .join_scalar import elevate
-from .layouts import LevelD1, tree_layout
+from .layouts import LevelD1, layout_lanes, tree_layout
 from .rtree import RTree
+
+# the ROADMAP item of the D3 spatial join (the reference runs it on its jnp
+# path only, with no kernel)
+D3_JOIN_ITEM = "A9b"
 
 
 def _gather_children(layer, ids: torch.Tensor):
@@ -44,7 +48,7 @@ def _gather_children(layer, ids: torch.Tensor):
     if not isinstance(layer, LevelD1):
         raise NotImplementedError(
             f"join over {type(layer).__name__} is not ported yet (ROADMAP "
-            f"item A9); ported layouts: d1")
+            f"item {D3_JOIN_ITEM}); the join runs on layout d1")
     safe = ids.clamp(min=0).long()
     c = layer.coords[safe]
     return (c[:, 0], c[:, 1], c[:, 2], c[:, 3], layer.ptr[safe]), 4
@@ -111,6 +115,11 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     ``Counters.dispatches`` is unchanged.  ``caps_mode`` as in
     ``make_select_bfs``.
     """
+    layout_lanes(layout)                 # d0 / d2 raise naming A9a
+    if layout != "d1":
+        raise NotImplementedError(
+            f"the spatial join over layout {layout!r} is not ported yet "
+            f"(ROADMAP item {D3_JOIN_ITEM}); the join runs on layout d1")
     sorted_ok = tree_o.sort_key == "lx" and tree_i.sort_key == "lx"
     if (o3 or o4 or o5) and not sorted_ok:
         raise ValueError("O3/O4/O5 require trees built with sort_key='lx'")

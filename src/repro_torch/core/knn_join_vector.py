@@ -18,8 +18,11 @@ the kernel routing:
                 call (kernel B10).
 
 Both give identical ids, distances and counters (except ``dispatches``).
-``knn_join`` streams a whole outer tree through one engine in fixed-size
-chunks.  Results are exact whenever no frontier overflowed.
+On the D3 layout (unfused only) internal levels score the quantized boxes
+through ``kernels/ops.knn_join_level_dists_d3`` (kernel B14) and the leaf
+rows take B8, so D3 results equal D1's.  ``knn_join`` streams a whole
+outer tree through one engine in fixed-size chunks.  Results are exact
+whenever no frontier overflowed.
 """
 from __future__ import annotations
 
@@ -38,10 +41,12 @@ from .rtree import RTree
 
 def make_knn_join_score(tree: RTree, layout: str, backend: str):
     """Build the kNN-join score stage and its engine context for ``tree``:
-    ``knn_vector.make_knn_score``'s contract with (B, 4) query rects.  D1
-    only; the other layouts raise (ROADMAP A9)."""
+    ``knn_vector.make_knn_score``'s contract with (B, 4) query rects: D1
+    feeds B8; D3 feeds B14 on internal levels and B8 at the leaf; D0 and
+    D2 raise (ROADMAP A9a)."""
     return make_distance_score(tree, layout, backend,
-                               ops.knn_join_level_dists)
+                               ops.knn_join_level_dists,
+                               ops.knn_join_level_dists_d3)
 
 
 def make_knn_join_bfs(tree: RTree, k: int, layout: str = "d1",

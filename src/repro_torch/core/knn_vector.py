@@ -16,6 +16,11 @@ stage, the caps policy and the kernel routing:
                 call (kernel B7): scoring and emission in one kernel.
 
 Both give identical ids, distances and counters (except ``dispatches``).
+On the D3 layout (unfused only, as in the reference) the internal levels
+score the quantized boxes (``kernels/ops.knn_level_dists_d3``, kernel B13:
+a MINDIST lower bound and a slack-corrected MINMAXDIST upper bound, two
+stages) and the leaf rows take B5 on level 0's exact SoA rows, so D3 ids
+and distances equal D1's; only the counters differ.
 Distances are squared Euclidean.  Results are exact whenever no frontier
 overflowed (``Counters.overflow``); an overflowed level keeps its best-
 first beam, so any missed neighbour lies beyond the worst kept MINDIST.
@@ -30,7 +35,7 @@ from ..kernels import ops
 from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
-from .layouts import layout_lanes
+from .layouts import layout_lanes, tree_layout
 from .rtree import RTree
 
 
@@ -50,26 +55,40 @@ def make_knn_score(tree: RTree, layout: str, backend: str):
 
     Returns (ctx, score) with ``score(ctx, li, ids, points, leaf)`` →
     (mindist, minmaxdist | None at the leaf, child_ids, stages), the
-    distance engine's contract.  D1 only: the level-global SoA rows feed
-    the kernel directly; the other layouts raise (ROADMAP A9).
+    distance engine's contract.  D1: the level-global SoA rows feed B5.
+    D3: internal levels feed B13 the quantized rows, the leaf B5; D0 and
+    D2 raise (ROADMAP A9a).
     """
-    return make_distance_score(tree, layout, backend, ops.knn_level_dists)
+    return make_distance_score(tree, layout, backend, ops.knn_level_dists,
+                               ops.knn_level_dists_d3)
 
 
-def make_distance_score(tree: RTree, layout: str, backend: str, dists_op):
-    """(ctx, score) of a D1 distance operator whose level scores come from
+def make_distance_score(tree: RTree, layout: str, backend: str, dists_op,
+                        dists_d3_op):
+    """(ctx, score) of a distance operator whose level scores come from
     ``dists_op`` (a ``kernels/ops`` function: B5 for kNN, B8 for the
-    kNN-join)."""
-    layout_lanes(layout)                 # d0 / d2 / d3 raise naming A9
+    kNN-join) and, on the internal levels of a D3 tree, ``dists_d3_op``
+    (B13, B14)."""
+    layout_lanes(layout)                 # d0 / d2 raise naming A9a
     ops.resolve_backend(backend, tree.rects)
+    # the D3 code rows, quantized on the tree's device (internal levels)
+    layers = tree_layout(tree, "d3") if layout == "d3" else None
 
     def score(ctx, li, ids, queries, leaf):
-        lvl = ctx[li]
+        levels, layers_ = ctx
+        if layers_ is not None and not leaf:
+            lvl3 = layers_[li]
+            md, mmd = dists_d3_op(ids, queries, lvl3.qlo, lvl3.qhi,
+                                  lvl3.scale, lvl3.bias, lvl3.slack,
+                                  lvl3.ptr, backend=backend)
+            return md, mmd, lvl3.ptr[ids.clamp(min=0).long()], 2
+        # D1, and D3 leaf rows: level 0's SoA rows are the exact rects
+        lvl = levels[li]
         md, mmd = dists_op(ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy,
                            lvl.child, leaf=leaf, backend=backend)
         return md, mmd, lvl.child[ids.clamp(min=0).long()], 4
 
-    return tree.levels, score
+    return (tree.levels, layers), score
 
 
 def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
@@ -108,10 +127,12 @@ def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
     runner."""
     if k <= 0:
         raise ValueError("k must be positive")
+    if fused and layout != "d1":
+        raise ValueError(f"fused {spec.name} requires layout d1")
     ctx, score = ctx_score
 
     def fused_level(ctx_, li, ids, queries, tau, leaf, cap):
-        lvl = ctx_[li]
+        lvl = ctx_[0][li]
         f = lvl.lx.shape[1]
         args = (ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child)
         if leaf:

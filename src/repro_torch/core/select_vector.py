@@ -26,7 +26,7 @@ from ..kernels import ops
 from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
-from .layouts import layout_lanes
+from .layouts import layout_lanes, tree_layout
 from .rtree import RTree, RTreeLevel
 
 
@@ -78,19 +78,39 @@ def make_select_bfs(tree: RTree, layout: str = "d1", result_cap: int = 4096,
     Returns fn(queries) → (ids (B, result_cap), counts (B,), Counters);
     ``queries`` may be any array-like, it is moved to the tree's device.
     """
-    lanes = layout_lanes(layout)     # d1 only in this slice; others raise
+    lanes = layout_lanes(layout)     # d1 and d3; d0 / d2 raise
     ops.resolve_backend(backend, tree.rects)
-    levels = tree.levels
+    # the D3 code rows, quantized on the tree's device (internal levels)
+    layers = tree_layout(tree, "d3") if layout == "d3" else None
+    ctx = (tree.levels, layers)
 
     def score(ctx, li, frontier, qargs):
+        levels, layers = ctx
         ids, queries = frontier[0], qargs[0]
-        mask, ptr, stages = _masks_for_level(ctx[li], ids, queries, backend)
-        b, f = queries.shape[0], mask.shape[-1]
+        b = queries.shape[0]
+        if layers is not None and li > 0:
+            lvl3 = layers[li]
+            mask = ops.select_level_masks_d3(
+                ids, queries, lvl3.qlo, lvl3.qhi, lvl3.scale, lvl3.bias,
+                lvl3.ptr, backend=backend).to(torch.bool)
+            ptr, stages = lvl3.ptr[ids.clamp(min=0).long()], 2
+        else:
+            # D1, and D3 leaf rows: level 0's SoA rows are the exact rects
+            mask, ptr, stages = _masks_for_level(levels[li], ids, queries,
+                                                 backend)
+        f = mask.shape[-1]
         return mask.reshape(b, -1), (ptr.reshape(b, -1),), f, stages, None
 
     def fused_level(ctx, li, frontier, qargs, cap):
+        levels, layers = ctx
         ids, queries = frontier[0], qargs[0]
-        lvl = ctx[li]
+        if layers is not None and li > 0:
+            lvl3 = layers[li]
+            nxt, qcnt, o = ops.select_level_fused_d3(
+                ids, queries, lvl3.qlo, lvl3.qhi, lvl3.scale, lvl3.bias,
+                lvl3.ptr, cap=cap, backend=backend)
+            return (nxt,), qcnt, o, lvl3.ptr.shape[1], 2, None
+        lvl = levels[li]
         nxt, qcnt, o = ops.select_level_fused(
             ids, queries, lvl.lx, lvl.ly, lvl.hx, lvl.hy, lvl.child,
             cap=cap, backend=backend)
@@ -109,7 +129,7 @@ def make_select_bfs(tree: RTree, layout: str = "d1", result_cap: int = 4096,
         def fn(queries):
             q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=tree.device).contiguous()
-            res, counts, ctr = run(levels, q)
+            res, counts, ctr = run(ctx, q)
             return res[0], counts, ctr
         return fn
 

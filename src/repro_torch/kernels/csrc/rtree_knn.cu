@@ -1,6 +1,6 @@
 // R-tree kNN and kNN-join level steps, hand-written for Hopper (sm_90a).
 //
-// Six kernels behind plain C entry points (loaded with ctypes by
+// Eight kernels behind plain C entry points (loaded with ctypes by
 // kernels/_build.py and wrapped by kernels/rtree_knn.py and
 // kernels/rtree_knn_join.py).  A query row b scores the C frontier nodes
 // ids[b, :] of one level; lane l = c * F + f of the row is child f of node
@@ -80,6 +80,33 @@
 //     B9 and B10 are bound by memory as B6 and B7.  The all-pairs join
 //     runs them at batch 4096, one block per query: 4096 blocks a launch.
 //
+// B13 rtree_knn_dists_d3 — replaces the Pallas kernel
+//     src/repro/kernels/rtree_knn.py:knn_level_dists_d3 (line 190; body
+//     _knn_d3_kernel line 167).  B5's body (knn_dists_kernel) on a D3
+//     level (LevelD3): each lane dequantizes its box from the packed
+//     uint16 codes, bias + code * scale, exact as in rtree_select.cu's
+//     B11.  MINDIST is the functor's form (a lower bound on the true box).
+//     MINMAXDIST takes the form of the reference's D3 trace, which folds
+//     the other product of the first term:
+//         point  min(fma(dmx, dmx, dMy*dMy), fma(dmy, dmy, dMx*dMx))
+//         rect   min(fma(ngx, ngx, mgy*mgy), fma(ngy, ngy, mgx*mgx))
+//     and is then made an upper bound on the true box with the node's
+//     slack (layouts.d3_slacked_upper):
+//         up = sqrt(max(m, 0)) + (slack_x + slack_y)
+//         u  = (up * up) * (1 + 2^-16)
+//     The square root must be __fsqrt_rn, the correctly rounded one, as
+//     every rounding here is an explicit intrinsic.  Invalid lanes get
+//     DIST_PAD after the correction.  Internal levels only: the operators
+//     re-check leaf rows with B5.
+//     Bound on the card: memory — 4*B*C ids, 8*B query bytes, 8F + 24
+//     bytes per distinct live node (codes, ptr, scale, bias, slack) and
+//     the 8*B*C*F bytes of the two outputs.
+//
+// B14 rtree_knn_join_dists_d3 — replaces the Pallas kernel
+//     src/repro/kernels/rtree_knn_join.py:knn_join_level_dists_d3 (line
+//     168; body _knn_join_d3_kernel line 144).  B13 with RectQuery:
+//     16-byte query rows, the rect distances; bound as B13.
+//
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
 
@@ -94,6 +121,7 @@ typedef unsigned long long u64;
 constexpr float kDeltaClamp = 1.0e18f;    // geometry._DELTA_CLAMP
 constexpr float kDistPad = 3.0e38f;       // geometry.DIST_PAD
 constexpr float kDistValidMax = 1.0e37f;  // geometry.DIST_VALID_MAX
+constexpr float kSlackScale = 1.0f + 1.0f / 65536.0f;   // 1 + 2^-16, exact
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLaneThreads = 256;         // B5 threads per block
@@ -147,6 +175,19 @@ struct PointQuery {
     return fminf(__fmaf_rn(dMy, dMy, __fmul_rn(dmx, dmx)),
                  __fmaf_rn(dmy, dmy, __fmul_rn(dMx, dMx)));
   }
+
+  // MINMAXDIST in the form of the reference's D3 trace (see B13).
+  __device__ __forceinline__ float minmaxdist_d3(float lx, float ly,
+                                                 float hx, float hy) const {
+    const float cx = __fmul_rn(__fadd_rn(lx, hx), 0.5f);
+    const float cy = __fmul_rn(__fadd_rn(ly, hy), 0.5f);
+    const float dmx = face_dist(px, px <= cx ? lx : hx);
+    const float dmy = face_dist(py, py <= cy ? ly : hy);
+    const float dMx = face_dist(px, px >= cx ? lx : hx);
+    const float dMy = face_dist(py, py >= cy ? ly : hy);
+    return fminf(__fmaf_rn(dmx, dmx, __fmul_rn(dMy, dMy)),
+                 __fmaf_rn(dmy, dmy, __fmul_rn(dMx, dMx)));
+  }
 };
 
 // A query rect (qlx, qly, qhx, qhy): the kNN-join distance functions.
@@ -174,6 +215,19 @@ struct RectQuery {
     return fminf(__fmaf_rn(mgy, mgy, __fmul_rn(ngx, ngx)),
                  __fmaf_rn(ngy, ngy, __fmul_rn(mgx, mgx)));
   }
+
+  // MINMAXDIST in the form of the reference's D3 trace (see B14).
+  __device__ __forceinline__ float minmaxdist_d3(float lx, float ly,
+                                                 float hx, float hy) const {
+    const float gxl = interval_gap(qlx, qhx, lx, lx);
+    const float gxh = interval_gap(qlx, qhx, hx, hx);
+    const float gyl = interval_gap(qly, qhy, ly, ly);
+    const float gyh = interval_gap(qly, qhy, hy, hy);
+    const float ngx = fminf(gxl, gxh), mgx = fmaxf(gxl, gxh);
+    const float ngy = fminf(gyl, gyh), mgy = fmaxf(gyl, gyh);
+    return fminf(__fmaf_rn(ngx, ngx, __fmul_rn(mgy, mgy)),
+                 __fmaf_rn(ngy, ngy, __fmul_rn(mgx, mgx)));
+  }
 };
 
 // One level's SoA rows and the frontier.
@@ -186,6 +240,51 @@ struct Level {
   const int* child;                       // (N, F) child ids, -1 pad
   int C;
   int F;
+  static constexpr bool kHasLeaf = true;
+
+  // MINDIST and (not at the leaf) MINMAXDIST of entry `off` of `node`.
+  template <class Q, bool kLeaf>
+  __device__ __forceinline__ void dists(const Q& q, int node, int64_t off,
+                                        float* d, float* u) const {
+    const float x0 = lx[off], y0 = ly[off], x1 = hx[off], y1 = hy[off];
+    *d = q.mindist(x0, y0, x1, y1);
+    if (!kLeaf) *u = q.minmaxdist(x0, y0, x1, y1);
+  }
+};
+
+// One D3 level: packed uint16 code rows (N, F), the per-node float32
+// scale, bias and slack (N, 2), the child ids, and the frontier.
+struct LevelD3 {
+  const int* ids;                         // (B, C) node ids, -1 pad
+  const uint16_t* qlo;                    // (N, F) (x << 8) | y, floored
+  const uint16_t* qhi;                    // (N, F) (x << 8) | y, ceiled
+  const float* scale;                     // (N, 2) powers of two
+  const float* bias;                      // (N, 2) node lo corner
+  const float* slack;                     // (N, 2) face displacement
+  const int* child;                       // (N, F) child ids, -1 pad
+  int C;
+  int F;
+  static constexpr bool kHasLeaf = false;
+
+  // MINDIST on the dequantized box, and its D3-form MINMAXDIST with the
+  // slack correction (B13); internal levels only, so kLeaf is false.
+  template <class Q, bool kLeaf>
+  __device__ __forceinline__ void dists(const Q& q, int node, int64_t off,
+                                        float* d, float* u) const {
+    static_assert(!kLeaf, "D3 leaf rows are re-checked with B5 / B8");
+    const float sx = scale[2 * node], sy = scale[2 * node + 1];
+    const float bx = bias[2 * node], by = bias[2 * node + 1];
+    const unsigned lo = qlo[off], hi = qhi[off];
+    const float x0 = __fadd_rn(bx, __fmul_rn((float)(lo >> 8), sx));
+    const float y0 = __fadd_rn(by, __fmul_rn((float)(lo & 0xFFu), sy));
+    const float x1 = __fadd_rn(bx, __fmul_rn((float)(hi >> 8), sx));
+    const float y1 = __fadd_rn(by, __fmul_rn((float)(hi & 0xFFu), sy));
+    *d = q.mindist(x0, y0, x1, y1);
+    const float m = q.minmaxdist_d3(x0, y0, x1, y1);
+    const float disp = __fadd_rn(slack[2 * node], slack[2 * node + 1]);
+    const float up = __fadd_rn(__fsqrt_rn(fmaxf(m, 0.0f)), disp);
+    *u = __fmul_rn(__fmul_rn(up, up), kSlackScale);
+  }
 };
 
 // The lanes of one query row: validity, row offset and distances.
@@ -339,24 +438,22 @@ int pow2_at_least(int n) {
   return p;
 }
 
-template <class Q, bool kLeaf>
+// B5 / B8 (L a Level) and B13 / B14 (L a LevelD3): one thread per lane.
+template <class Q, class L, bool kLeaf>
 __global__ void __launch_bounds__(kLaneThreads)
-knn_dists_kernel(Level L, const float* __restrict__ queries,
+knn_dists_kernel(L lv, const float* __restrict__ queries,
                  float* __restrict__ md, float* __restrict__ mmd,
                  int64_t total) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= total) return;
-  const int64_t bc = g / L.F;
-  const int node = L.ids[bc];
+  const int64_t bc = g / lv.F;
+  const int node = lv.ids[bc];
   float d = kDistPad, u = kDistPad;
   if (node >= 0) {
-    const int64_t off = (int64_t)node * L.F + (g - bc * L.F);
-    if (L.child[off] >= 0) {
-      const Q q(queries + (bc / L.C) * Q::kWidth);
-      const float lx = L.lx[off], ly = L.ly[off], hx = L.hx[off],
-                  hy = L.hy[off];
-      d = q.mindist(lx, ly, hx, hy);
-      if (!kLeaf) u = q.minmaxdist(lx, ly, hx, hy);
+    const int64_t off = (int64_t)node * lv.F + (g - bc * lv.F);
+    if (lv.child[off] >= 0) {
+      const Q q(queries + (bc / lv.C) * Q::kWidth);
+      lv.template dists<Q, kLeaf>(q, node, off, &d, &u);
     }
   }
   md[g] = d;
@@ -446,18 +543,22 @@ knn_emit_kernel(Level L, const float* __restrict__ queries,
   }
 }
 
-// B5 / B8: one thread per output lane.
-template <class Q>
-int launch_dists(const Level& L, const float* queries, float* md, float* mmd,
+// B5 / B8 and B13 / B14: one thread per output lane.
+template <class Q, class L>
+int launch_dists(const L& lv, const float* queries, float* md, float* mmd,
                  int B, int leaf, cudaStream_t st) {
-  const int64_t total = (int64_t)B * L.C * L.F;
+  const int64_t total = (int64_t)B * lv.C * lv.F;
   const unsigned blocks = (unsigned)((total + kLaneThreads - 1) / kLaneThreads);
   if (leaf) {
-    knn_dists_kernel<Q, true><<<blocks, kLaneThreads, 0, st>>>(
-        L, queries, md, nullptr, total);
+    if constexpr (L::kHasLeaf) {
+      knn_dists_kernel<Q, L, true><<<blocks, kLaneThreads, 0, st>>>(
+          lv, queries, md, nullptr, total);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   } else {
-    knn_dists_kernel<Q, false><<<blocks, kLaneThreads, 0, st>>>(
-        L, queries, md, mmd, total);
+    knn_dists_kernel<Q, L, false><<<blocks, kLaneThreads, 0, st>>>(
+        lv, queries, md, mmd, total);
   }
   return (int)cudaGetLastError();
 }
@@ -487,6 +588,16 @@ Level make_level(const void* ids, const void* lx, const void* ly,
                  int F) {
   return Level{(const int*)ids, (const float*)lx, (const float*)ly,
                (const float*)hx, (const float*)hy, (const int*)child, C, F};
+}
+
+LevelD3 make_level_d3(const void* ids, const void* qlo, const void* qhi,
+                      const void* scale, const void* bias, const void* slack,
+                      const void* ptr, int C, int F) {
+  return LevelD3{(const int*)ids,     (const uint16_t*)qlo,
+                 (const uint16_t*)qhi, (const float*)scale,
+                 (const float*)bias,  (const float*)slack,
+                 (const int*)ptr,     C,
+                 F};
 }
 
 }  // namespace
@@ -569,4 +680,28 @@ extern "C" int rtree_knn_join_leaf_fused(const void* ids, const void* qrects,
       make_level(ids, lx, ly, hx, hy, child, C, F), (const float*)qrects,
       nullptr, (int*)out_ids, (float*)out_d, nullptr, (int*)valid_cnt,
       nullptr, B, k, k, 0, (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_dists_d3(const void* ids, const void* points,
+                                  const void* qlo, const void* qhi,
+                                  const void* scale, const void* bias,
+                                  const void* slack, const void* ptr,
+                                  void* md, void* mmd, int B, int C, int F,
+                                  void* stream) {
+  return launch_dists<PointQuery>(
+      make_level_d3(ids, qlo, qhi, scale, bias, slack, ptr, C, F),
+      (const float*)points, (float*)md, (float*)mmd, B, 0,
+      (cudaStream_t)stream);
+}
+
+extern "C" int rtree_knn_join_dists_d3(const void* ids, const void* qrects,
+                                       const void* qlo, const void* qhi,
+                                       const void* scale, const void* bias,
+                                       const void* slack, const void* ptr,
+                                       void* md, void* mmd, int B, int C,
+                                       int F, void* stream) {
+  return launch_dists<RectQuery>(
+      make_level_d3(ids, qlo, qhi, scale, bias, slack, ptr, C, F),
+      (const float*)qrects, (float*)md, (float*)mmd, B, 0,
+      (cudaStream_t)stream);
 }

@@ -44,18 +44,26 @@ _KERNELS = {
                           _select.select_level_masks_cuda),
     ("select", "fused"): (_ref.select_level_fused_ref,
                           _select.select_level_fused_cuda),
+    ("select", "score_d3"): (_ref.select_level_masks_d3_ref,
+                             _select.select_level_masks_d3_cuda),
+    ("select", "fused_d3"): (_ref.select_level_fused_d3_ref,
+                             _select.select_level_fused_d3_cuda),
     ("join", "score"): (_ref.join_pair_masks_ref,
                         _join.join_pair_masks_cuda),
     ("join", "fused"): (_ref.join_level_fused_ref,
                         _join.join_level_fused_cuda),
     ("knn", "score"): (_ref.knn_level_dists_ref,
                        _knn.knn_level_dists_cuda),
+    ("knn", "score_d3"): (_ref.knn_level_dists_d3_ref,
+                          _knn.knn_level_dists_d3_cuda),
     ("knn", "fused"): (_ref.knn_level_fused_ref,
                        _knn.knn_level_fused_cuda),
     ("knn", "fused_leaf"): (_ref.knn_leaf_fused_ref,
                             _knn.knn_leaf_fused_cuda),
     ("knn_join", "score"): (_ref.knn_join_level_dists_ref,
                             _knn_join.knn_join_level_dists_cuda),
+    ("knn_join", "score_d3"): (_ref.knn_join_level_dists_d3_ref,
+                               _knn_join.knn_join_level_dists_d3_cuda),
     ("knn_join", "fused"): (_ref.knn_join_level_fused_ref,
                             _knn_join.knn_join_level_fused_cuda),
     ("knn_join", "fused_leaf"): (_ref.knn_join_leaf_fused_ref,
@@ -88,6 +96,23 @@ def select_level_fused(ids, queries, lx, ly, hx, hy, child, *, cap: int,
                        child, cap=cap, backend=backend)
 
 
+def select_level_masks_d3(ids, queries, qlo, qhi, scale, bias, ptr,
+                          backend: str = "auto"):
+    """D3 level-step qualify masks: (B,C) ids × (B,4) queries over packed
+    uint16 code rows → (B,C,F) int32 conservative mask (a superset of the
+    D1 mask; the operators re-check leaf rows exactly)."""
+    return kernel_call("select", "score_d3", ids, queries, qlo, qhi, scale,
+                       bias, ptr, backend=backend)
+
+
+def select_level_fused_d3(ids, queries, qlo, qhi, scale, bias, ptr, *,
+                          cap: int, backend: str = "auto"):
+    """Fused D3 select level: the D3 predicate and the in-order
+    compress-store → (next_ids (B,cap), counts (B,), overflow (B,))."""
+    return kernel_call("select", "fused_d3", ids, queries, qlo, qhi, scale,
+                       bias, ptr, cap=cap, backend=backend)
+
+
 def knn_level_dists(ids, points, lx, ly, hx, hy, child, *,
                     leaf: bool = False, backend: str = "auto"):
     """kNN level-step distances: (B,C) ids × (B,2) points → (mindist
@@ -95,6 +120,15 @@ def knn_level_dists(ids, points, lx, ly, hx, hy, child, *,
     invalid lanes."""
     return kernel_call("knn", "score", ids, points, lx, ly, hx, hy, child,
                        leaf=leaf, backend=backend)
+
+
+def knn_level_dists_d3(ids, points, qlo, qhi, scale, bias, slack, ptr,
+                       backend: str = "auto"):
+    """D3 kNN level distances: (B,C) ids × (B,2) points → (MINDIST lower
+    bound, slack-corrected MINMAXDIST upper bound), each (B,C,F) float32,
+    DIST_PAD on invalid lanes.  Internal levels only."""
+    return kernel_call("knn", "score_d3", ids, points, qlo, qhi, scale,
+                       bias, slack, ptr, backend=backend)
 
 
 def knn_level_fused(ids, points, lx, ly, hx, hy, child, tau, *, cap: int,
@@ -120,6 +154,14 @@ def knn_join_level_dists(ids, qrects, lx, ly, hx, hy, child, *,
     invalid lanes."""
     return kernel_call("knn_join", "score", ids, qrects, lx, ly, hx, hy,
                        child, leaf=leaf, backend=backend)
+
+
+def knn_join_level_dists_d3(ids, qrects, qlo, qhi, scale, bias, slack, ptr,
+                            backend: str = "auto"):
+    """D3 kNN-join level distances (rect queries): contract as
+    ``knn_level_dists_d3``."""
+    return kernel_call("knn_join", "score_d3", ids, qrects, qlo, qhi, scale,
+                       bias, slack, ptr, backend=backend)
 
 
 def knn_join_level_fused(ids, qrects, lx, ly, hx, hy, child, tau, *,

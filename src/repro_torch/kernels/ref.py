@@ -1,13 +1,15 @@
 """Plain PyTorch twins of the select, join, kNN and kNN-join kernels (the
-reference's ``kernels/ref.py`` entries for B1–B10).
+reference's ``kernels/ref.py`` entries for B1–B14).
 
 Each twin has its kernel's contract exactly — same shapes, dtypes and
 padding — and runs on any device.  The CPU tests hold them against the
 JAX package; ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.  B1–B4 are compares and integer arithmetic only; B5–B10 compute the
 distances with the roundings pinned in ``core/geometry.py``, which the
-kernels reproduce with explicit intrinsics.  So every twin and its kernel
-agree exactly.
+kernels reproduce with explicit intrinsics.  B11–B14 run the same
+predicates and distances on D3 boxes dequantized exactly
+(``layouts.d3_dequantize``), B13/B14 with the D3 trace's MINMAXDIST form
+and the slack correction.  So every twin and its kernel agree exactly.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import torch
 
 from ..core.compaction import compact_pairs, compact_rows
 from ..core.geometry import (DIST_PAD, intersects, mindist, mindist_rect,
-                             minmaxdist, minmaxdist_rect)
+                             minmaxdist, minmaxdist_d3, minmaxdist_rect,
+                             minmaxdist_rect_d3)
+from ..core.layouts import d3_dequantize, d3_slacked_upper
 from ..core.traversal import distance_leaf_emit, distance_level_emit
 
 
@@ -168,3 +172,74 @@ def knn_join_level_dists_ref(ids, qrects, lx, ly, hx, hy, child, *,
 # twins of knn_join_level_fused_cuda (B9) and knn_join_leaf_fused_cuda (B10)
 knn_join_level_fused_ref, knn_join_leaf_fused_ref = \
     _make_distance_fused_refs(knn_join_level_dists_ref)
+
+
+# ---------------------------------------------------------------------------
+# D3 quantized layout: select (B11, B12), kNN (B13) and kNN-join (B14)
+# scoring of internal levels (the operators re-check leaf rows with the
+# exact D1 twins, so there is no leaf variant)
+# ---------------------------------------------------------------------------
+
+def _d3_gather_boxes(ids, qlo, qhi, scale, bias):
+    """Gather and dequantize the frontier's node rows of one D3 level →
+    (lx, ly, hx, hy), each (B, C, F) float32.  The codes are widened to
+    int32 before the gather: PyTorch's CUDA indexing has no uint16."""
+    safe = ids.clamp(min=0).long()                  # (B, C)
+    lo, hi = qlo.to(torch.int32), qhi.to(torch.int32)
+    return d3_dequantize(lo[safe], hi[safe], scale[safe], bias[safe])
+
+
+def select_level_masks_d3_ref(ids, queries, qlo, qhi, scale, bias, ptr):
+    """Twin of ``select_level_masks_d3_cuda``: (B, C) ids × (B, 4) queries
+    over (N, F) uint16 code rows → (B, C, F) int32 conservative mask (a
+    superset of the D1 mask on the true boxes)."""
+    lx, ly, hx, hy = _d3_gather_boxes(ids, qlo, qhi, scale, bias)
+    q = [queries[:, j, None, None] for j in range(4)]
+    m = intersects(*q, lx, ly, hx, hy)
+    m = m & (ptr[ids.clamp(min=0).long()] >= 0) & (ids >= 0)[:, :, None]
+    return m.to(torch.int32)
+
+
+def select_level_fused_d3_ref(ids, queries, qlo, qhi, scale, bias, ptr, *,
+                              cap: int):
+    """Twin of ``select_level_fused_d3_cuda``: the D3 masks + compress-store
+    compaction over the flat (C·F) level → (next_ids (B, cap), counts (B,),
+    overflow (B,))."""
+    b = ids.shape[0]
+    mask = select_level_masks_d3_ref(ids, queries, qlo, qhi, scale, bias,
+                                     ptr).to(torch.bool)
+    p = ptr[ids.clamp(min=0).long()]
+    return compact_rows(p.reshape(b, -1), mask.reshape(b, -1), cap)
+
+
+def _d3_dists(ids, slack, ptr, md, mmd):
+    """The D3 distance stage's tail: the slack correction of MINMAXDIST
+    and DIST_PAD on invalid lanes."""
+    safe = ids.clamp(min=0).long()
+    disp = slack[safe].sum(dim=-1)[:, :, None]      # (B, C, 1)
+    mmd = d3_slacked_upper(mmd, disp)
+    valid = (ptr[safe] >= 0) & (ids >= 0)[:, :, None]
+    pad = float(DIST_PAD)
+    return torch.where(valid, md, pad), torch.where(valid, mmd, pad)
+
+
+def knn_level_dists_d3_ref(ids, points, qlo, qhi, scale, bias, slack, ptr):
+    """Twin of ``knn_level_dists_d3_cuda``: (B, C) ids × (B, 2) points →
+    (MINDIST on the dequantized boxes, a lower bound; ``d3_slacked_upper``
+    of their D3-form MINMAXDIST, an upper bound), each (B, C, F) float32,
+    DIST_PAD on invalid lanes."""
+    boxes = _d3_gather_boxes(ids, qlo, qhi, scale, bias)
+    px = points[:, 0, None, None]
+    py = points[:, 1, None, None]
+    return _d3_dists(ids, slack, ptr, mindist(px, py, *boxes),
+                     minmaxdist_d3(px, py, *boxes))
+
+
+def knn_join_level_dists_d3_ref(ids, qrects, qlo, qhi, scale, bias, slack,
+                                ptr):
+    """Twin of ``knn_join_level_dists_d3_cuda``: ``knn_level_dists_d3_ref``
+    with (B, 4) query rects and the rect distances."""
+    boxes = _d3_gather_boxes(ids, qlo, qhi, scale, bias)
+    q = [qrects[:, j, None, None] for j in range(4)]
+    return _d3_dists(ids, slack, ptr, mindist_rect(*q, *boxes),
+                     minmaxdist_rect_d3(*q, *boxes))

@@ -4,7 +4,9 @@ launchers that the kNN-join wrappers (``kernels/rtree_knn_join.py``) share.
 B5 ``knn_level_dists_cuda`` replaces the Pallas
 ``repro/kernels/rtree_knn.py:knn_level_dists`` (line 105); B6
 ``knn_level_fused_cuda`` replaces ``knn_level_fused`` (line 454) and B7
-``knn_leaf_fused_cuda`` replaces ``knn_leaf_fused`` (line 467).  The source
+``knn_leaf_fused_cuda`` replaces ``knn_leaf_fused`` (line 467); on the D3
+layout, B13 ``knn_level_dists_d3_cuda`` replaces ``knn_level_dists_d3``
+(line 190).  The source
 file's header gives each kernel's bound on the card and what its design
 does about it; the plain PyTorch twins are in ``kernels/ref.py``.
 
@@ -32,11 +34,13 @@ _ARGTYPES = {                           # the stream pointer is appended
     "rtree_knn_join_dists": [_P] * 9 + [_I] * 4,
     "rtree_knn_join_level_fused": [_P] * 12 + [_I] * 6,
     "rtree_knn_join_leaf_fused": [_P] * 10 + [_I] * 4,
+    "rtree_knn_dists_d3": [_P] * 10 + [_I] * 3,
+    "rtree_knn_join_dists_d3": [_P] * 10 + [_I] * 3,
 }
 
 # launches per kernel since the last reset (plain integers)
 _launches: Dict[str, int] = {"knn_level_dists": 0, "knn_level_fused": 0,
-                             "knn_leaf_fused": 0}
+                             "knn_leaf_fused": 0, "knn_level_dists_d3": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -57,11 +61,15 @@ def _max_cap() -> int:
     return int(f())
 
 
-def _check(ids, queries, lx, ly, hx, hy, child, *, width: int, **extra):
-    """Validate one level call with (B, ``width``) query rows; returns
-    (B, C, F)."""
-    tensors = dict(ids=ids, queries=queries, lx=lx, ly=ly, hx=hx, hy=hy,
-                   child=child, **extra)
+_INT32_ROWS, _UINT16_ROWS = ("ids", "child", "ptr"), ("qlo", "qhi")
+
+
+def _check(ids, queries, rows, *, width: int, node_cols=(), **extra):
+    """Validate one level call with (B, ``width``) query rows over the
+    level's ``rows`` (name → tensor, the first an (N, F) row; those named
+    in ``node_cols`` (N, 2)); ids, child and ptr are int32, qlo and qhi
+    uint16, all else float32.  Returns (B, C, F)."""
+    tensors = dict(ids=ids, queries=queries, **rows, **extra)
     dev = ids.device
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != dev:
@@ -70,7 +78,8 @@ def _check(ids, queries, lx, ly, hx, hy, child, *, width: int, **extra):
                 f"ids ({dev}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"CUDA kNN kernel: {name} must be contiguous")
-        want = torch.int32 if name in ("ids", "child") else torch.float32
+        want = torch.int32 if name in _INT32_ROWS else \
+            torch.uint16 if name in _UINT16_ROWS else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if ids.ndim != 2 or 0 in ids.shape:
@@ -80,20 +89,26 @@ def _check(ids, queries, lx, ly, hx, hy, child, *, width: int, **extra):
     if tuple(queries.shape) != (b, width):
         raise ValueError(f"queries must be {(b, width)}, got "
                          f"{tuple(queries.shape)}")
-    if lx.ndim != 2 or 0 in lx.shape:
+    first = next(iter(rows.values()))
+    if first.ndim != 2 or 0 in first.shape:
         raise ValueError(f"level rows must be non-empty (N, F), got "
-                         f"{tuple(lx.shape)}")
-    for name in ("ly", "hx", "hy", "child"):
-        if tensors[name].shape != lx.shape:
-            raise ValueError(f"{name} must be {tuple(lx.shape)}, got "
-                             f"{tuple(tensors[name].shape)}")
+                         f"{tuple(first.shape)}")
+    n, f = first.shape
+    for name, t in rows.items():
+        want = (n, 2) if name in node_cols else (n, f)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got "
+                             f"{tuple(t.shape)}")
     if "tau" in extra and tuple(extra["tau"].shape) != (b,):
         raise ValueError(f"tau must be {(b,)}, got "
                          f"{tuple(extra['tau'].shape)}")
-    f = lx.shape[1]
     if c * f >= 2 ** 31:
         raise ValueError(f"C·F = {c * f} lanes exceed the int32 lane index")
     return b, c, f
+
+
+def _d1_rows(lx, ly, hx, hy, child):
+    return dict(lx=lx, ly=ly, hx=hx, hy=hy, child=child)
 
 
 def _check_width(name: str, width: int) -> None:
@@ -111,7 +126,8 @@ def _check_width(name: str, width: int) -> None:
 
 def launch_dists(entry: str, width: int, ids, queries, lx, ly, hx, hy,
                  child, leaf: bool):
-    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width)
+    b, c, f = _check(ids, queries, _d1_rows(lx, ly, hx, hy, child),
+                     width=width)
     dev = ids.device
     with torch.cuda.device(dev):
         md = torch.empty((b, c, f), dtype=torch.float32, device=dev)
@@ -124,10 +140,27 @@ def launch_dists(entry: str, width: int, ids, queries, lx, ly, hx, hy,
     return md, mmd
 
 
+def launch_dists_d3(entry: str, width: int, ids, queries, qlo, qhi, scale,
+                    bias, slack, ptr):
+    rows = dict(qlo=qlo, qhi=qhi, scale=scale, bias=bias, slack=slack,
+                ptr=ptr)
+    b, c, f = _check(ids, queries, rows, width=width,
+                     node_cols=("scale", "bias", "slack"))
+    dev = ids.device
+    with torch.cuda.device(dev):
+        md = torch.empty((b, c, f), dtype=torch.float32, device=dev)
+        mmd = torch.empty_like(md)
+        _build.launch(_LIB, entry, _ARGTYPES[entry], ids.data_ptr(),
+                      queries.data_ptr(),
+                      *(t.data_ptr() for t in rows.values()),
+                      md.data_ptr(), mmd.data_ptr(), b, c, f)
+    return md, mmd
+
+
 def launch_level_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
                        child, tau, cap: int, k: int, tighten: bool):
-    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width,
-                     tau=tau)
+    b, c, f = _check(ids, queries, _d1_rows(lx, ly, hx, hy, child),
+                     width=width, tau=tau)
     _check_width("cap", cap)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -152,7 +185,8 @@ def launch_level_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
 
 def launch_leaf_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
                       child, k: int):
-    b, c, f = _check(ids, queries, lx, ly, hx, hy, child, width=width)
+    b, c, f = _check(ids, queries, _d1_rows(lx, ly, hx, hy, child),
+                     width=width)
     _check_width("k", k)
     dev = ids.device
     with torch.cuda.device(dev):
@@ -198,4 +232,16 @@ def knn_leaf_fused_cuda(ids, points, lx, ly, hx, hy, child, *, k: int):
     out = launch_leaf_fused("rtree_knn_leaf_fused", 2, ids, points, lx, ly,
                             hx, hy, child, k)
     _launches["knn_leaf_fused"] += 1
+    return out
+
+
+def knn_level_dists_d3_cuda(ids, points, qlo, qhi, scale, bias, slack, ptr):
+    """Kernel B13: (B, C) int32 ids (-1 pad) × (B, 2) float32 points over a
+    D3 level — (N, F) uint16 code rows, (N, 2) float32 scale, bias and
+    slack, (N, F) int32 ptr — → (MINDIST on the dequantized boxes, the
+    slack-corrected D3-form MINMAXDIST), each (B, C, F) float32, DIST_PAD
+    on invalid lanes.  Internal levels only."""
+    out = launch_dists_d3("rtree_knn_dists_d3", 2, ids, points, qlo, qhi,
+                          scale, bias, slack, ptr)
+    _launches["knn_level_dists_d3"] += 1
     return out

@@ -5,8 +5,10 @@ B8 ``knn_join_level_dists_cuda`` replaces the Pallas
 ``repro/kernels/rtree_knn_join.py:knn_join_level_dists`` (line 87); B9
 ``knn_join_level_fused_cuda`` replaces ``knn_join_level_fused`` (line 224)
 and B10 ``knn_join_leaf_fused_cuda`` replaces ``knn_join_leaf_fused``
-(line 237).  The source file's header gives each kernel's bound on the
-card; the plain PyTorch twins are in ``kernels/ref.py``.
+(line 237); on the D3 layout, B14 ``knn_join_level_dists_d3_cuda``
+replaces ``knn_join_level_dists_d3`` (line 168).  The source file's header
+gives each kernel's bound on the card; the plain PyTorch twins are in
+``kernels/ref.py``.
 
 The launchers of ``kernels/rtree_knn.py`` check device, dtype, shape
 (``(B, 4)`` query rects here) and contiguity, allocate the outputs, launch
@@ -18,12 +20,14 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .rtree_knn import launch_dists, launch_leaf_fused, launch_level_fused
+from .rtree_knn import (launch_dists, launch_dists_d3, launch_leaf_fused,
+                        launch_level_fused)
 
 # launches per kernel since the last reset (plain integers)
 _launches: Dict[str, int] = {"knn_join_level_dists": 0,
                              "knn_join_level_fused": 0,
-                             "knn_join_leaf_fused": 0}
+                             "knn_join_leaf_fused": 0,
+                             "knn_join_level_dists_d3": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -64,4 +68,15 @@ def knn_join_leaf_fused_cuda(ids, qrects, lx, ly, hx, hy, child, *, k: int):
     out = launch_leaf_fused("rtree_knn_join_leaf_fused", 4, ids, qrects, lx,
                             ly, hx, hy, child, k)
     _launches["knn_join_leaf_fused"] += 1
+    return out
+
+
+def knn_join_level_dists_d3_cuda(ids, qrects, qlo, qhi, scale, bias, slack,
+                                 ptr):
+    """Kernel B14: B13 with (B, 4) float32 query rects → (rect MINDIST on
+    the dequantized boxes, the slack-corrected D3-form rect MINMAXDIST),
+    each (B, C, F) float32, DIST_PAD on invalid lanes."""
+    out = launch_dists_d3("rtree_knn_join_dists_d3", 4, ids, qrects, qlo,
+                          qhi, scale, bias, slack, ptr)
+    _launches["knn_join_level_dists_d3"] += 1
     return out

@@ -12,12 +12,17 @@ the batched kNN-join of query rects.
         --n 2000000 --k 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode knn-join \\
         --n 2000000 --k 8 --query-eps 0.002
+    PYTHONPATH=src python -m repro_torch.launch.serve --layout d3 \\
+        --mode knn --n 2000000 --k 8
 
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
 raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``,
 ``knn`` and ``knn-join`` are ported; the other modes of the reference exit
-with a "not ported yet" message naming their ROADMAP item.
+with a "not ported yet" message naming their ROADMAP item.  ``--layout``
+picks the fleet's node layout: ``d1`` (the default) or the quantized
+``d3``, which serves select, kNN and kNN-join; ``--mode join --layout d3``
+exits "not ported yet" too.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core import rtree, str_pack, traversal
+from ..core.join_vector import D3_JOIN_ITEM
 from ..core.layouts import layout_names
 from ..distributed.spatial_shard import SpatialShards
 from ..runtime.straggler import ShardPool
@@ -103,8 +109,9 @@ def _build_shards(args, rects, sort_key=None):
 def _serve_select(args, spec):
     """Distributed range select behind the straggler pool (one fleet, so
     the pool never re-issues; its deadline and failure stats still
-    apply).  Returns q/s, the total result rows and the first batch's
-    results (per-query sorted global ids)."""
+    apply).  Returns q/s, the total result rows, the overflow flag (any
+    partition's frontier or result cap overflowed in any batch) and the
+    first batch's results (per-query sorted global ids)."""
     shards = _build_shards(args, make_rects(args.n, args.seed))
     qs = make_queries(args.batches, args.batch_size, args.selectivity,
                       args.seed + 1)
@@ -115,16 +122,23 @@ def _serve_select(args, spec):
         t0 = time.time()
         total = 0
         first = None
+        overflowed = False
         for b in range(args.batches):
             res = pool.query(0, qs[b])
             first = res if first is None else first
             total += sum(len(r) for r in res)
+            # one fleet and no spare, so the answer is this fleet's last
+            ctr = shards.last_counters
+            overflowed |= ctr is not None and bool(int(ctr.overflow))
         dt = time.time() - t0
     qps = args.batches * args.batch_size / dt
     print(f"served {args.batches} batches × {args.batch_size} queries in "
           f"{dt:.2f}s → {qps:,.0f} q/s, {total} result rows, "
-          f"{pool.reissues} straggler re-issues, {pool.failures} failures")
-    return {"qps": qps, "results": total, "first_batch": first}
+          f"{pool.reissues} straggler re-issues, {pool.failures} failures"
+          + (", WARNING: overflow — results may be truncated"
+             if overflowed else ""))
+    return {"qps": qps, "results": total, "overflow": overflowed,
+            "first_batch": first}
 
 
 def _serve_join(args, spec):
@@ -259,6 +273,10 @@ def main(argv=None):
         raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
                          f"item {NOT_PORTED[args.mode]}); ported modes: "
                          f"{', '.join(sorted(MODE_TO_SPEC))}")
+    if args.mode == "join" and args.layout != "d1":
+        raise SystemExit(f"--mode join --layout {args.layout} is not ported "
+                         f"yet (ROADMAP item {D3_JOIN_ITEM}); the join "
+                         f"serves layout d1")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available; pass "
                            "--device cpu to serve on the CPU")

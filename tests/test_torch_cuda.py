@@ -5,11 +5,12 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-B1–B10 are held against their plain PyTorch twins, and the select, join,
-kNN and kNN-join engines on the card against the same engines on the CPU.
-B1–B4 are compares and integer arithmetic; B5–B10 compute distances with
-the roundings pinned in ``core/geometry.py``.  So everything is exact,
-float bits included.
+B1–B14 are held against their plain PyTorch twins, and the select, join,
+kNN and kNN-join engines on the card (D1, and D3 for all but the join)
+against the same engines on the CPU.  B1–B4, B11 and B12 are compares and
+integer arithmetic; B5–B10, B13 and B14 compute distances with the
+roundings pinned in ``core/geometry.py`` and ``core/layouts.py``.  So
+everything is exact, float bits included.
 """
 import numpy as np
 import pytest
@@ -67,7 +68,7 @@ def test_cuda_kernels_equal_twins(inst, cap):
                         ref.select_level_fused_ref(ids, q, *rows, cap=cap)):
             np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
         after = kern.launch_counts()
-        for name in after:
+        for name in ("select_level_masks", "select_level_fused"):
             assert after[name] == before[name] + 1
 
 
@@ -352,3 +353,103 @@ def test_cuda_all_pairs_knn_join_equals_cpu(knn_join_inst, fused):
     np.testing.assert_array_equal(ci, ti)
     np.testing.assert_array_equal(cd, td)
     assert ct.asdict() == tt.asdict()
+
+
+# ---------------------------------------------------------------------------
+# the D3 layout: B11-B14 and the D3 engines
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def d3_inst():
+    rng = np.random.default_rng(53)
+    rects = uniform_rects(rng, 4000, eps=0.002)
+    c = (rng.random((6, 2)) * 1.4 - 0.2).astype(np.float32)
+    e = (rng.random((6, 2)) * 0.08).astype(np.float32)
+    e[0] = 0                                       # one degenerate rect
+    return rects, np.concatenate([c - e, c + e], axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [2048, 16])           # 16 forces overflow
+def test_cuda_d3_kernels_equal_twins(d3_inst, cap):
+    """B11, B12, B13 and B14 ≡ their twins, bit for bit, on every internal
+    level with random frontiers (shuffled, 20% of slots -1); the codes
+    quantized on the card ≡ those quantized on the CPU."""
+    dev = _need_gpu()
+    rects, q = d3_inst
+    tree = rtree.build_rtree(rects, fanout=16, device=dev)
+    cpu_layers = layouts.tree_layout(
+        rtree.build_rtree(rects, fanout=16, device="cpu"), "d3")
+    q4 = torch.from_numpy(q).to(dev)
+    p2 = q4[:, :2].contiguous()
+    rng = np.random.default_rng(cap)
+    for li, lvl3 in enumerate(layouts.tree_layout(tree, "d3")):
+        for f in layouts.D3_FIELDS:
+            assert torch.equal(getattr(lvl3, f).cpu(),
+                               getattr(cpu_layers[li], f)), (li, f)
+        if li == 0:
+            continue
+        n = lvl3.qlo.shape[0]
+        c = min(n, 48)
+        ids = np.stack([rng.permutation(n)[:c]
+                        for _ in range(len(q))]).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.2] = -1
+        ids = torch.from_numpy(ids).to(dev)
+        sel = (lvl3.qlo, lvl3.qhi, lvl3.scale, lvl3.bias, lvl3.ptr)
+        dist = (lvl3.qlo, lvl3.qhi, lvl3.scale, lvl3.bias, lvl3.slack,
+                lvl3.ptr)
+        before = (kern.launch_counts(), kkern.launch_counts(),
+                  kjkern.launch_counts())
+        _bits_equal(kern.select_level_masks_d3_cuda(ids, q4, *sel),
+                    ref.select_level_masks_d3_ref(ids, q4, *sel))
+        for g, w in zip(
+                kern.select_level_fused_d3_cuda(ids, q4, *sel, cap=cap),
+                ref.select_level_fused_d3_ref(ids, q4, *sel, cap=cap)):
+            _bits_equal(g, w)
+        for g, w in zip(kkern.knn_level_dists_d3_cuda(ids, p2, *dist),
+                        ref.knn_level_dists_d3_ref(ids, p2, *dist)):
+            _bits_equal(g, w)
+        for g, w in zip(kjkern.knn_join_level_dists_d3_cuda(ids, q4, *dist),
+                        ref.knn_join_level_dists_d3_ref(ids, q4, *dist)):
+            _bits_equal(g, w)
+        after = (kern.launch_counts(), kkern.launch_counts(),
+                 kjkern.launch_counts())
+        for name, i in (("select_level_masks_d3", 0),
+                        ("select_level_fused_d3", 0),
+                        ("knn_level_dists_d3", 1),
+                        ("knn_join_level_dists_d3", 2)):
+            assert after[i][name] == before[i][name] + 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps_mode", ["static", "adaptive"])
+@pytest.mark.parametrize("op", ["select", "select_fused", "knn",
+                                "knn_join"])
+def test_cuda_d3_engine_equals_cpu_engine(d3_inst, op, caps_mode):
+    """The D3 engines on the card ≡ the same engines on the CPU (ids,
+    counts or distance bits, every counter), and their results ≡ the D1
+    engine's on the card."""
+    dev = _need_gpu()
+    rects, q = d3_inst
+    p = np.ascontiguousarray(q[:, :2])
+    builds = {
+        "select": lambda t, **kw: select_vector.make_select_bfs(
+            t, result_cap=512, **kw)(q),
+        "select_fused": lambda t, **kw: select_vector.make_select_bfs(
+            t, result_cap=512, fused=True, **kw)(q),
+        "knn": lambda t, **kw: knn_vector.make_knn_bfs(t, 8, **kw)(p),
+        "knn_join": lambda t, **kw: knn_join_vector.make_knn_join_bfs(
+            t, 8, **kw)(q),
+    }
+    outs = {}
+    for device in (dev, "cpu"):
+        tree = rtree.build_rtree(rects, fanout=16, device=device)
+        outs[device] = builds[op](tree, layout="d3", caps_mode=caps_mode)
+    (ca, cb, ct), (ta, tb, tt) = outs[dev], outs["cpu"]
+    _bits_equal(ca, ta)
+    _bits_equal(cb, tb)
+    assert ct.asdict() == tt.asdict()
+    da, db, _ = builds[op](rtree.build_rtree(rects, fanout=16, device=dev),
+                           caps_mode=caps_mode)
+    _bits_equal(ca, da)
+    _bits_equal(cb, db)
