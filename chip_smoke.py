@@ -15,7 +15,8 @@ Phases, each of which fails the run loudly:
    from a real descent (columns shuffled, 10% of slots set to -1), plus a
    cap-64 overflow case; at the leaf level the kernels' device time per
    call (torch.profiler), their time per call with the wrapper and the
-   twins' (CUDA events), beside the bound;
+   twins' (CUDA events), beside the bound; B2's device time by kernel on
+   the descent's leaf frontier (live slots a prefix) and on it shuffled;
 4. engine: ``make_select_bfs`` with ``result_cap=4096`` in the four cells
    static/adaptive × unfused/fused against the twin engine on the card
    (ids, counts, every counter, exact) and 8 queries against numpy brute
@@ -30,8 +31,9 @@ Phases, each of which fails the run loudly:
    their twins, exact, on pair frontiers from a real descent (shuffled,
    10% of slots -1) with the pruning bounds from the pre-pass (O3/O4-O5
    off and on) and random, plus a B4 cap that overflows; at the leaf step
-   device, per-call and twin times (as phase 3; B4's four kernels summed)
-   beside the bound;
+   device, per-call and twin times (as phase 3) beside the bound; B4's
+   device time is every device item of its entry point, its -1 fill
+   included, and is printed by item;
 7. join engine: ``make_join_bfs(result_cap=1048576)`` over the centre
    partition in the four cells {O3/O4 off, on} × {unfused, fused} against
    the twin engine on the card (pairs, count, every counter) and against
@@ -84,7 +86,7 @@ Phases, each of which fails the run loudly:
    against their twins, exact, on frontiers of a real D3 descent (columns
    shuffled, 10% of slots -1), plus a B12 cap that overflows; device,
    per-call and twin times beside the bound at batch 64 on the widest D3
-   step (level 1) and at batch 4,096;
+   step (level 1) and at batch 4,096, B12's also by kernel;
 18. D3 engines: ``make_select_bfs(layout="d3")`` static/adaptive ×
    unfused/fused and ``make_knn_bfs`` / ``make_knn_join_bfs(layout="d3")``
    k in {8, 64} static/adaptive against the twin engine on the card (ids,
@@ -271,17 +273,20 @@ def host_ms(fn, iters: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, *kernels, iters: int = 20):
-    """Device ms per call of ``fn``: for each kernel of ``kernels`` (a
-    tuple of strings that its demangled name holds, every one), the mean
-    over the launches torch.profiler records in ``iters`` calls of ``fn``
-    (one launch each; the profiler may miss a few at its start), summed
-    over the kernels; None when, in two profiled runs, it saw one of them
-    not at all.  A kernel shorter than its wrapper's host work cannot be
-    timed with events around back-to-back calls: the card would wait for
-    the host."""
+def device_split(fn, *kernels, iters: int = 20):
+    """Device ms per call of ``fn``, one entry per kernel of ``kernels``:
+    each a tuple of strings that its demangled name holds, every one, and
+    optionally an int, its launches per call of ``fn`` (default 1).  An
+    entry is the mean over the launches torch.profiler records in ``iters``
+    calls (it may miss a few at its start) times the launches per call;
+    None when, in two profiled runs, it saw one of them not at all.  A
+    kernel shorter than its wrapper's host work cannot be timed with events
+    around back-to-back calls: the card would wait for the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = [[n for n in k if isinstance(n, str)] for k in kernels]
+    per_call = [next((n for n in k if isinstance(n, int)), 1)
+                for k in kernels]
     fn()
     torch.cuda.synchronize()
     for _ in range(2):          # a profiled run now and then sees nothing
@@ -292,17 +297,37 @@ def device_ms(fn, *kernels, iters: int = 20):
             torch.cuda.synchronize()
         found = [[e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and all(n in e.name for n in names)] for names in kernels]
+                  and all(n in e.name for n in nm)] for nm in names]
         if all(found):
             break
     else:
         return None
-    total = 0.0
-    for names, times in zip(kernels, found):
-        check(len(times) <= iters, f"{names}: {len(times)} launches "
+    out = []
+    for nm, k, times in zip(names, per_call, found):
+        check(len(times) <= iters * k, f"{nm}: {len(times)} launches "
               f"profiled for {iters} calls")
-        total += sum(times) / len(times) / 1e3
-    return total
+        out.append(sum(times) / len(times) / 1e3 * k)
+    return out
+
+
+def device_ms(fn, *kernels, iters: int = 20):
+    """``device_split`` summed over the kernels: the device ms per call of
+    ``fn``, or None."""
+    split = device_split(fn, *kernels, iters=iters)
+    return None if split is None else sum(split)
+
+
+def in_source(cu: str, kernels):
+    """The entries of ``kernels`` (``device_split``'s) whose first name
+    the CUDA source ``cu`` (relative to the port's ``kernels/csrc``) holds;
+    a memset entry (``"Memset"``) is kept where it calls cudaMemsetAsync.
+    So one list of entries times any version of a kernel's sources, an
+    older design with other kernels included."""
+    with open(os.path.join(SRC, "repro_torch", "kernels", "csrc", cu)) as f:
+        text = f.read()
+    return [k for k in kernels
+            if (k[0] == "Memset" and "cudaMemsetAsync" in text)
+            or (k[0] != "Memset" and f"{k[0]}(" in text)]
 
 
 def kernel_times(kfn, tfn, kernels, iters: int = 20, twin_iters: int = 5):
@@ -450,20 +475,23 @@ def phase_kernels(torch, tree, queries, full_caps, kern, ref):
     out = []
     b1_bytes = read + b_ * c_ * f_ * 4
     b2_bytes = read + b_ * RESULT_CAP * 4 + b_ * 4
+    b2_kernels = in_source("rtree_select.cu", [
+        ("select_fused_kernel", "D1Rows"), ("select_count_kernel", "D1Rows"),
+        ("select_scatter_kernel", "D1Rows")])
     for name, src_line, kernel, kfn, tfn, nbytes in (
             ("select_level_masks", "src/repro/kernels/rtree_select.py:64",
-             ("select_masks_kernel",),
+             [("select_masks_kernel",)],
              lambda: kern.select_level_masks_cuda(ids, queries, *leaf),
              lambda: ref.select_level_masks_ref(ids, queries, *leaf),
              b1_bytes),
             ("select_level_fused", "src/repro/kernels/rtree_select.py:111",
-             ("select_fused_kernel",),
+             b2_kernels,
              lambda: kern.select_level_fused_cuda(ids, queries, *leaf,
                                                   cap=RESULT_CAP),
              lambda: ref.select_level_fused_ref(ids, queries, *leaf,
                                                 cap=RESULT_CAP),
              b2_bytes)):
-        ms, call_ms, plain_ms = kernel_times(kfn, tfn, [kernel])
+        ms, call_ms, plain_ms = kernel_times(kfn, tfn, kernel)
         bound_ms, bound_by = bound(nbytes, ops_)
         print(f"  {name}: leaf (B={b_}, C={c_}, F={f_}, {live.numel()} live "
               f"slots, {uniq} distinct nodes): kernel {ms:.4f} ms on the "
@@ -475,6 +503,18 @@ def phase_kernels(torch, tree, queries, full_caps, kern, ref):
                         replaces=src_line, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=None, max_abs_err=err[name]))
+    # B2 on the same leaf frontier with its columns shuffled: the live
+    # slots no longer form a prefix of each row
+    perm = torch.randperm(c_, generator=gen).to(dev)
+    shuf = ids[:, perm].contiguous()
+    for tag, fr in (("descent", ids), ("shuffled", shuf)):
+        split = device_split(lambda: kern.select_level_fused_cuda(
+            fr, queries, *leaf, cap=RESULT_CAP), *b2_kernels)
+        check(split is not None, f"B2 {tag}: the profiler saw no launch")
+        print(f"  select_level_fused: leaf frontier, {tag} order: kernel "
+              f"{sum(split):.4f} ms on the device (" + ", ".join(
+                  f"{k[0]} {t:.4f}" for k, t in zip(b2_kernels, split))
+              + ")", flush=True)
     return out
 
 
@@ -647,6 +687,20 @@ def phase_join_kernels(torch, lo, li_, pair_caps, jkern, ref, ops):
     b3_bytes = meta + (uo * fo + ui * fi) * 16 + p * fo * fi * 4
     b4_bytes = meta + (uo * fo + ui * fi) * 20 + 2 * JOIN_CAP * 4 + 4 + 1
     ops_ = n_live * fo * fi * 6       # 4 compares and 2 tile tests a lane
+    # every device item of B4's entry point, its -1 fill included
+    b4_kernels = in_source("rtree_join.cu", [
+        ("join_count_kernel",), ("join_scan_tiles_kernel",),
+        ("join_scan_carry_kernel",), ("join_scatter_kernel",),
+        ("Memset", 2)])
+    split = device_split(
+        lambda: jkern.join_level_fused_cuda(*args, cap=JOIN_CAP), *b4_kernels)
+    check(split is not None, "B4: the profiler saw no launch")
+    no_fill = sum(t for k, t in zip(b4_kernels, split) if k[0] != "Memset")
+    print("  join_level_fused: leaf step, device ms per call by item: " +
+          ", ".join(f"{k[0]}{' x2' if 2 in k else ''} {t:.4f}"
+                    for k, t in zip(b4_kernels, split)) +
+          f"; {sum(split):.4f} in all, {no_fill:.4f} without memsets",
+          flush=True)
     out = []
     for name, line, kernels, kfn, tfn, nbytes in (
             ("join_pair_masks", "src/repro/kernels/rtree_join.py:73",
@@ -654,8 +708,7 @@ def phase_join_kernels(torch, lo, li_, pair_caps, jkern, ref, ops):
              lambda: jkern.join_pair_masks_cuda(*args[:6]),
              lambda: ref.join_pair_masks_ref(*args[:6]), b3_bytes),
             ("join_level_fused", "src/repro/kernels/rtree_join.py:129",
-             [("join_count_kernel",), ("join_scan_tiles_kernel",),
-              ("join_scan_carry_kernel",), ("join_scatter_kernel",)],
+             b4_kernels,
              lambda: jkern.join_level_fused_cuda(*args, cap=JOIN_CAP),
              lambda: ref.join_level_fused_ref(*args, cap=JOIN_CAP),
              b4_bytes)):
@@ -1223,19 +1276,22 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
     specs = (      # name, label, wrapper, twin, dist rows?, descent index
         ("select_level_masks_d3", "B11", kern.select_level_masks_d3_cuda,
          ref.select_level_masks_d3_ref, False, 0, f"{sel_src}:213",
-         ("select_masks_kernel", "D3Rows"), "rtree_select.cu"),
+         [("select_masks_kernel", "D3Rows")], "rtree_select.cu"),
         ("select_level_fused_d3", "B12", kern.select_level_fused_d3_cuda,
          ref.select_level_fused_d3_ref, False, 0, f"{sel_src}:256",
-         ("select_fused_kernel", "D3Rows"), "rtree_select.cu"),
+         in_source("rtree_select.cu", [
+             ("select_fused_kernel", "D3Rows"),
+             ("select_count_kernel", "D3Rows"),
+             ("select_scatter_kernel", "D3Rows")]), "rtree_select.cu"),
         ("knn_level_dists_d3", "B13", kkern.knn_level_dists_d3_cuda,
          ref.knn_level_dists_d3_ref, True, 1,
          "src/repro/kernels/rtree_knn.py:190",
-         ("knn_dists_kernel", "PointQuery", "LevelD3"), "rtree_knn.cu"),
+         [("knn_dists_kernel", "PointQuery", "LevelD3")], "rtree_knn.cu"),
         ("knn_join_level_dists_d3", "B14",
          kjkern.knn_join_level_dists_d3_cuda,
          ref.knn_join_level_dists_d3_ref, True, 2,
          "src/repro/kernels/rtree_knn_join.py:168",
-         ("knn_dists_kernel", "RectQuery", "LevelD3"), "rtree_knn.cu"))
+         [("knn_dists_kernel", "RectQuery", "LevelD3")], "rtree_knn.cu"))
     h = len(layers)
     err = {sp[0]: 0 for sp in specs}
 
@@ -1312,7 +1368,7 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
             cap = caps_sel[h - 2]
             ms, call_ms, plain_ms = kernel_times(
                 lambda: call(sp, sp[2], ids, q, 1, cap),
-                lambda: call(sp, sp[3], ids, q, 1, cap), [sp[7]], iters=50)
+                lambda: call(sp, sp[3], ids, q, 1, cap), sp[7], iters=50)
             bound_ms, bound_by = bound(nbytes, ops_)
             print(f"  {sp[1]} {sp[0]}: {tag}, level 1 (B={b_}, C={c_}, "
                   f"F={f_}, {live.numel()} live slots, {uniq} distinct "
@@ -1320,6 +1376,13 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
                   f"ms per call with the wrapper), twin {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s, "
                   f"{ops_} ops at 67 TFLOP/s)", flush=True)
+            if len(sp[7]) > 1:
+                split = device_split(lambda: call(sp, sp[2], ids, q, 1, cap),
+                                     *sp[7], iters=50)
+                check(split is not None, f"{sp[1]}: no launch profiled")
+                print(f"    by kernel: " + ", ".join(
+                    f"{k[0]} {t:.4f}" for k, t in zip(sp[7], split)),
+                    flush=True)
             if tag == "batch 64":
                 out.append(dict(
                     name=sp[0], route="cuda",

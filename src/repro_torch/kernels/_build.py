@@ -7,7 +7,8 @@ carries a hash of its source and flags, so a stale build is never loaded.
 Building happens at first use (``load``), never at import, so the package
 imports on machines without ``nvcc``; ``build_all`` starts one ``nvcc`` per
 source, all together, and waits for them.  ``launch`` calls an entry point
-on the current CUDA stream and raises if the launch was refused.
+on the current CUDA stream and raises if the launch was refused; ``layout``
+asks a source for a size.
 """
 from __future__ import annotations
 
@@ -82,6 +83,17 @@ def load(name: str) -> ctypes.CDLL:
             path = build_all([name])[name]
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def layout(lib: str, name: str, *args: int) -> int:
+    """Size query ``name`` of ``csrc/<lib>.cu`` (int arguments, a long long
+    result), so that a kernel's layout of shared memory or scratch lives
+    in its source alone."""
+    f = getattr(load(lib), name)
+    if f.argtypes is None:
+        f.argtypes = [ctypes.c_int] * len(args)
+        f.restype = ctypes.c_longlong
+    return int(f(*args))
 
 
 def launch(lib: str, name: str, argtypes: Sequence, *args) -> None:

@@ -30,18 +30,34 @@
 //     qualifying (may exceed cap).  The output equals compact_rows over the
 //     flat C*F lanes, order included, because the next level's frontier
 //     order feeds every later result.
-//     Bound on the card: memory — 20*F bytes per live slot read, B*cap*4
-//     written; no (B, C, F) mask exists.
-//     Design: one block per query walks the flat lanes in order, one tile
-//     of blockDim lanes at a time.  Per tile: the predicate, a block-wide
-//     exclusive scan of the mask (__ballot_sync/__popc inside each warp,
-//     warp totals scanned by warp 0 through shared memory), a store at
-//     base + position when that is < cap, then base advances by the tile's
-//     total.  No atomics allocate slots, so the order is deterministic.
-//     The TPU kernel's sequential grid carry (pl.when(ci == 0)) becomes the
-//     loop inside the block.  One block per query leaves most of the 132
-//     SMs idle at B=64: a later change splits a query's lanes over several
-//     blocks (count pass, scan, scatter pass).
+//     Bound on the card: memory — the ids (4*B*C bytes), 20*F bytes of
+//     node row per live slot, B*cap*4 written; no (B, C, F) mask exists.
+//     At the 2M leaf with B = 64, C = 16384 and ~42 live slots a query
+//     that is ~8.6 MB, ~0.0026 ms.  The work is nearly all padding: 0.26%
+//     of the slots are live.
+//     Design: a query's C slots are cut into chunks of kSelTile slots, one
+//     block of kSelThreads threads per (query, chunk), so that B = 64 fills
+//     the 132 SMs.  A block loads its chunk's ids with coalesced loads,
+//     ballots on id >= 0 and lists its live slots in slot order in shared
+//     memory; only they read node rows.  Their F lanes each are walked as
+//     one flat list in tiles of kSelTile lanes, so a chunk with few live
+//     slots costs one tile whether they form a prefix or lie anywhere.
+//     Two kernels, and no atomic:
+//       1. select_count_kernel: each block counts its chunk's qualifying
+//          lanes (no barrier per tile) into scratch (B, n_chunks);
+//       2. select_scatter_kernel: each block sums the totals of its
+//          query's earlier chunks (its base) and of all of them, walks its
+//          live lanes again and ranks each tile's hits with __ballot_sync /
+//          __popc and one scan of the 32 group totals, storing at base +
+//          rank while that is < cap.  A chunk whose base is past cap skips
+//          the walk.  The -1 tail [min(count, cap), cap) is written with
+//          16-byte stores shared out over the query's blocks, and the first
+//          chunk's block writes counts[b].
+//     The TPU kernel's sequential grid carry (pl.when(ci == 0)) becomes
+//     the exclusive scan of the chunk totals.  No tensor cores: the kernel
+//     compares and scans integers, with no product, so wgmma and TMA do not
+//     apply; the gain is in bytes and scheduling (skip the padding, fill
+//     the SMs, fewer barriers).
 //
 // B11 rtree_select_masks_d3 — replaces the Pallas kernel
 //     src/repro/kernels/rtree_select.py:select_level_masks_d3 (line 213,
@@ -58,11 +74,12 @@
 //
 // B12 rtree_select_fused_d3 — replaces the Pallas kernel
 //     src/repro/kernels/rtree_select.py:select_level_fused_d3 (line 256,
-//     tile fused_common.d3_chunk_tile line 68).  B2's body on a D3 level:
-//     B11's predicate and the same in-order ballot/popc compress-store,
-//     no atomics.  Bound on the card: memory — the reads of B11 and
-//     4*B*cap + 4*B bytes written.  One block per query, as B2: at B = 64
-//     most SMs idle.
+//     tile fused_common.d3_chunk_tile line 68).  B2's two kernels on a D3
+//     level (the D3Rows instances): B11's predicate and the same in-order
+//     compress-store, no atomics.  Bound on the card: memory — the reads of
+//     B11 and 4*B*cap + 4*B bytes written.  At level 1 and batch 4,096 the
+//     cap is the leaf frontier's, 16,384, so the -1 tails (268 MB) are the
+//     whole bound; the 16-byte tail stores are what the design does there.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
@@ -74,8 +91,11 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaskWarps = 8;          // B1: warps (= slots) per block
-constexpr int kFusedThreads = 1024;    // B2: threads (= lanes per tile)
-constexpr int kFusedWarps = kFusedThreads / kWarp;
+constexpr int kSelThreads = 256;      // B2/B12: threads per block
+constexpr int kSelItems = 4;          // items (slots or lanes) per thread
+constexpr int kSelTile = kSelThreads * kSelItems;   // a chunk, and a tile
+constexpr int kSelWarps = kSelThreads / kWarp;
+constexpr int kSelGroups = kSelItems * kSelWarps;   // ranked groups a tile
 
 __device__ __forceinline__ bool intersects(float qlx, float qly, float qhx,
                                            float qhy, float lx, float ly,
@@ -145,61 +165,208 @@ select_masks_kernel(const int* __restrict__ ids, const float* __restrict__ q,
   }
 }
 
-template <class Rows>
-__global__ void __launch_bounds__(kFusedThreads)
-select_fused_kernel(const int* __restrict__ ids, const float* __restrict__ q,
-                    Rows rows, int* __restrict__ out,
-                    int* __restrict__ counts, int C, int F, int cap) {
-  __shared__ int warp_incl[kFusedWarps];   // inclusive scan of warp totals
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const float qlx = q[4 * b + 0], qly = q[4 * b + 1];
-  const float qhx = q[4 * b + 2], qhy = q[4 * b + 3];
-  const int* frow = ids + (int64_t)b * C;
-  int* orow = out + (int64_t)b * cap;
-  const int64_t n_lanes = (int64_t)C * F;
-  const unsigned lt_mask = (1u << lane) - 1u;   // lanes below this one
-  int base = 0;   // qualifying lanes before this tile (may exceed cap)
-  for (int64_t t0 = 0; t0 < n_lanes; t0 += kFusedThreads) {
-    const int64_t g = t0 + tid;           // flat lane c*F + j, in order
-    bool m = false;
-    int ch = -1;
-    if (g < n_lanes) {
-      const int c = (int)(g / F);
-      const int id = frow[c];
-      if (id >= 0) {
-        const int64_t k = (int64_t)id * F + (g - (int64_t)c * F);
-        ch = rows.child[k];
-        m = ch >= 0 && rows.hit(qlx, qly, qhx, qhy, id, k);
-      }
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) warp_incl[warp] = __popc(bal);
-    __syncthreads();
-    if (warp == 0) {
-      int v = warp_incl[lane];            // kFusedWarps == kWarp
-      for (int d = 1; d < kWarp; d <<= 1) {
-        const int up = __shfl_up_sync(0xffffffffu, v, d);
-        if (lane >= d) v += up;
-      }
-      warp_incl[lane] = v;
-    }
-    __syncthreads();
-    if (m) {
-      const int pos = base + (warp == 0 ? 0 : warp_incl[warp - 1]) +
-                      __popc(bal & lt_mask);
-      if (pos < cap) orow[pos] = ch;
-    }
-    base += warp_incl[kFusedWarps - 1];
-    __syncthreads();                      // warp_incl is rewritten next tile
+static_assert(kSelGroups == kWarp, "warp 0 scans one group total a lane");
+
+// Shared state of block_rank: the group totals and their inclusive scan.
+struct RankSmem {
+  int cnt[kSelGroups];
+  int incl[kSelGroups];
+};
+
+// Block-wide exclusive ranks of kSelItems predicates a thread.  Item u of
+// thread t is element u * kSelThreads + t of a tile, so group u * kSelWarps
+// + warp holds elements in tile order.  pos[u] is item u's rank among the
+// tile's set items; returns their number.  Two barriers; the next call may
+// follow at once (warp 0 reads cnt before the second barrier, and the
+// others read incl before the next call's first).
+__device__ __forceinline__ int block_rank(const bool (&m)[kSelItems],
+                                          int (&pos)[kSelItems],
+                                          RankSmem& sm) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  unsigned bal[kSelItems];
+#pragma unroll
+  for (int u = 0; u < kSelItems; ++u) {
+    bal[u] = __ballot_sync(0xffffffffu, m[u]);
+    if (lane == 0) sm.cnt[u * kSelWarps + warp] = __popc(bal[u]);
   }
-  for (int p = min(base, cap) + tid; p < cap; p += kFusedThreads) orow[p] = -1;
-  if (tid == 0) counts[b] = base;
+  __syncthreads();
+  if (warp == 0) {
+    int v = sm.cnt[lane];
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += up;
+    }
+    sm.incl[lane] = v;
+  }
+  __syncthreads();
+  const unsigned lt_mask = (1u << lane) - 1u;
+#pragma unroll
+  for (int u = 0; u < kSelItems; ++u) {
+    const int g = u * kSelWarps + warp;
+    pos[u] = (g == 0 ? 0 : sm.incl[g - 1]) + __popc(bal[u] & lt_mask);
+  }
+  return sm.incl[kSelGroups - 1];
 }
 
-static_assert(kFusedWarps == kWarp, "warp 0 scans one total per lane");
+// Lists the live slots (id >= 0) of chunk `chunk` of one query's frontier
+// row `frow` (C slots): their node ids, in slot order, into s_node.
+// Returns their number (the same in every thread).
+__device__ __forceinline__ int live_slots(const int* __restrict__ frow,
+                                          int C, int chunk, int* s_node,
+                                          RankSmem& sm) {
+  bool m[kSelItems];
+  int id[kSelItems], pos[kSelItems];
+  const int s0 = chunk * kSelTile + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kSelItems; ++u) {
+    const int s = s0 + u * kSelThreads;
+    id[u] = s < C ? frow[s] : -1;
+    m[u] = id[u] >= 0;
+  }
+  const int n = block_rank(m, pos, sm);
+#pragma unroll
+  for (int u = 0; u < kSelItems; ++u)
+    if (m[u]) s_node[pos[u]] = id[u];
+  __syncthreads();
+  return n;
+}
+
+struct Query {
+  float lx, ly, hx, hy;
+};
+
+// Lane l of a chunk's live lanes: entry j = l % F of live slot l / F.
+// Sets *ch to the entry's child id; true when it qualifies.
+template <class Rows>
+__device__ __forceinline__ bool live_lane(const Rows& rows,
+                                          const int* s_node, const Query& q,
+                                          int l, int n_lanes, int F,
+                                          int* ch) {
+  if (l >= n_lanes) return false;
+  const int r = l / F;
+  const int node = s_node[r];
+  const int64_t k = (int64_t)node * F + (l - r * F);
+  *ch = rows.child[k];
+  // both loads in flight together: the row is read whatever the child
+  const bool hit = rows.hit(q.lx, q.ly, q.hx, q.hy, node, k);
+  return *ch >= 0 && hit;
+}
+
+__device__ __forceinline__ Query load_query(const float* __restrict__ q,
+                                            int b) {
+  return Query{q[4 * b + 0], q[4 * b + 1], q[4 * b + 2], q[4 * b + 3]};
+}
+
+// Writes -1 to row[lo, cap): 16-byte stores where aligned, shared out over
+// `parts` blocks (this one is `part`).
+__device__ __forceinline__ void fill_tail(int* row, long long lo,
+                                          long long cap, long long part,
+                                          long long parts) {
+  if (lo >= cap) return;
+  const long long t = part * blockDim.x + threadIdx.x;
+  const long long stride = parts * blockDim.x;
+  const long long head = min(
+      (long long)(((16 - ((uintptr_t)(row + lo) & 15)) & 15) / 4), cap - lo);
+  if (t < head) row[lo + t] = -1;
+  const long long a = lo + head;
+  const long long n4 = (cap - a) / 4;
+  int4* row4 = reinterpret_cast<int4*>(row + a);
+  for (long long k = t; k < n4; k += stride)
+    row4[k] = make_int4(-1, -1, -1, -1);
+  const long long rest = a + 4 * n4;
+  if (t < cap - rest) row[rest + t] = -1;
+}
+
+// Block sum of one int per thread, every thread gets it (s: kSelWarps).
+__device__ __forceinline__ long long block_sum(long long v, long long* s) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  for (int d = kWarp / 2; d > 0; d >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, d);
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  long long total = 0;
+  for (int w = 0; w < kSelWarps; ++w) total += s[w];
+  return total;
+}
+
+// B2/B12 pass 1: chunk_tot[b * n_chunks + chunk] = the chunk's qualifying
+// lanes.  One block per (query b, chunk), blockIdx.x = b * n_chunks + chunk.
+template <class Rows>
+__global__ void __launch_bounds__(kSelThreads)
+select_count_kernel(const int* __restrict__ ids, const float* __restrict__ q,
+                    Rows rows, int* __restrict__ chunk_tot, int C, int F,
+                    int n_chunks) {
+  __shared__ int s_node[kSelTile];
+  __shared__ RankSmem sm;
+  __shared__ long long s_sum[kSelWarps];
+  const int b = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x - b * n_chunks;
+  const Query qb = load_query(q, b);
+  const int n = live_slots(ids + (int64_t)b * C, C, chunk, s_node, sm);
+  if (n == 0) {                         // uniform over the block
+    if (threadIdx.x == 0) chunk_tot[blockIdx.x] = 0;
+    return;
+  }
+  const int n_lanes = n * F;
+  int hits = 0;
+  for (int l0 = 0; l0 < n_lanes; l0 += kSelTile) {
+#pragma unroll
+    for (int u = 0; u < kSelItems; ++u) {
+      int ch;
+      hits += live_lane(rows, s_node, qb, l0 + u * kSelThreads + threadIdx.x,
+                        n_lanes, F, &ch);
+    }
+  }
+  const long long total = block_sum(hits, s_sum);
+  if (threadIdx.x == 0) chunk_tot[blockIdx.x] = (int)total;
+}
+
+// B2/B12 pass 2: the ordered scatter, the -1 tail and counts[b].
+template <class Rows>
+__global__ void __launch_bounds__(kSelThreads)
+select_scatter_kernel(const int* __restrict__ ids,
+                      const float* __restrict__ q, Rows rows,
+                      const int* __restrict__ chunk_tot, int* __restrict__ out,
+                      int* __restrict__ counts, int C, int F, int cap,
+                      int n_chunks) {
+  __shared__ int s_node[kSelTile];
+  __shared__ RankSmem sm;
+  __shared__ long long s_sum[2][kSelWarps];
+  const int b = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x - b * n_chunks;
+  const int* tot = chunk_tot + (int64_t)b * n_chunks;
+  long long before = 0, all = 0;
+  for (int k = threadIdx.x; k < n_chunks; k += kSelThreads) {
+    all += tot[k];
+    if (k < chunk) before += tot[k];
+  }
+  before = block_sum(before, s_sum[0]);
+  all = block_sum(all, s_sum[1]);
+  int* orow = out + (int64_t)b * cap;
+  if (before < cap && tot[chunk] > 0) {        // uniform over the block
+    const Query qb = load_query(q, b);
+    const int n = live_slots(ids + (int64_t)b * C, C, chunk, s_node, sm);
+    const int n_lanes = n * F;
+    long long run = before;
+    for (int l0 = 0; l0 < n_lanes && run < cap; l0 += kSelTile) {
+      bool m[kSelItems];
+      int ch[kSelItems], pos[kSelItems];
+#pragma unroll
+      for (int u = 0; u < kSelItems; ++u)
+        m[u] = live_lane(rows, s_node, qb, l0 + u * kSelThreads + threadIdx.x,
+                         n_lanes, F, &ch[u]);
+      const int t = block_rank(m, pos, sm);
+#pragma unroll
+      for (int u = 0; u < kSelItems; ++u)
+        if (m[u] && run + pos[u] < cap) orow[run + pos[u]] = ch[u];
+      run += t;
+    }
+  }
+  fill_tail(orow, min(all, (long long)cap), cap, chunk, n_chunks);
+  if (chunk == 0 && threadIdx.x == 0) counts[b] = (int)all;
+}
+
+int select_chunks(int C) { return (C + kSelTile - 1) / kSelTile; }
 
 template <class Rows>
 int launch_masks(const void* ids, const void* q, const Rows& rows,
@@ -214,10 +381,18 @@ int launch_masks(const void* ids, const void* q, const Rows& rows,
 
 template <class Rows>
 int launch_fused(const void* ids, const void* q, const Rows& rows, void* out,
-                 void* counts, int B, int C, int F, int cap, void* stream) {
-  select_fused_kernel<Rows><<<B, kFusedThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)q, rows, (int*)out, (int*)counts, C, F,
-      cap);
+                 void* counts, void* scratch, int B, int C, int F, int cap,
+                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = select_chunks(C);
+  const unsigned blocks = (unsigned)((int64_t)B * n_chunks);
+  select_count_kernel<Rows><<<blocks, kSelThreads, 0, st>>>(
+      (const int*)ids, (const float*)q, rows, (int*)scratch, C, F, n_chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  select_scatter_kernel<Rows><<<blocks, kSelThreads, 0, st>>>(
+      (const int*)ids, (const float*)q, rows, (const int*)scratch, (int*)out,
+      (int*)counts, C, F, cap, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -235,6 +410,13 @@ D3Rows d3_rows(const void* qlo, const void* qhi, const void* scale,
 
 }  // namespace
 
+// Layout query for the wrapper, so that the chunking lives here only: the
+// int32 elements of B2's and B12's scratch (one total per (query, chunk))
+// for a (B, C) frontier.
+extern "C" long long rtree_select_fused_scratch(int B, int C) {
+  return (long long)B * select_chunks(C);
+}
+
 extern "C" int rtree_select_masks(const void* ids, const void* q,
                                   const void* lx, const void* ly,
                                   const void* hx, const void* hy,
@@ -248,9 +430,10 @@ extern "C" int rtree_select_fused(const void* ids, const void* q,
                                   const void* lx, const void* ly,
                                   const void* hx, const void* hy,
                                   const void* child, void* out, void* counts,
-                                  int B, int C, int F, int cap, void* stream) {
-  return launch_fused(ids, q, d1_rows(lx, ly, hx, hy, child), out, counts, B,
-                      C, F, cap, stream);
+                                  void* scratch, int B, int C, int F, int cap,
+                                  void* stream) {
+  return launch_fused(ids, q, d1_rows(lx, ly, hx, hy, child), out, counts,
+                      scratch, B, C, F, cap, stream);
 }
 
 extern "C" int rtree_select_masks_d3(const void* ids, const void* q,
@@ -266,8 +449,8 @@ extern "C" int rtree_select_fused_d3(const void* ids, const void* q,
                                      const void* qlo, const void* qhi,
                                      const void* scale, const void* bias,
                                      const void* ptr, void* out,
-                                     void* counts, int B, int C, int F,
-                                     int cap, void* stream) {
+                                     void* counts, void* scratch, int B,
+                                     int C, int F, int cap, void* stream) {
   return launch_fused(ids, q, d3_rows(qlo, qhi, scale, bias, ptr), out,
-                      counts, B, C, F, cap, stream);
+                      counts, scratch, B, C, F, cap, stream);
 }

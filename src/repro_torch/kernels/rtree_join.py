@@ -42,16 +42,6 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def _layout(name: str, *args: int) -> int:
-    """A size query of ``csrc/rtree_join.cu`` (``rtree_join_pair_smem``,
-    ``rtree_join_fused_scratch``), which alone holds the kernels' layout."""
-    f = getattr(_build.load(_LIB), name)
-    if f.argtypes is None:
-        f.argtypes = [_I] * len(args)
-        f.restype = ctypes.c_longlong
-    return int(f(*args))
-
-
 def _check(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords, to,
            **ptrs):
     """Validate one pair-frontier call; returns (P, F_out, F_in, to)."""
@@ -95,7 +85,8 @@ def _check(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords, to,
             raise ValueError(f"{name} must be "
                              f"{(coords.shape[0], coords.shape[2])}, got "
                              f"{tuple(ptrs[name].shape)}")
-    smem = _layout("rtree_join_pair_smem", fo, fi, to, int(bool(ptrs)))
+    smem = _build.layout(_LIB, "rtree_join_pair_smem", fo, fi, to,
+                         int(bool(ptrs)))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"fanouts ({fo}, {fi}) need {smem} bytes of shared "
                          f"memory per pair, over {_SMEM_LIMIT}")
@@ -129,7 +120,9 @@ def join_level_fused_cuda(o_ids, i_ids, alive_cnt, flip_max, o_coords,
     pointers >= 0, compress-stored over the flat P·F_out·F_in lanes →
     (out_o (cap,) int32 -1 padded, out_i (cap,), count () int32 (may
     exceed cap), overflow () bool) — ``compact_pairs``'s contract.  Count
-    and overflow stay on the device."""
+    and overflow stay on the device.  Allocates an int32 count per pair and
+    an int64 scratch (offsets, scan tiles, the total and eight int32 warp
+    counts a pair) sized by ``rtree_join_fused_scratch``."""
     p, fo, fi, to = _check(o_ids, i_ids, alive_cnt, flip_max, o_coords,
                            i_coords, to, o_ptr=o_ptr, i_ptr=i_ptr)
     if cap < 0:
@@ -142,8 +135,8 @@ def join_level_fused_cuda(o_ids, i_ids, alive_cnt, flip_max, o_coords,
         overflow = torch.empty((), dtype=torch.bool, device=dev)
         counts = torch.empty((p,), dtype=torch.int32, device=dev)
         scratch = torch.empty(
-            (_layout("rtree_join_fused_scratch", p),), dtype=torch.int64,
-            device=dev)
+            (_build.layout(_LIB, "rtree_join_fused_scratch", p),),
+            dtype=torch.int64, device=dev)
         _build.launch(_LIB, "rtree_join_fused", _ARGTYPES["rtree_join_fused"],
                       o_ids.data_ptr(), i_ids.data_ptr(), alive_cnt.data_ptr(),
                       flip_max.data_ptr(), o_coords.data_ptr(),

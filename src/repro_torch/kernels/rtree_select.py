@@ -10,9 +10,10 @@ The source file's header gives each kernel's bound on the card and what its
 design does about it; the plain PyTorch twins are in ``kernels/ref.py``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, launches on the current CUDA stream, raises if the launch was
-refused, and adds one to its launch count.  Nothing here falls back to the
-twin: CPU tensors raise.
+outputs (B2 and B12 also their scratch), launches on the current CUDA
+stream, raises if a launch was refused, and adds one to its launch count
+(B2 and B12: one for their count and scatter launches).  Nothing here
+falls back to the twin: CPU tensors raise.
 """
 from __future__ import annotations
 
@@ -27,9 +28,9 @@ _LIB = "rtree_select"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {                           # the stream pointer is appended
     "rtree_select_masks": [_P] * 8 + [_I] * 3,
-    "rtree_select_fused": [_P] * 9 + [_I] * 4,
+    "rtree_select_fused": [_P] * 10 + [_I] * 4,
     "rtree_select_masks_d3": [_P] * 8 + [_I] * 3,
-    "rtree_select_fused_d3": [_P] * 9 + [_I] * 4,
+    "rtree_select_fused_d3": [_P] * 10 + [_I] * 4,
 }
 
 # launches per kernel since the last reset (plain integers)
@@ -117,10 +118,15 @@ def _fused(entry, count, ids, queries, rows, cap, node_cols=()):
     with torch.cuda.device(ids.device):
         out = torch.empty((b, cap), dtype=torch.int32, device=ids.device)
         counts = torch.empty((b,), dtype=torch.int32, device=ids.device)
+        # one qualifying total per (query, chunk of the frontier's slots)
+        scratch = torch.empty(
+            (_build.layout(_LIB, "rtree_select_fused_scratch", b, c),),
+            dtype=torch.int32, device=ids.device)
         _build.launch(_LIB, entry, _ARGTYPES[entry], ids.data_ptr(),
                       queries.data_ptr(),
                       *(t.data_ptr() for t in rows.values()),
-                      out.data_ptr(), counts.data_ptr(), b, c, f, cap)
+                      out.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+                      b, c, f, cap)
     _launches[count] += 1
     return out, counts, counts > cap
 
@@ -137,7 +143,8 @@ def select_level_fused_cuda(ids, queries, lx, ly, hx, hy, child, *,
     """Kernel B2: B1's predicate over the whole level plus an in-order
     compress-store → (next_ids (B, cap) int32 -1 padded, counts (B,) int32
     (may exceed cap), overflow (B,) bool) — ``compact_rows``'s contract
-    over the flat C·F lanes."""
+    over the flat C·F lanes.  Allocates an int32 scratch of one total per
+    (query, chunk of the frontier's slots) for its count pass."""
     return _fused("rtree_select_fused", "select_level_fused", ids, queries,
                   _d1_rows(lx, ly, hx, hy, child), cap)
 
@@ -155,7 +162,8 @@ def select_level_masks_d3_cuda(ids, queries, qlo, qhi, scale, bias, ptr):
 def select_level_fused_d3_cuda(ids, queries, qlo, qhi, scale, bias, ptr, *,
                                cap: int):
     """Kernel B12: B11's predicate over the whole level plus B2's in-order
-    compress-store → (next_ids (B, cap), counts (B,), overflow (B,))."""
+    compress-store, scratch included → (next_ids (B, cap), counts (B,),
+    overflow (B,))."""
     return _fused("rtree_select_fused_d3", "select_level_fused_d3", ids,
                   queries, _d3_rows(qlo, qhi, scale, bias, ptr), cap,
                   node_cols=("scale", "bias"))

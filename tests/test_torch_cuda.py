@@ -142,6 +142,127 @@ def test_cuda_join_kernels_equal_twins(join_inst, pruned):
         assert after["join_level_fused"] == before["join_level_fused"] + 2
 
 
+def _seam_rows(rng, n_nodes, c=3000):
+    """(6, c) frontiers at the seams of B2's and B12's chunks of 1,024
+    slots (c is no multiple of it): a row all -1, a row whose only live
+    slot is its last, live slots a prefix past the first chunk, live slots
+    interleaved with -1, every slot live, 10% of the slots live anywhere."""
+    ids = rng.integers(0, n_nodes, (6, c)).astype(np.int32)
+    ids[0] = -1
+    ids[1, :-1] = -1
+    ids[2, 1500:] = -1
+    ids[3, 1::2] = -1
+    ids[5, rng.random(c) >= 0.1] = -1
+    return ids
+
+
+def _seam_queries(rng):
+    """Six query rects: four that hold the whole unit square, so a row's
+    hits run over several chunks, and two of half-extent 0.15."""
+    c = rng.random((6, 2)).astype(np.float32)
+    e = np.full((6, 2), 2.0, np.float32)
+    e[[2, 5]] = 0.15
+    return np.concatenate([c - e, c + e], axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 700, 1 << 16])
+@pytest.mark.parametrize("layout", ["d1", "d3"])
+def test_cuda_fused_select_seams_equal_twins(d3_inst, layout, cap):
+    """B2 (D1) and B12 (D3) ≡ their twins on frontiers at the seams of
+    their chunks: rows all -1 or live only in their last slot, live slots
+    a prefix or interleaved, hits across several chunks, cap 1 and a cap
+    that falls inside a row's first chunk."""
+    dev = _need_gpu()
+    rects, _ = d3_inst
+    tree = rtree.build_rtree(rects, fanout=16, device=dev)
+    rng = np.random.default_rng(cap)
+    q = torch.from_numpy(_seam_queries(rng)).to(dev)
+    if layout == "d1":
+        levels = [(lvl.n_nodes, [getattr(lvl, f) for f in ROWS])
+                  for lvl in tree.levels]
+        fns = (kern.select_level_fused_cuda, ref.select_level_fused_ref,
+               "select_level_fused")
+    else:
+        levels = [(l3.qlo.shape[0], [l3.qlo, l3.qhi, l3.scale, l3.bias,
+                                     l3.ptr])
+                  for l3 in layouts.tree_layout(tree, "d3")[1:]]
+        fns = (kern.select_level_fused_d3_cuda,
+               ref.select_level_fused_d3_ref, "select_level_fused_d3")
+    for n, rows in levels:
+        ids = torch.from_numpy(_seam_rows(rng, n)).to(dev)
+        before = kern.launch_counts()[fns[2]]
+        got = fns[0](ids, q, *rows, cap=cap)
+        want = fns[1](ids, q, *rows, cap=cap)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+        assert kern.launch_counts()[fns[2]] == before + 1
+        counts = want[1].cpu().numpy()
+        assert counts[0] == 0 and counts[4] > 1024
+        assert bool(got[2].any()) == (cap < counts.max())
+
+
+def _join_seam_inst(fanout, dev):
+    """Two relations sorted by low x at ``fanout`` and their D1 leaf
+    levels."""
+    rng = np.random.default_rng(fanout)
+    trees = [rtree.build_rtree(uniform_rects(rng, n, eps=0.01),
+                               fanout=fanout, sort_key="lx", device=dev)
+             for n in (40 * fanout, 8 * fanout)]
+    return trees, [layouts.tree_layout(t, "d1")[0] for t in trees]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dead", "live", "prefix", "interleaved"])
+@pytest.mark.parametrize("fanout", [16, 32, 48, 64])
+def test_cuda_fused_join_seams_equal_twins(fanout, kind):
+    """B4 ≡ its twin on leaf pair frontiers of P = 40,009 slots (more than
+    a batch of 32 for each block of the persistent grid): every pair dead,
+    every pair live, live pairs a prefix, live pairs interleaved; pruning
+    bounds from the pre-pass and random; cap 1, a cap inside the run and
+    one that holds it.  Fanouts 32 and 64 take the register path, 16 and
+    48 the general one."""
+    dev = _need_gpu()
+    trees, (lo, li_) = _join_seam_inst(fanout, dev)
+    rng = np.random.default_rng(fanout + 1)
+    mo = trees[0].levels[0].node_mbr.cpu().numpy()
+    mi = trees[1].levels[0].node_mbr.cpu().numpy()
+    hit = np.argwhere((mo[:, None, 0] <= mi[None, :, 2]) &
+                      (mo[:, None, 2] >= mi[None, :, 0]) &
+                      (mo[:, None, 1] <= mi[None, :, 3]) &
+                      (mo[:, None, 3] >= mi[None, :, 1]))
+    p = 40_009
+    pick = hit[rng.integers(0, len(hit), p)].astype(np.int32)
+    o, i = pick[:, 0].copy(), pick[:, 1].copy()
+    if kind == "dead":
+        o[:] = -1
+    elif kind == "prefix":
+        o[p // 3:] = -1
+    elif kind == "interleaved":
+        i[1::2] = -1
+    o, i = torch.from_numpy(o).to(dev), torch.from_numpy(i).to(dev)
+    oc, icr = lo.coords, li_.coords
+    bounds = [ops.join_prune_metadata(o, i, oc, icr, to=8),
+              (torch.from_numpy(rng.integers(-1, fanout + 3, p).astype(
+                  np.int32)).to(dev),
+               torch.from_numpy(rng.integers(-1, fanout + 3,
+                                             (p, fanout // 8))
+                                .astype(np.int32)).to(dev))]
+    for ac, fm in bounds:
+        args = (o, i, ac, fm, oc, icr, lo.ptr, li_.ptr)
+        for cap in (1, 777, 1 << 22):
+            before = jkern.launch_counts()["join_level_fused"]
+            got = jkern.join_level_fused_cuda(*args, cap=cap)
+            want = ref.join_level_fused_ref(*args, cap=cap)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(),
+                                              w.cpu().numpy())
+            assert jkern.launch_counts()["join_level_fused"] == before + 1
+            n = int(want[2])
+            assert (n == 0) == (kind == "dead")
+            assert bool(got[3]) == (n > cap)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("o34", [False, True])

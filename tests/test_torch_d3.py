@@ -259,13 +259,37 @@ def test_select_masks_d3_twin_equals_pallas(inst, li):
     assert got.any()
 
 
-@pytest.mark.parametrize("cap", [512, 16])            # 16 forces overflow
-@pytest.mark.parametrize("li", [1, 2])
-def test_select_fused_d3_twin_equals_pallas(inst, li, cap):
+def _seam_frontier(rng, n_nodes, c=20):
+    """(4, c) frontier rows at the seams of the chunked CUDA kernels (and
+    wider than one Pallas grid step): all -1, only the last slot live, live
+    slots a prefix, and live slots interleaved with -1."""
+    ids = rng.integers(0, n_nodes, (4, c)).astype(np.int32)
+    ids[0] = -1
+    ids[1, :-1] = -1
+    ids[2, c // 2 + 1:] = -1
+    ids[3, 1::2] = -1
+    return ids
+
+
+# (li, cap, frontier): random frontiers (16 forces overflow), then the
+# seam rows at cap 1, a cap inside a row's qualifying run, and one that
+# holds every row
+FUSED_D3_CASES = [pytest.param(li, cap, "random", id=f"{li}-{cap}")
+                  for li in (1, 2) for cap in (512, 16)] + \
+    [pytest.param(li, cap, "seams", id=f"{li}-{cap}-seams")
+     for li in (1, 2) for cap in (1, 5, 512)]
+
+
+@pytest.mark.parametrize("li,cap,frontier", FUSED_D3_CASES)
+def test_select_fused_d3_twin_equals_pallas(inst, li, cap, frontier):
     _, _, _, jl, tl, _ = inst
     rng = np.random.default_rng(50 + li)
-    ids = _frontier(rng, tl[li].qlo.shape[0], c=min(16, tl[li].qlo.shape[0]))
-    q = _qrects(rng, 4, 0.3 if cap == 16 else 0.03)
+    if frontier == "seams":
+        ids = _seam_frontier(rng, tl[li].qlo.shape[0])
+    else:
+        ids = _frontier(rng, tl[li].qlo.shape[0],
+                        c=min(16, tl[li].qlo.shape[0]))
+    q = _qrects(rng, 4, 0.3 if cap == 16 or frontier == "seams" else 0.03)
     want = jkern_sel.select_level_fused_d3(
         jnp.asarray(ids), jnp.asarray(q), *_rows(jl[li], D3_ROWS, False),
         cap=cap, interpret=True)
@@ -277,6 +301,9 @@ def test_select_fused_d3_twin_equals_pallas(inst, li, cap):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if cap == 16 and li == 1:
         assert got[2].any()                # the overflow case fired
+    if frontier == "seams":
+        assert int(got[1][0]) == 0         # the all -1 row
+        assert bool(got[2].any()) == (cap < 512)    # cap 1, 5 overflow
 
 
 # ---------------------------------------------------------------------------

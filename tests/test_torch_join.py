@@ -125,12 +125,38 @@ def test_pair_masks_twin_equals_pallas(inst, li):
     assert got.any()
 
 
-@pytest.mark.parametrize("cap", [4096, 4])            # 4 forces overflow
-@pytest.mark.parametrize("li", [0, 1])
-def test_level_fused_twin_equals_pallas(inst, li, cap):
+def _seam_pairs(rng, tree_o, tree_i, li, kind, p=40):
+    """(P,) pair frontiers at the seams of the persistent CUDA kernels:
+    live pairs a prefix, live pairs interleaved with -1, every pair dead,
+    every pair live."""
+    o, i = _pair_frontier(rng, tree_o, tree_i, li, p=p, pad=0.0)
+    if kind == "prefix":
+        o[p // 2 + 1:] = -1
+    elif kind == "interleaved":
+        i[1::2] = -1
+    elif kind == "dead":
+        o[:] = -1
+    return o, i
+
+
+# (li, cap, frontier): random frontiers (4 forces overflow), then the seam
+# frontiers, the first two at caps that overflow (1, and one inside the
+# run)
+LEVEL_FUSED_CASES = [pytest.param(li, cap, "random", id=f"{li}-{cap}")
+                     for li in (0, 1) for cap in (4096, 4)] + \
+    [pytest.param(li, cap, kind, id=f"{li}-{cap}-{kind}")
+     for li in (0, 1) for kind, cap in (("prefix", 1), ("interleaved", 3),
+                                        ("dead", 4096), ("live", 4096))]
+
+
+@pytest.mark.parametrize("li,cap,frontier", LEVEL_FUSED_CASES)
+def test_level_fused_twin_equals_pallas(inst, li, cap, frontier):
     _, _, (jo, ji), (to, ti) = inst
     rng = np.random.default_rng(200 + li)
-    o, i = _pair_frontier(rng, to, ti, li)
+    if frontier == "random":
+        o, i = _pair_frontier(rng, to, ti, li)
+    else:
+        o, i = _seam_pairs(rng, to, ti, li, frontier)
     alive, flip = _random_bounds(rng, len(o), 16, 16)
     args = (o, i, alive, flip)
     joc, jop = _d1(jo, li, 0)
@@ -143,8 +169,12 @@ def test_level_fused_twin_equals_pallas(inst, li, cap):
                                    to=8)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert int(got[2]) > 4
-    assert bool(got[3]) == (cap == 4)
+    if frontier == "random":
+        assert int(got[2]) > 4
+        assert bool(got[3]) == (cap == 4)
+    else:
+        assert (int(got[2]) == 0) == (frontier == "dead")
+        assert bool(got[3]) == (cap < 4096)
 
 
 @pytest.mark.parametrize("o3,o45", [(False, False), (True, False),

@@ -91,13 +91,36 @@ def test_masks_twin_equals_pallas(inst, li):
     assert got.any()
 
 
-@pytest.mark.parametrize("cap", [2048, 64])          # 64 forces overflow
-@pytest.mark.parametrize("li", [0, 1])
-def test_fused_twin_equals_pallas(inst, li, cap):
+def _seam_frontier(rng, n_nodes, c=20):
+    """(4, c) frontier rows at the seams of the chunked CUDA kernels (and
+    wider than one Pallas grid step): all -1, only the last slot live, live
+    slots a prefix, and live slots interleaved with -1."""
+    ids = rng.integers(0, n_nodes, (4, c)).astype(np.int32)
+    ids[0] = -1
+    ids[1, :-1] = -1
+    ids[2, c // 2 + 1:] = -1
+    ids[3, 1::2] = -1
+    return ids
+
+
+# (li, cap, frontier): random frontiers (64 forces overflow), then the
+# seam rows at cap 1, a cap that falls inside a row's qualifying run, and
+# a cap that holds every row
+FUSED_CASES = [pytest.param(li, cap, "random", id=f"{li}-{cap}")
+               for li in (0, 1) for cap in (2048, 64)] + \
+    [pytest.param(li, cap, "seams", id=f"{li}-{cap}-seams")
+     for li in (0, 1) for cap in (1, 3, 2048)]
+
+
+@pytest.mark.parametrize("li,cap,frontier", FUSED_CASES)
+def test_fused_twin_equals_pallas(inst, li, cap, frontier):
     _, jtree, ttree, small, big = inst
     rng = np.random.default_rng(10 + li)
-    ids = _frontier(rng, ttree.levels[li].n_nodes, c=16, pad=0.2)
-    q = big if cap == 64 else small
+    if frontier == "seams":
+        ids = _seam_frontier(rng, ttree.levels[li].n_nodes)
+    else:
+        ids = _frontier(rng, ttree.levels[li].n_nodes, c=16, pad=0.2)
+    q = big if cap == 64 or frontier == "seams" else small
     want = jkern.select_level_fused(
         jnp.asarray(ids), jnp.asarray(q), *_level_args(jtree.levels, li, 0),
         cap=cap, interpret=True)
@@ -109,6 +132,9 @@ def test_fused_twin_equals_pallas(inst, li, cap):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if cap == 64 and li == 0:
         assert got[2].any()                # the overflow case fired
+    if frontier == "seams":
+        assert int(got[1][0]) == 0         # the all -1 row
+        assert bool(got[2].any()) == (cap < 2048)   # cap 1, 3 overflow
 
 
 # ---------------------------------------------------------------------------
