@@ -52,7 +52,12 @@ Phases, each of which fails the run loudly:
    plus a B6 cap that overflows; at the k = 8 leaf step (B6 at the last
    internal step) the kernels' device time per launch (torch.profiler),
    their time per call with the wrapper and the twins' (CUDA events),
-   beside the bound;
+   beside the bound; B5's variant (vector or scalar-lane, from the
+   profiled kernel name) and where its bytes go (``score_split``: live
+   slots, distinct nodes, output bytes, row bytes per live slot against
+   per distinct node, and the fill floor, PyTorch's fill of the same
+   outputs); the same at batch 4,096 with the lower corners of the first
+   all-pairs chunk as points;
 10. kNN engine: ``make_knn_bfs`` on that batch, k = 8 in the four cells
    static/adaptive × unfused/fused and k = 64 static unfused/fused, against
    the twin engine on the card (ids, distance bits, every counter) and the
@@ -65,7 +70,8 @@ Phases, each of which fails the run loudly:
 12. kNN-join kernels: phase 9 for B8 (``knn_join_level_dists_cuda``), B9
    (``knn_join_level_fused_cuda``) and B10 (``knn_join_leaf_fused_cuda``)
    with the first served batch of 64 query rects (half-extent 0.002); the
-   times also at batch 4,096 (the first all-pairs chunk);
+   times, B8's variant and its split also at batch 4,096 (the first
+   all-pairs chunk);
 13. kNN-join engine: phase 10 for ``make_knn_join_bfs`` against the
    reference's numbers for that batch (every k = 8 distance is 0);
 14. all-pairs kNN-join: ``knn_join`` of the 200,000 probe rects of phase 6
@@ -86,7 +92,8 @@ Phases, each of which fails the run loudly:
    against their twins, exact, on frontiers of a real D3 descent (columns
    shuffled, 10% of slots -1), plus a B12 cap that overflows; device,
    per-call and twin times beside the bound at batch 64 on the widest D3
-   step (level 1) and at batch 4,096, B12's also by kernel;
+   step (level 1) and at batch 4,096, B12's also by kernel, B13's and
+   B14's variant and split as B5's;
 18. D3 engines: ``make_select_bfs(layout="d3")`` static/adaptive ×
    unfused/fused and ``make_knn_bfs`` / ``make_knn_join_bfs(layout="d3")``
    k in {8, 64} static/adaptive against the twin engine on the card (ids,
@@ -328,6 +335,52 @@ def in_source(cu: str, kernels):
     return [k for k in kernels
             if (k[0] == "Memset" and "cudaMemsetAsync" in text)
             or (k[0] != "Memset" and f"{k[0]}(" in text)]
+
+
+def score_variant(fn, kernel) -> str:
+    """Which variant of the score kernel (B5, B8, B13, B14) one call of
+    ``fn`` ran, read from the demangled names the profiler records for the
+    ``device_split`` entry ``kernel``: "vector" (4 lanes a thread),
+    "scalar-lane", or "lane per thread" (the one-thread-a-lane design that
+    took no lane count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a profiled run now and then sees nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and all(n in e.name for n in kernel)}
+        if names:
+            break
+    check(len(names) == 1, f"{kernel}: profiled {sorted(names)}")
+    name = names.pop()
+    return "vector" if ", 4>" in name else "scalar-lane" \
+        if ", 1>" in name else "lane per thread"
+
+
+def score_split(torch, ids, row_bytes: int, outs) -> str:
+    """Where a score kernel's bytes go (B5, B8, B13, B14 on frontier
+    ``ids``, outputs ``outs``): live slots, distinct live nodes, output
+    bytes, node-row bytes (``row_bytes`` a node) read once per live slot
+    against once per distinct node, and the fill floor: the device time of
+    ``torch.empty_like(o).fill_(3.0e38)`` for every output, a PyTorch write
+    of the same bytes."""
+    live = ids[ids >= 0]
+    uniq = int(torch.unique(live).numel())
+    out_bytes = sum(o.numel() * o.element_size() for o in outs)
+    fill = device_ms(lambda: [torch.empty_like(o).fill_(3.0e38)
+                              for o in outs], (len(outs),), iters=50)
+    check(fill is not None, "fill floor: the profiler saw no launch")
+    return (f"{live.numel()} of {ids.numel()} slots live, {uniq} distinct "
+            f"nodes; output {out_bytes} bytes; rows {live.numel() * row_bytes}"
+            f" bytes read per live slot, {uniq * row_bytes} per distinct node "
+            f"({live.numel() / max(uniq, 1):.2f}x); fill floor {fill:.4f} ms")
 
 
 def kernel_times(kfn, tfn, kernels, iters: int = 20, twin_iters: int = 5):
@@ -863,8 +916,8 @@ def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
     pad = torch.full((b,), 3.0e38, dtype=torch.float32, device=tree.device)
     (kd, kl, kf), (td, tl, tf) = op["kernels"], op["twins"]
     q = op["functor"]
-    stages = (
-        (0, ("knn_dists_kernel", q, "true>"),
+    stages = (                  # "Level, true": both designs' leaf variant
+        (0, ("knn_dists_kernel", q, "Level, true"),
          lambda ids: kd(ids, queries, *rows[0], leaf=True),
          lambda ids: td(ids, queries, *rows[0], leaf=True)),
         (1, ("knn_emit_kernel", q, "false>"),
@@ -896,12 +949,17 @@ def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
                                              iters=50)
         bound_ms, bound_by = bound(nbytes, ops_)
         name = op["names"][i]
+        variant = f", {score_variant(lambda: kfn(ids), kernel)} variant" \
+            if i == 0 else ""
         print(f"  {op['labels'][i]} {name}: k={KNN_K} level {li} (B={b}, "
               f"C={c_}, F={f_}, {live.numel()} live slots, {uniq} distinct "
-              f"nodes): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
-              f"per call with the wrapper), twin {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s, {ops_} ops "
-              f"at 67 TFLOP/s)", flush=True)
+              f"nodes): kernel {ms:.4f} ms on the device{variant} "
+              f"({call_ms:.4f} ms per call with the wrapper), twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes "
+              f"at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)", flush=True)
+        if i == 0:
+            print("    " + score_split(torch, ids, 20 * f_, [
+                o for o in kfn(ids) if o is not None]), flush=True)
         out.append(dict(name=name, route="cuda",
                         source="src/repro_torch/kernels/csrc/rtree_knn.cu",
                         replaces=op["lines"][i], ms=ms, plain_ms=plain_ms,
@@ -1366,19 +1424,28 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
                     4 * b_ * caps_sel[h - 2] + 4 * b_
                 ops_ = n_lanes * (6 + D3_DEQUANT_OPS)
             cap = caps_sel[h - 2]
+
+            def kfn():
+                return call(sp, sp[2], ids, q, 1, cap)
+
             ms, call_ms, plain_ms = kernel_times(
-                lambda: call(sp, sp[2], ids, q, 1, cap),
-                lambda: call(sp, sp[3], ids, q, 1, cap), sp[7], iters=50)
+                kfn, lambda: call(sp, sp[3], ids, q, 1, cap), sp[7],
+                iters=50)
             bound_ms, bound_by = bound(nbytes, ops_)
+            variant = f", {score_variant(kfn, sp[7][0])} variant" \
+                if sp[4] else ""
             print(f"  {sp[1]} {sp[0]}: {tag}, level 1 (B={b_}, C={c_}, "
                   f"F={f_}, {live.numel()} live slots, {uniq} distinct "
-                  f"nodes): kernel {ms:.4f} ms on the device ({call_ms:.4f} "
-                  f"ms per call with the wrapper), twin {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s, "
-                  f"{ops_} ops at 67 TFLOP/s)", flush=True)
+                  f"nodes): kernel {ms:.4f} ms on the device{variant} "
+                  f"({call_ms:.4f} ms per call with the wrapper), twin "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} "
+                  f"bytes at 3.35 TB/s, {ops_} ops at 67 TFLOP/s)",
+                  flush=True)
+            if sp[4]:
+                print("    " + score_split(torch, ids, 8 * f_ + 24,
+                                           list(kfn())), flush=True)
             if len(sp[7]) > 1:
-                split = device_split(lambda: call(sp, sp[2], ids, q, 1, cap),
-                                     *sp[7], iters=50)
+                split = device_split(kfn, *sp[7], iters=50)
                 check(split is not None, f"{sp[1]}: no launch profiled")
                 print(f"    by kernel: " + ", ".join(
                     f"{k[0]} {t:.4f}" for k, t in zip(sp[7], split)),
@@ -1618,9 +1685,18 @@ def main() -> None:
           f"{knn_vector.knn_frontier_caps(tree, 1)}, k=8 "
           f"{knn_vector.knn_frontier_caps(tree, 8)}, k=64 "
           f"{knn_vector.knn_frontier_caps(tree, 64)}", flush=True)
-    knn_kernels, _ = phase_distance_kernels(torch, tree, points, dops["knn"],
-                                            knn_vector, SEED + 13)
+    knn_kernels, caps8 = phase_distance_kernels(
+        torch, tree, points, dops["knn"], knn_vector, SEED + 13)
     kernels += knn_kernels
+    big_pts = torch.from_numpy(probes[:ALL_PAIRS_BATCH, :2].copy()).to(dev)
+    print(f"  at batch {ALL_PAIRS_BATCH} (the lower corners of the first "
+          f"all-pairs chunk as points), k = {KNN_K} static descent:",
+          flush=True)
+    distance_kernel_times(
+        torch, tree, big_pts, knn_frontiers(torch, tree, big_pts, KNN_K,
+                                            caps8, ref.knn_level_fused_ref),
+        dops["knn"], caps8, dict.fromkeys(dops["knn"]["names"], 0))
+    del big_pts
 
     print("[10] kNN engine", flush=True)
     data = serve.make_rects(N_RECTS, SEED)

@@ -22,11 +22,30 @@
 // B5  rtree_knn_dists — replaces the Pallas kernel
 //     src/repro/kernels/rtree_knn.py:knn_level_dists (line 105; bodies
 //     _knn_kernel line 68, _knn_leaf_kernel line 91).  Dense (B, C, F)
-//     float32 MINDIST and (not at the leaf) MINMAXDIST.  One thread per
-//     output lane, neighbouring threads on neighbouring lanes of a node
-//     row, so the row reads and the stores coalesce.
+//     float32 MINDIST and (not at the leaf) MINMAXDIST.
 //     Bound on the card: memory — the outputs (4 or 8 bytes a lane), the
-//     ids, and 20*F bytes of rows per distinct live node.
+//     ids, and 20*F bytes of rows per distinct live node.  About 90% of a
+//     served frontier's slots are padding (-1), and at batch 4,096 the
+//     output stream is 2.7x the L2 cache, so the design spends nothing on
+//     a dead slot and writes the outputs as a stream:
+//       - the work unit is a frontier slot (b, c): a group of F/4 threads
+//         owns it, each thread 4 neighbouring lanes, so a slot's id (and,
+//         when it is live, its query row) is read once per thread for 4
+//         lanes, in one transaction per warp;
+//       - a dead slot (id < 0) reads no row and writes DIST_PAD to its F
+//         lanes; a live slot issues its child and its lx/ly/hx/hy loads
+//         together (16 bytes each) and selects DIST_PAD by the child's
+//         sign afterwards, so there is no child -> row round trip;
+//       - a persistent grid, as many blocks as fit on the card, strides
+//         over the slots and loads the next slot's id (kSlotBatch ids)
+//         before it works on this one, so that load overlaps this slot's
+//         loads and stores;
+//       - outputs are written with 16-byte streaming stores (evict-first),
+//         so they pass through L2 without evicting the node rows that
+//         later slots read again.
+//     The vector variant (kLanes 4) needs F % 4 == 0 and 16-byte aligned
+//     rows and outputs; otherwise the same kernel runs with one lane a
+//     thread (kLanes 1, the scalar-lane variant).  launch_dists chooses.
 //
 // B6  rtree_knn_level_fused — replaces
 //     src/repro/kernels/rtree_knn.py:knn_level_fused (line 454, through
@@ -85,9 +104,12 @@
 //     _knn_d3_kernel line 167).  B5's body (knn_dists_kernel) on a D3
 //     level (LevelD3): each lane dequantizes its box from the packed
 //     uint16 codes, bias + code * scale, exact as in rtree_select.cu's
-//     B11.  MINDIST is the functor's form (a lower bound on the true box).
-//     MINMAXDIST takes the form of the reference's D3 trace, which folds
-//     the other product of the first term:
+//     B11.  A thread reads its slot's node scale, bias and slack once (8
+//     bytes each) for its lanes, and four lanes' codes in one 8-byte load
+//     per array; the vector variant also needs 8-byte aligned codes and
+//     node columns.  MINDIST is the functor's form (a lower bound on the
+//     true box).  MINMAXDIST takes the form of the reference's D3 trace,
+//     which folds the other product of the first term:
 //         point  min(fma(dmx, dmx, dMy*dMy), fma(dmy, dmy, dMx*dMx))
 //         rect   min(fma(ngx, ngx, mgy*mgy), fma(ngy, ngy, mgx*mgx))
 //     and is then made an upper bound on the true box with the node's
@@ -124,7 +146,10 @@ constexpr float kDistValidMax = 1.0e37f;  // geometry.DIST_VALID_MAX
 constexpr float kSlackScale = 1.0f + 1.0f / 65536.0f;   // 1 + 2^-16, exact
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLaneThreads = 256;         // B5 threads per block
+constexpr int kDistThreads = 256;         // B5 / B8 / B13 / B14 per block
+// Slots whose ids a B5 / B8 / B13 / B14 thread loads together, one batch
+// ahead: 4 measured slower than 1 on the H100 (PERF.md, PR 17).
+constexpr int kSlotBatch = 1;
 constexpr int kRowThreads = 256;          // B6 / B7 threads per query row
 constexpr int kRowWarps = kRowThreads / kWarp;
 constexpr int kBins = 256;                // radix digits of one key byte
@@ -230,6 +255,68 @@ struct RectQuery {
   }
 };
 
+bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+// kLanes neighbouring values from p through the read-only path: for
+// kLanes 4 one 16-byte load (float, int) or one 8-byte load (uint16).
+template <int kLanes>
+__device__ __forceinline__ void load_lanes(const float* p,
+                                           float (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int kLanes>
+__device__ __forceinline__ void load_lanes(const int* p, int (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int kLanes>
+__device__ __forceinline__ void load_lanes(const uint16_t* p,
+                                           unsigned (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {            // little-endian: lane 0 is low
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = w.x & 0xFFFFu, v[1] = w.x >> 16;
+    v[2] = w.y & 0xFFFFu, v[3] = w.y >> 16;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// Node `node`'s two float32 columns of an (N, 2) array: one 8-byte load in
+// the vector variant, whose launch checked the alignment.
+template <int kLanes>
+__device__ __forceinline__ float2 load_node_pair(const float* p, int node) {
+  if constexpr (kLanes == 4) {
+    return __ldg(reinterpret_cast<const float2*>(p) + node);
+  } else {
+    return make_float2(__ldg(p + 2 * node), __ldg(p + 2 * node + 1));
+  }
+}
+
+// kLanes neighbouring outputs as a stream (evict-first): 16 bytes at once
+// for kLanes 4.
+template <int kLanes>
+__device__ __forceinline__ void store_lanes(float* p,
+                                            const float (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
 // One level's SoA rows and the frontier.
 struct Level {
   const int* ids;                         // (B, C) node ids, -1 pad
@@ -242,13 +329,33 @@ struct Level {
   int F;
   static constexpr bool kHasLeaf = true;
 
-  // MINDIST and (not at the leaf) MINMAXDIST of entry `off` of `node`.
-  template <class Q, bool kLeaf>
+  // Whether the rows take the vector variant (4 lanes a 16-byte load).
+  bool vector_ok() const {
+    return F % 4 == 0 && aligned(lx, 16) && aligned(ly, 16) &&
+           aligned(hx, 16) && aligned(hy, 16) && aligned(child, 16);
+  }
+
+  // MINDIST and (not at the leaf) MINMAXDIST of the kLanes entries of
+  // `node` from row offset `off`, DIST_PAD where the child is -1.  The
+  // child and the box loads are issued together.
+  template <class Q, bool kLeaf, int kLanes>
   __device__ __forceinline__ void dists(const Q& q, int node, int64_t off,
-                                        float* d, float* u) const {
-    const float x0 = lx[off], y0 = ly[off], x1 = hx[off], y1 = hy[off];
-    *d = q.mindist(x0, y0, x1, y1);
-    if (!kLeaf) *u = q.minmaxdist(x0, y0, x1, y1);
+                                        float (&d)[kLanes],
+                                        float (&u)[kLanes]) const {
+    int c[kLanes];
+    float x0[kLanes], y0[kLanes], x1[kLanes], y1[kLanes];
+    load_lanes<kLanes>(child + off, c);
+    load_lanes<kLanes>(lx + off, x0);
+    load_lanes<kLanes>(ly + off, y0);
+    load_lanes<kLanes>(hx + off, x1);
+    load_lanes<kLanes>(hy + off, y1);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      d[l] = c[l] >= 0 ? q.mindist(x0[l], y0[l], x1[l], y1[l]) : kDistPad;
+      if (!kLeaf)
+        u[l] = c[l] >= 0 ? q.minmaxdist(x0[l], y0[l], x1[l], y1[l])
+                         : kDistPad;
+    }
   }
 };
 
@@ -266,24 +373,44 @@ struct LevelD3 {
   int F;
   static constexpr bool kHasLeaf = false;
 
+  // Whether the rows take the vector variant (4 lanes' codes an 8-byte
+  // load, a node's columns an 8-byte load).
+  bool vector_ok() const {
+    return F % 4 == 0 && aligned(qlo, 8) && aligned(qhi, 8) &&
+           aligned(scale, 8) && aligned(bias, 8) && aligned(slack, 8) &&
+           aligned(child, 16);
+  }
+
   // MINDIST on the dequantized box, and its D3-form MINMAXDIST with the
-  // slack correction (B13); internal levels only, so kLeaf is false.
-  template <class Q, bool kLeaf>
+  // slack correction (B13), of the kLanes entries of `node` from row
+  // offset `off`, DIST_PAD where the child is -1; internal levels only,
+  // so kLeaf is false.
+  template <class Q, bool kLeaf, int kLanes>
   __device__ __forceinline__ void dists(const Q& q, int node, int64_t off,
-                                        float* d, float* u) const {
+                                        float (&d)[kLanes],
+                                        float (&u)[kLanes]) const {
     static_assert(!kLeaf, "D3 leaf rows are re-checked with B5 / B8");
-    const float sx = scale[2 * node], sy = scale[2 * node + 1];
-    const float bx = bias[2 * node], by = bias[2 * node + 1];
-    const unsigned lo = qlo[off], hi = qhi[off];
-    const float x0 = __fadd_rn(bx, __fmul_rn((float)(lo >> 8), sx));
-    const float y0 = __fadd_rn(by, __fmul_rn((float)(lo & 0xFFu), sy));
-    const float x1 = __fadd_rn(bx, __fmul_rn((float)(hi >> 8), sx));
-    const float y1 = __fadd_rn(by, __fmul_rn((float)(hi & 0xFFu), sy));
-    *d = q.mindist(x0, y0, x1, y1);
-    const float m = q.minmaxdist_d3(x0, y0, x1, y1);
-    const float disp = __fadd_rn(slack[2 * node], slack[2 * node + 1]);
-    const float up = __fadd_rn(__fsqrt_rn(fmaxf(m, 0.0f)), disp);
-    *u = __fmul_rn(__fmul_rn(up, up), kSlackScale);
+    int c[kLanes];
+    unsigned lo[kLanes], hi[kLanes];
+    load_lanes<kLanes>(child + off, c);
+    load_lanes<kLanes>(qlo + off, lo);
+    load_lanes<kLanes>(qhi + off, hi);
+    const float2 s = load_node_pair<kLanes>(scale, node);
+    const float2 b = load_node_pair<kLanes>(bias, node);
+    const float2 k = load_node_pair<kLanes>(slack, node);
+    const float disp = __fadd_rn(k.x, k.y);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      const float x0 = __fadd_rn(b.x, __fmul_rn((float)(lo[l] >> 8), s.x));
+      const float y0 = __fadd_rn(b.y, __fmul_rn((float)(lo[l] & 0xFFu), s.y));
+      const float x1 = __fadd_rn(b.x, __fmul_rn((float)(hi[l] >> 8), s.x));
+      const float y1 = __fadd_rn(b.y, __fmul_rn((float)(hi[l] & 0xFFu), s.y));
+      const float m = q.minmaxdist_d3(x0, y0, x1, y1);
+      const float up = __fadd_rn(__fsqrt_rn(fmaxf(m, 0.0f)), disp);
+      d[l] = c[l] >= 0 ? q.mindist(x0, y0, x1, y1) : kDistPad;
+      u[l] = c[l] >= 0 ? __fmul_rn(__fmul_rn(up, up), kSlackScale)
+                       : kDistPad;
+    }
   }
 };
 
@@ -438,26 +565,80 @@ int pow2_at_least(int n) {
   return p;
 }
 
-// B5 / B8 (L a Level) and B13 / B14 (L a LevelD3): one thread per lane.
-template <class Q, class L, bool kLeaf>
-__global__ void __launch_bounds__(kLaneThreads)
-knn_dists_kernel(L lv, const float* __restrict__ queries,
-                 float* __restrict__ md, float* __restrict__ mmd,
-                 int64_t total) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const int64_t bc = g / lv.F;
-  const int node = lv.ids[bc];
-  float d = kDistPad, u = kDistPad;
+// The ids of slots first, first + stride, ... (kSlotBatch of them), -1
+// past n_slots: independent loads, all in flight at once.
+__device__ __forceinline__ void load_slot_ids(const int* ids, unsigned first,
+                                              unsigned stride,
+                                              unsigned n_slots,
+                                              int (&node)[kSlotBatch]) {
+#pragma unroll
+  for (int k = 0; k < kSlotBatch; ++k) {
+    const unsigned s = first + k * stride;
+    node[k] = s < n_slots ? __ldg(ids + s) : -1;
+  }
+}
+
+// One slot's lanes first, first + step, ... (kLanes each) of the F.
+template <class Q, class L, bool kLeaf, int kLanes>
+__device__ __forceinline__ void score_slot(const L& lv, const float* queries,
+                                           float* md, float* mmd,
+                                           unsigned slot, int node, int first,
+                                           int step) {
+  float* const d_out = md + (int64_t)slot * lv.F;
+  float* const u_out = kLeaf ? nullptr : mmd + (int64_t)slot * lv.F;
+  float d[kLanes], u[kLanes];
   if (node >= 0) {
-    const int64_t off = (int64_t)node * lv.F + (g - bc * lv.F);
-    if (lv.child[off] >= 0) {
-      const Q q(queries + (bc / lv.C) * Q::kWidth);
-      lv.template dists<Q, kLeaf>(q, node, off, &d, &u);
+    const Q q(queries + (size_t)(slot / (unsigned)lv.C) * Q::kWidth);
+    const int64_t row = (int64_t)node * lv.F;
+    for (int j = first; j < lv.F; j += step) {
+      lv.template dists<Q, kLeaf, kLanes>(q, node, row + j, d, u);
+      store_lanes<kLanes>(d_out + j, d);
+      if (!kLeaf) store_lanes<kLanes>(u_out + j, u);
+    }
+  } else {                                // a dead slot reads no row
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) d[l] = kDistPad;
+    for (int j = first; j < lv.F; j += step) {
+      store_lanes<kLanes>(d_out + j, d);
+      if (!kLeaf) store_lanes<kLanes>(u_out + j, d);
     }
   }
-  md[g] = d;
-  if (!kLeaf) mmd[g] = u;
+}
+
+// B5 / B8 (L a Level) and B13 / B14 (L a LevelD3) over n_slots = B * C
+// frontier slots: a group of F / kLanes threads (at most a block) owns a
+// slot, each thread kLanes neighbouring lanes; the block's groups take
+// neighbouring slots and the persistent grid strides over the rest,
+// kSlotBatch slots a thread at a time, whose ids were loaded together
+// while the thread worked on the batch before.
+template <class Q, class L, bool kLeaf, int kLanes>
+__global__ void __launch_bounds__(kDistThreads)
+knn_dists_kernel(L lv, const float* __restrict__ queries,
+                 float* __restrict__ md, float* __restrict__ mmd,
+                 unsigned n_slots) {
+  const int units = lv.F / kLanes;        // a slot's units of kLanes lanes
+  const int group = units < kDistThreads ? units : kDistThreads;
+  const unsigned per_block = kDistThreads / group;
+  const unsigned g = threadIdx.x / group;
+  if (g >= per_block) return;             // the block's ragged tail
+  const int first = (threadIdx.x - g * group) * kLanes;
+  const unsigned stride = gridDim.x * per_block;
+  unsigned slot = blockIdx.x * per_block + g;
+  int node[kSlotBatch];
+  load_slot_ids(lv.ids, slot, stride, n_slots, node);
+  // slot + 2 * kSlotBatch * stride < 2^32: launch_dists checks n_slots
+  for (; slot < n_slots; slot += kSlotBatch * stride) {
+    int next[kSlotBatch];
+    load_slot_ids(lv.ids, slot + kSlotBatch * stride, stride, n_slots, next);
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) {
+      const unsigned s = slot + k * stride;
+      if (s < n_slots)
+        score_slot<Q, L, kLeaf, kLanes>(lv, queries, md, mmd, s, node[k],
+                                        first, group * kLanes);
+      node[k] = next[k];
+    }
+  }
 }
 
 // B6 / B9 (kLeaf false) and B7 / B10 (kLeaf true): one block per query row.
@@ -543,24 +724,64 @@ knn_emit_kernel(Level L, const float* __restrict__ queries,
   }
 }
 
-// B5 / B8 and B13 / B14: one thread per output lane.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
+
+// One variant of B5 / B8 / B13 / B14 on a persistent grid: as many blocks
+// as fit on the card at once, fewer when the slots need fewer.
+template <class Q, class L, bool kLeaf, int kLanes>
+int launch_dists_variant(const L& lv, const float* queries, float* md,
+                         float* mmd, unsigned n_slots, cudaStream_t st) {
+  auto kernel = knn_dists_kernel<Q, L, kLeaf, kLanes>;
+  static int per_sm = 0;                  // resident blocks an SM
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kDistThreads, 0);
+    if (per_sm <= 0) per_sm = 1;
+  }
+  const int units = lv.F / kLanes;
+  const unsigned per_block =
+      kDistThreads / (units < kDistThreads ? units : kDistThreads);
+  const unsigned need = (n_slots + per_block - 1) / per_block;
+  const unsigned full = (unsigned)(sm_count() * per_sm);
+  const unsigned blocks = need < full ? need : full;
+  kernel<<<blocks, kDistThreads, 0, st>>>(
+      lv, queries, md, mmd, n_slots);
+  return (int)cudaGetLastError();
+}
+
+// B5 / B8 and B13 / B14: the vector variant where F and the pointers
+// allow it, else the scalar-lane one.
 template <class Q, class L>
 int launch_dists(const L& lv, const float* queries, float* md, float* mmd,
                  int B, int leaf, cudaStream_t st) {
-  const int64_t total = (int64_t)B * lv.C * lv.F;
-  const unsigned blocks = (unsigned)((total + kLaneThreads - 1) / kLaneThreads);
+  const int64_t n_slots = (int64_t)B * lv.C;
+  if (n_slots >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  const bool vec = lv.vector_ok() && aligned(md, 16) &&
+                   (leaf || aligned(mmd, 16));
+  const unsigned n = (unsigned)n_slots;
   if (leaf) {
     if constexpr (L::kHasLeaf) {
-      knn_dists_kernel<Q, L, true><<<blocks, kLaneThreads, 0, st>>>(
-          lv, queries, md, nullptr, total);
+      return vec ? launch_dists_variant<Q, L, true, 4>(lv, queries, md,
+                                                       nullptr, n, st)
+                 : launch_dists_variant<Q, L, true, 1>(lv, queries, md,
+                                                       nullptr, n, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
-  } else {
-    knn_dists_kernel<Q, L, false><<<blocks, kLaneThreads, 0, st>>>(
-        lv, queries, md, mmd, total);
   }
-  return (int)cudaGetLastError();
+  return vec ? launch_dists_variant<Q, L, false, 4>(lv, queries, md, mmd, n,
+                                                    st)
+             : launch_dists_variant<Q, L, false, 1>(lv, queries, md, mmd, n,
+                                                    st);
 }
 
 // B6 / B9 and B7 / B10: one block per query row.

@@ -438,6 +438,87 @@ def test_cuda_knn_join_kernels_equal_twins(knn_join_inst, k):
             before["knn_join_leaf_fused"] + 1
 
 
+@pytest.fixture(scope="module")
+def dists_trees():
+    """fanout → (a tree of 20,000 rects on the card, its D3 levels), built
+    at first use."""
+    cache = {}
+
+    def get(fanout, dev):
+        if fanout not in cache:
+            rects = uniform_rects(np.random.default_rng(fanout), 20000,
+                                  eps=0.002)
+            tree = rtree.build_rtree(rects, fanout=fanout, device=dev)
+            cache[fanout] = tree, layouts.tree_layout(tree, "d3")
+        return cache[fanout]
+    return get
+
+
+def _offset_copy(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past an
+    allocation's (aligned) start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier", ["dead", "live", "random", "offset"])
+@pytest.mark.parametrize("level", ["d1", "d1-leaf", "d3"])
+@pytest.mark.parametrize("query", ["point", "rect"])
+@pytest.mark.parametrize("fanout", [13, 16, 48, 64])
+def test_cuda_dists_seams_equal_twins(dists_trees, fanout, query, level,
+                                      frontier):
+    """B5 / B8 (D1, leaf or not) and B13 / B14 (D3) ≡ their twins, bit for
+    bit, on frontiers of B = 333 rows by C = 257 slots (more slots than one
+    pass of the persistent grid, and no multiple of it) at the seams of
+    the slot walk: every slot dead, every slot live, 10% of the slots -1,
+    and 10% -1 with lx (D1) or scale (D3) a contiguous view 4 bytes past
+    an aligned address.  That view, and fanout 13, take the scalar-lane
+    variant; the rest the vector one."""
+    dev = _need_gpu()
+    tree, d3 = dists_trees(fanout, dev)
+    rng = np.random.default_rng(fanout)
+    b, c = 333, 257
+    if level == "d3":
+        rows = [getattr(d3[1], f) for f in ("qlo", "qhi", "scale", "bias",
+                                            "slack", "ptr")]
+        swap, kw = 2, {}
+    else:
+        rows = [getattr(tree.levels[0], f) for f in ROWS]
+        swap, kw = 0, dict(leaf=level == "d1-leaf")
+    if frontier == "offset":
+        rows[swap] = _offset_copy(rows[swap])
+    ids = rng.integers(0, rows[0].shape[0], (b, c)).astype(np.int32)
+    if frontier == "dead":
+        ids[:] = -1
+    elif frontier != "live":
+        ids[rng.random(ids.shape) < 0.1] = -1
+    ids = torch.from_numpy(ids).to(dev)
+    q = (rng.random((b, 2)) * 1.4 - 0.2).astype(np.float32)
+    if query == "rect":
+        q = np.concatenate([q - np.float32(0.01), q + np.float32(0.01)], 1)
+    q = torch.from_numpy(q).to(dev)
+    mod, name = (kkern, "knn_level_dists") if query == "point" else \
+        (kjkern, "knn_join_level_dists")
+    if level == "d3":
+        name += "_d3"
+    fn = getattr(mod, f"{name}_cuda")
+    twin = getattr(ref, f"{name}_ref")
+    before = mod.launch_counts()[name]
+    got, want = fn(ids, q, *rows, **kw), twin(ids, q, *rows, **kw)
+    torch.cuda.synchronize()
+    assert mod.launch_counts()[name] == before + 1
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            _bits_equal(g, w)
+    assert bool((want[0] < 1e37).any()) == (frontier != "dead")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("caps_mode", ["static", "adaptive"])

@@ -151,12 +151,42 @@ def test_numpy_oracles_equal_reference(inst):
             np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("leaf", [False, True])
-@pytest.mark.parametrize("li", [0, 1, 2])
-def test_level_dists_twin_equals_pallas(inst, li, leaf):
-    _, jtree, ttree, pts = inst
+@pytest.fixture(scope="module")
+def inst13(inst):
+    """3,000 small rects at fanout 13 (F no multiple of 4) in both
+    packages, and the 64 query points of ``inst``."""
+    rects = uniform_rects(np.random.default_rng(13), 3000, eps=0.001)
+    return (rects, jrtree.build_rtree(rects, fanout=13),
+            trtree.build_rtree(rects, fanout=13, device="cpu"), inst[3])
+
+
+def _seam_frontier(rng, n_nodes, frontier, c=24):
+    """A (64, c) frontier at a seam of the CUDA score kernel's slot walk:
+    every slot -1 ("dead"), every slot live ("live"), one slot a row
+    ("single"), else random with 20% of the slots -1."""
+    ids = _frontier(rng, n_nodes, c=1 if frontier == "single" else c,
+                    pad=0.0 if frontier in ("live", "single") else 0.2)
+    if frontier == "dead":
+        ids[:] = -1
+    return ids
+
+
+# (li, leaf, frontier): random frontiers on three levels, then the seams of
+# the CUDA kernel at the leaf level: all slots dead, all live, C = 1, and
+# a fanout-13 tree (its scalar-lane variant)
+DISTS_CASES = [pytest.param(li, leaf, "random", id=f"{li}-{leaf}")
+               for li in (0, 1, 2) for leaf in (False, True)] + \
+    [pytest.param(0, leaf, frontier, id=f"{frontier}-{leaf}")
+     for frontier in ("dead", "live", "single", "fanout13")
+     for leaf in (False, True)]
+
+
+@pytest.mark.parametrize("li,leaf,frontier", DISTS_CASES)
+def test_level_dists_twin_equals_pallas(request, li, leaf, frontier):
+    _, jtree, ttree, pts = request.getfixturevalue(
+        "inst13" if frontier == "fanout13" else "inst")
     rng = np.random.default_rng(10 * li + leaf)
-    ids = _frontier(rng, ttree.levels[li].n_nodes)
+    ids = _seam_frontier(rng, ttree.levels[li].n_nodes, frontier)
     want = jkern.knn_level_dists(jnp.asarray(ids), jnp.asarray(pts),
                                  *_level_args(jtree, li, False), leaf=leaf,
                                  interpret=True)
@@ -166,6 +196,9 @@ def test_level_dists_twin_equals_pallas(inst, li, leaf):
     _assert_same(got[0], want[0], "mindist")
     if not leaf:
         _assert_same(got[1], want[1], "minmaxdist")
+    valid = got[0] < float(tgeometry.DIST_VALID_MAX)
+    assert bool(valid.any()) == (frontier != "dead")
+    assert got[0].shape[2] == (13 if frontier == "fanout13" else 16)
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])

@@ -191,13 +191,48 @@ def test_numpy_oracles_equal_reference(inst):
         tgeometry.minmaxdist_rect_np(*args), rtol=1e-4, atol=1e-9)
 
 
-@pytest.mark.parametrize("leaf", [False, True])
-def test_level_dists_twin_equals_pallas(inst, leaf):
+@pytest.fixture(scope="module")
+def inst13(inst):
+    """3,000 small rects at fanout 13 (F no multiple of 4) in both
+    packages, and the 64 query rects of ``inst``."""
+    rects = uniform_rects(np.random.default_rng(13), 3000, eps=0.001)
+    return (rects, jrtree.build_rtree(rects, fanout=13),
+            trtree.build_rtree(rects, fanout=13, device="cpu"), inst[3])
+
+
+def _seam_frontier(rng, n_nodes, frontier, b=16, c=24):
+    """A (b, c) leaf frontier at a seam of the CUDA score kernel's slot
+    walk: every slot -1 ("dead"), every slot live ("live"), one slot a row
+    ("single"), else random with 20% of the slots -1."""
+    ids = rng.integers(0, n_nodes, (b, 1 if frontier == "single" else c))
+    if frontier == "dead":
+        ids[:] = -1
+    elif frontier == "fanout13":
+        ids[rng.random(ids.shape) < 0.2] = -1
+    return ids.astype(np.int32)
+
+
+# (leaf, frontier): every level of a real descent, then the seams of the
+# CUDA kernel at the leaf level: all slots dead, all live, C = 1, and a
+# fanout-13 tree (its scalar-lane variant)
+DISTS_CASES = [pytest.param(leaf, "descent", id=f"{leaf}")
+               for leaf in (False, True)] + \
+    [pytest.param(leaf, frontier, id=f"{frontier}-{leaf}")
+     for frontier in ("dead", "live", "single", "fanout13")
+     for leaf in (False, True)]
+
+
+@pytest.mark.parametrize("leaf,frontier", DISTS_CASES)
+def test_level_dists_twin_equals_pallas(request, leaf, frontier):
     """The B8 twin ≡ the Pallas kernel (interpret mode) on every level of
-    a real descent."""
-    _, jtree, ttree, q = inst
-    fronts = _real_frontiers(ttree, q[:16], 8, 32,
-                             np.random.default_rng(20 + leaf))
+    a real descent, and on leaf frontiers at the CUDA kernel's seams."""
+    _, jtree, ttree, q = request.getfixturevalue(
+        "inst13" if frontier == "fanout13" else "inst")
+    rng = np.random.default_rng(20 + leaf)
+    if frontier == "descent":
+        fronts = _real_frontiers(ttree, q[:16], 8, 32, rng)
+    else:
+        fronts = {0: _seam_frontier(rng, ttree.levels[0].n_nodes, frontier)}
     for li, ids in fronts.items():
         want = jkern.knn_join_level_dists(
             jnp.asarray(ids), jnp.asarray(q[:16]),
@@ -208,6 +243,9 @@ def test_level_dists_twin_equals_pallas(inst, leaf):
         _assert_same(got[0], want[0], f"level {li} mindist")
         if not leaf:
             _assert_same(got[1], want[1], f"level {li} minmaxdist")
+        valid = got[0] < float(tgeometry.DIST_VALID_MAX)
+        assert bool(valid.any()) == (frontier != "dead")
+        assert got[0].shape[2] == (13 if frontier == "fanout13" else 16)
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])
