@@ -56,8 +56,11 @@ Phases, each of which fails the run loudly:
    profiled kernel name) and where its bytes go (``score_split``: live
    slots, distinct nodes, output bytes, row bytes per live slot against
    per distinct node, and the fill floor, PyTorch's fill of the same
-   outputs); the same at batch 4,096 with the lower corners of the first
-   all-pairs chunk as points;
+   outputs); B6's and B7's variant and split (``emit_split``: live slots
+   and lanes a row, the staging a block gets and the rows staged whole or
+   walked in segments; B6 also with tightening off and the τ it found as
+   τ_in, so the difference is τ's select); the same at batch 4,096 with
+   the lower corners of the first all-pairs chunk as points;
 10. kNN engine: ``make_knn_bfs`` on that batch, k = 8 in the four cells
    static/adaptive × unfused/fused and k = 64 static unfused/fused, against
    the twin engine on the card (ids, distance bits, every counter) and the
@@ -70,8 +73,8 @@ Phases, each of which fails the run loudly:
 12. kNN-join kernels: phase 9 for B8 (``knn_join_level_dists_cuda``), B9
    (``knn_join_level_fused_cuda``) and B10 (``knn_join_leaf_fused_cuda``)
    with the first served batch of 64 query rects (half-extent 0.002); the
-   times, B8's variant and its split also at batch 4,096 (the first
-   all-pairs chunk);
+   times, variants and splits also at batch 4,096 (the first all-pairs
+   chunk);
 13. kNN-join engine: phase 10 for ``make_knn_join_bfs`` against the
    reference's numbers for that batch (every k = 8 distance is 0);
 14. all-pairs kNN-join: ``knn_join`` of the 200,000 probe rects of phase 6
@@ -92,8 +95,9 @@ Phases, each of which fails the run loudly:
    against their twins, exact, on frontiers of a real D3 descent (columns
    shuffled, 10% of slots -1), plus a B12 cap that overflows; device,
    per-call and twin times beside the bound at batch 64 on the widest D3
-   step (level 1) and at batch 4,096, B12's also by kernel, B13's and
-   B14's variant and split as B5's;
+   step (level 1) and at batch 4,096, B12's also by kernel, B11's, B13's
+   and B14's variant, B13's and B14's split as B5's, and B11's fill floor
+   (PyTorch's ``zero_`` of its mask);
 18. D3 engines: ``make_select_bfs(layout="d3")`` static/adaptive ×
    unfused/fused and ``make_knn_bfs`` / ``make_knn_join_bfs(layout="d3")``
    k in {8, 64} static/adaptive against the twin engine on the card (ids,
@@ -338,11 +342,12 @@ def in_source(cu: str, kernels):
 
 
 def score_variant(fn, kernel) -> str:
-    """Which variant of the score kernel (B5, B8, B13, B14) one call of
-    ``fn`` ran, read from the demangled names the profiler records for the
-    ``device_split`` entry ``kernel``: "vector" (4 lanes a thread),
-    "scalar-lane", or "lane per thread" (the one-thread-a-lane design that
-    took no lane count)."""
+    """Which variant of a kernel with a lane count (the score kernels B5,
+    B8, B13, B14, the emit kernels B6, B7, B9, B10 and the D3 mask kernel
+    B11) one call of ``fn`` ran, read from the demangled names the profiler
+    records for the ``device_split`` entry ``kernel``: "vector" (4 lanes a
+    thread), "scalar-lane", or "lane per thread" (an older design that took
+    no lane count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -360,8 +365,8 @@ def score_variant(fn, kernel) -> str:
             break
     check(len(names) == 1, f"{kernel}: profiled {sorted(names)}")
     name = names.pop()
-    return "vector" if ", 4>" in name else "scalar-lane" \
-        if ", 1>" in name else "lane per thread"
+    return "vector" if "4>(" in name else "scalar-lane" \
+        if "1>(" in name else "lane per thread"
 
 
 def score_split(torch, ids, row_bytes: int, outs) -> str:
@@ -381,6 +386,31 @@ def score_split(torch, ids, row_bytes: int, outs) -> str:
             f"nodes; output {out_bytes} bytes; rows {live.numel() * row_bytes}"
             f" bytes read per live slot, {uniq * row_bytes} per distinct node "
             f"({live.numel() / max(uniq, 1):.2f}x); fill floor {fill:.4f} ms")
+
+
+def emit_split(torch, ids, f: int, *, leaf: bool, cap: int) -> str:
+    """What an emit kernel (B6, B7, B9, B10) walks on frontier ``ids``:
+    live slots and lanes a row and, where the source stages the scores in
+    shared memory (``rtree_knn_emit_stage_slots``), the staging a block
+    gets, its bytes of shared memory, and how many rows fit it whole
+    (staged) or are walked in segments (tiled)."""
+    from repro_torch.kernels import _build
+    b, c = ids.shape
+    live = (ids >= 0).sum(dim=1)
+    most, mean = int(live.max()), float(live.float().mean())
+    text = (f"{int(live.sum())} of {ids.numel()} slots live ({mean:.2f} a "
+            f"row, at most {most}); {mean * f:.1f} live lanes a row (at "
+            f"most {most * f})")
+    if not in_source("rtree_knn.cu", [("rtree_knn_emit_stage_slots",)]):
+        return text + "; stages nothing (recomputes every pass)"
+    slots = _build.layout("rtree_knn", "rtree_knn_emit_stage_slots", c, f,
+                          int(leaf))
+    smem = _build.layout("rtree_knn", "rtree_knn_emit_smem", c, f, cap,
+                         int(leaf))
+    tiled = int((live > slots).sum())
+    return (text + f"; staging {slots} slots ({slots * f * (4 if leaf else 8)}"
+            f" bytes), {smem} bytes of shared memory a block; {b - tiled} "
+            f"rows staged, {tiled} tiled")
 
 
 def kernel_times(kfn, tfn, kernels, iters: int = 20, twin_iters: int = 5):
@@ -420,7 +450,10 @@ def profile_batches(fn, iters: int = 3, top: int = 6) -> str:
     if not busy:
         return "profiler recorded no device time"
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    parts = ", ".join(f"{n[:48]} {t / iters / 1e3:.3f}" for n, t in ranked)
+    short = [n.replace("void ", "").replace("(anonymous namespace)::", "")
+             for n, _ in ranked]
+    parts = ", ".join(f"{n[:48]} {t / iters / 1e3:.3f}"
+                      for n, (_, t) in zip(short, ranked))
     return (f"device busy {busy / wall_us:.1%} of {wall_us / iters / 1e3:.3f}"
             f" ms per batch; device ms per batch by kernel: {parts}")
 
@@ -916,16 +949,20 @@ def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
     pad = torch.full((b,), 3.0e38, dtype=torch.float32, device=tree.device)
     (kd, kl, kf), (td, tl, tf) = op["kernels"], op["twins"]
     q = op["functor"]
-    stages = (                  # "Level, true": both designs' leaf variant
+    # "Level, true": both designs' score leaf variant; ", false" / ", true":
+    # the emit kernel's kLeaf, with (this design) or without (the older
+    # one) a lane count after it
+    stages = (
         (0, ("knn_dists_kernel", q, "Level, true"),
          lambda ids: kd(ids, queries, *rows[0], leaf=True),
          lambda ids: td(ids, queries, *rows[0], leaf=True)),
-        (1, ("knn_emit_kernel", q, "false>"),
-         lambda ids: kl(ids, queries, *rows[1], pad, cap=caps[-1], k=KNN_K,
-                        tighten=True),
+        (1, ("knn_emit_kernel", q, ", false"),
+         lambda ids, tighten=True, tau=pad: kl(ids, queries, *rows[1], tau,
+                                               cap=caps[-1], k=KNN_K,
+                                               tighten=tighten),
          lambda ids: tl(ids, queries, *rows[1], pad, cap=caps[-1], k=KNN_K,
                         tighten=True)),
-        (0, ("knn_emit_kernel", q, "true>"),
+        (0, ("knn_emit_kernel", q, ", true"),
          lambda ids: kf(ids, queries, *rows[0], k=KNN_K),
          lambda ids: tf(ids, queries, *rows[0], k=KNN_K)))
     out = []
@@ -949,8 +986,7 @@ def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
                                              iters=50)
         bound_ms, bound_by = bound(nbytes, ops_)
         name = op["names"][i]
-        variant = f", {score_variant(lambda: kfn(ids), kernel)} variant" \
-            if i == 0 else ""
+        variant = f", {score_variant(lambda: kfn(ids), kernel)} variant"
         print(f"  {op['labels'][i]} {name}: k={KNN_K} level {li} (B={b}, "
               f"C={c_}, F={f_}, {live.numel()} live slots, {uniq} distinct "
               f"nodes): kernel {ms:.4f} ms on the device{variant} "
@@ -960,6 +996,19 @@ def distance_kernel_times(torch, tree, queries, descent, op, caps, err):
         if i == 0:
             print("    " + score_split(torch, ids, 20 * f_, [
                 o for o in kfn(ids) if o is not None]), flush=True)
+        else:
+            cap = caps[-1] if i == 1 else KNN_K
+            split = emit_split(torch, ids, f_, leaf=i == 2, cap=cap)
+            if i == 1:
+                # off: tau_in is the tau that tightening found, so the
+                # same lanes are kept and only tau's select is left out
+                tau = kfn(ids)[1]
+                off = device_ms(lambda: kfn(ids, tighten=False, tau=tau),
+                                kernel, iters=50)
+                check(off is not None, "tighten off: no launch profiled")
+                split += (f"; tighten on {ms:.4f} ms, off {off:.4f} ms "
+                          f"(tau's select {ms - off:.4f} ms)")
+            print("    " + split, flush=True)
         out.append(dict(name=name, route="cuda",
                         source="src/repro_torch/kernels/csrc/rtree_knn.cu",
                         replaces=op["lines"][i], ms=ms, plain_ms=plain_ms,
@@ -1334,7 +1383,9 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
     specs = (      # name, label, wrapper, twin, dist rows?, descent index
         ("select_level_masks_d3", "B11", kern.select_level_masks_d3_cuda,
          ref.select_level_masks_d3_ref, False, 0, f"{sel_src}:213",
-         [("select_masks_kernel", "D3Rows")], "rtree_select.cu"),
+         # both designs: select_masks_d3_kernel and the older
+         # select_masks_kernel<D3Rows>
+         [("select_masks", "D3Rows")], "rtree_select.cu"),
         ("select_level_fused_d3", "B12", kern.select_level_fused_d3_cuda,
          ref.select_level_fused_d3_ref, False, 0, f"{sel_src}:256",
          in_source("rtree_select.cu", [
@@ -1433,7 +1484,7 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
                 iters=50)
             bound_ms, bound_by = bound(nbytes, ops_)
             variant = f", {score_variant(kfn, sp[7][0])} variant" \
-                if sp[4] else ""
+                if sp[1] != "B12" else ""
             print(f"  {sp[1]} {sp[0]}: {tag}, level 1 (B={b_}, C={c_}, "
                   f"F={f_}, {live.numel()} live slots, {uniq} distinct "
                   f"nodes): kernel {ms:.4f} ms on the device{variant} "
@@ -1444,6 +1495,15 @@ def phase_d3_kernels(torch, tree, layers, queries, points, qrects, big,
             if sp[4]:
                 print("    " + score_split(torch, ids, 8 * f_ + 24,
                                            list(kfn())), flush=True)
+            if sp[1] == "B11":
+                mask = kfn()
+                fill = device_ms(lambda: torch.empty_like(mask).zero_(),
+                                 (1,), iters=50)
+                check(fill is not None, "B11 fill floor: no launch profiled")
+                print(f"    fill floor {fill:.4f} ms (PyTorch's zero_ of the "
+                      f"{mask.numel() * 4} mask bytes); "
+                      f"{live.numel() / max(uniq, 1):.2f} live slots a "
+                      f"distinct node", flush=True)
             if len(sp[7]) > 1:
                 split = device_split(kfn, *sp[7], iters=50)
                 check(split is not None, f"{sp[1]}: no launch profiled")

@@ -63,21 +63,41 @@
 //     plus the valid tally.
 //
 //     The TPU kernels merge a running top-k in VMEM across a sequential
-//     grid of frontier chunks.  Here one block owns one query row and
-//     selects instead of merging.  Non-negative float32 distances order
-//     as their uint32 bits, so key = bits(d) << 32 | lane is unique and
-//     orders exactly as the reference's stable top-k.  A radix select (a
-//     256-bin shared-memory histogram per key byte, most significant
-//     first) finds the k-th MINMAXDIST value and, on overflow, the cap-th
-//     kept key; an ordered block-wide compaction (ballot/popc and a scan
-//     of the warp totals, no atomics) gathers the <= cap surviving keys in
-//     shared memory, and a bitonic sort orders them.  Distances are
-//     recomputed in every pass rather than staged, so any C*F fits; only
-//     the survivors' keys live in shared memory (8 bytes each, up to
-//     kMaxCap).
+//     grid of frontier chunks.  Here one block of kRowThreads threads owns
+//     one query row and selects instead of merging.  Non-negative float32
+//     distances order as their uint32 bits, so key = bits(d) << 32 | lane
+//     is unique and orders exactly as the reference's stable top-k.
 //     Bound on the card: memory — the ids, the rows of the distinct live
-//     nodes, and the (B, cap) or (B, k) outputs.  At batch 64 the work is
-//     a few MB, so both kernels are launch- and latency-bound.
+//     nodes, and the (B, cap) or (B, k) outputs, a few MB at batch 64.  So
+//     both kernels are latency-bound: what costs is each pass over the
+//     row, and about 90% of a served row's C*F lanes are padding.  The
+//     design (knn_emit_kernel, one body for B6, B7, B9 and B10):
+//       - list the live slots once: coalesced id loads, a ballot and a
+//         scan; a dead slot is never touched again (its lanes are
+//         DIST_PAD: invalid, never kept, after every valid lane);
+//       - score once, into shared memory: a group of F/4 threads owns a
+//         live slot, each thread 4 lanes, whose child and box loads go out
+//         together (Level::dists, B5's), and stages each lane's MINDIST
+//         and (not at the leaf) MINMAXDIST; every later pass reads only
+//         the staging;
+//       - tau: a valid lane's MINMAXDIST is below DIST_VALID_MAX, so the
+//         k-th smallest over the C*F lanes is the k-th smallest staged one
+//         when k lanes are valid, else DIST_PAD: a radix select over the
+//         staged bits (a 256-bin histogram a key byte, 4 passes), each
+//         warp adding its lanes of one bin with one atomic;
+//       - tally, then on overflow (kept > cap) the same select of the
+//         cap-th kept 64-bit key; an ordered compaction with no atomics
+//         (each warp counts a contiguous run of staged lanes, one scan of
+//         the warp totals, each warp writes its survivors in lane order);
+//       - order the <= cap survivors: up to kRankSortMax by counting each
+//         key's rank (one thread a key, no barrier), more by a bitonic
+//         sort; write the child ids.
+//     The staging is sized on the host (emit_stage_slots): the whole row
+//     when its C*F lanes fit kStageBytes, else fewer slots.  A row whose
+//     live slots outnumber them is walked in segments, re-listed and
+//     re-scored in every pass (live lanes only).  The vector variant (4
+//     lanes a thread) needs F % 4 == 0 and 16-byte aligned rows;
+//     otherwise the same kernel runs with one lane a thread.
 //
 // B8  rtree_knn_join_dists — replaces
 //     src/repro/kernels/rtree_knn_join.py:knn_join_level_dists (line 87;
@@ -152,8 +172,17 @@ constexpr int kDistThreads = 256;         // B5 / B8 / B13 / B14 per block
 constexpr int kSlotBatch = 1;
 constexpr int kRowThreads = 256;          // B6 / B7 threads per query row
 constexpr int kRowWarps = kRowThreads / kWarp;
+// B6 / B7 blocks that an SM should hold at once: bounds the registers to
+// 42 a thread, as the staging (kStageBytes) bounds the shared memory.
+constexpr int kRowBlocks = 6;
 constexpr int kBins = 256;                // radix digits of one key byte
 constexpr int kMaxCap = 16384;            // survivors' keys: 128 KB
+// Shared memory a B6 / B7 block stages its row's scores in: 32 KB leaves
+// room for six blocks on an SM.
+constexpr int kStageBytes = 32 * 1024;
+// Survivors up to this many are ordered by counting ranks (one thread a
+// key), more by a bitonic sort.
+constexpr int kRankSortMax = kRowThreads;
 static_assert(kBins == 8 * kWarp, "one warp scans the bins, 8 per lane");
 static_assert(kRowWarps <= kWarp, "one warp scans the warp totals");
 
@@ -414,55 +443,38 @@ struct LevelD3 {
   }
 };
 
-// The lanes of one query row: validity, row offset and distances.
-template <class Q>
-struct Row {
-  const Level& L;
-  const int* ids;                         // this row's C frontier slots
-  Q q;
-
-  // Row offset of lane l's child entry, or -1 when the lane is invalid.
-  __device__ __forceinline__ int64_t offset(int l) const {
-    const int c = l / L.F;
-    const int node = ids[c];
-    if (node < 0) return -1;
-    const int64_t off = (int64_t)node * L.F + (l - c * L.F);
-    return L.child[off] >= 0 ? off : -1;
-  }
-
-  __device__ __forceinline__ float md(int l) const {
-    const int64_t off = offset(l);
-    return off < 0 ? kDistPad
-                   : q.mindist(L.lx[off], L.ly[off], L.hx[off], L.hy[off]);
-  }
-
-  __device__ __forceinline__ float mmd(int l) const {
-    const int64_t off = offset(l);
-    return off < 0 ? kDistPad
-                   : q.minmaxdist(L.lx[off], L.ly[off], L.hx[off], L.hy[off]);
-  }
-};
-
 __device__ __forceinline__ u64 make_key(float d, int l) {
   return ((u64)__float_as_uint(d) << 32) | (unsigned)l;
 }
 
-// Shared state of the block-level select and compaction.
+// Shared state of the block-level select, ranks and sums.
 struct Scratch {
   int hist[kBins];
   int warp_tot[kRowWarps];
   u64 prefix;
   int rank;
+  int next;
+  bool single;                            // one key has the prefix found
 };
 
-// The rank-th smallest (0-based) key among the lanes l < M for which
-// keyfn(l, &key) is true, found byte by byte from the most significant;
-// bytes below lo_byte come back 0 and bytes in [lane_bytes, 4) of the
-// lane field are 0 in every key, so their passes are skipped.  The caller
-// guarantees rank < the number of such lanes.  All threads must call.
-template <class KeyFn>
-__device__ u64 radix_select(KeyFn keyfn, int M, int rank, int lo_byte,
+// The rank-th smallest (0-based) key among the staged lanes i for which
+// keyfn(i, &key, with_lane) is true, found byte by byte from the most
+// significant; keyfn may leave the lane field (the low 4 bytes) 0 when
+// with_lane is false.  Bytes below lo_byte come back 0 and bytes in
+// [lane_bytes, 4) of the lane field are 0 in every key, so their passes
+// are skipped.  Once the distance bytes (7-4) are found, if one key alone
+// has them, the lane bytes come back all ones instead of being selected:
+// the result then bounds exactly the keys up to the rank-th from above,
+// all a compaction needs.  walk(visit) calls visit(n) once for each
+// segment of the row staged in shared memory (n staged lanes).  A warp
+// adds its lanes of one bin to the histogram with one atomic
+// (__match_any_sync), so lanes that share a digit, as most distances share
+// their exponent, do not queue on one bin.  The caller guarantees rank <
+// the number of such lanes.  All threads must call.
+template <class Walk, class KeyFn>
+__device__ u64 radix_select(Walk& walk, KeyFn keyfn, int rank, int lo_byte,
                             int lane_bytes, Scratch& s) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   u64 prefix = 0, mask = 0;
   for (int byte = 7; byte >= lo_byte; --byte) {
     const int shift = 8 * byte;
@@ -470,16 +482,22 @@ __device__ u64 radix_select(KeyFn keyfn, int M, int rank, int lo_byte,
       mask |= 0xFFull << shift;
       continue;
     }
-    for (int i = threadIdx.x; i < kBins; i += blockDim.x) s.hist[i] = 0;
+    for (int i = threadIdx.x; i < kBins; i += kRowThreads) s.hist[i] = 0;
     __syncthreads();
-    for (int l = threadIdx.x; l < M; l += blockDim.x) {
-      u64 key;
-      if (keyfn(l, &key) && (key & mask) == prefix)
-        atomicAdd(&s.hist[(key >> shift) & 0xFF], 1);
-    }
+    walk([&](int n) {
+      for (int j = warp * kWarp; j < n; j += kRowThreads) {  // warp-uniform
+        const int i = j + lane;
+        u64 key = 0;
+        const bool in = i < n && keyfn(i, &key, byte < 4) &&
+                        (key & mask) == prefix;
+        const int bin = in ? (int)((key >> shift) & 0xFF) : -1;
+        const unsigned peers = __match_any_sync(kFull, bin);
+        if (in && lane == __ffs(peers) - 1)
+          atomicAdd(&s.hist[bin], __popc(peers));
+      }
+    });
     __syncthreads();
-    if (threadIdx.x < kWarp) {
-      const int lane = threadIdx.x;
+    if (warp == 0) {
       int own = 0;
       for (int j = 0; j < 8; ++j) own += s.hist[8 * lane + j];
       int incl = own;
@@ -494,15 +512,31 @@ __device__ u64 radix_select(KeyFn keyfn, int M, int rank, int lo_byte,
         while (r >= s.hist[bin]) r -= s.hist[bin++];
         s.prefix = prefix | ((u64)bin << shift);
         s.rank = r;
+        s.single = s.hist[bin] == 1;
       }
     }
     __syncthreads();
+    // the next pass clears hist and rewrites prefix only after its own
+    // first barrier, which every thread reaches after these reads
     prefix = s.prefix;
     rank = s.rank;
     mask |= 0xFFull << shift;
-    __syncthreads();                      // s is rewritten by the next pass
+    if (byte == 4 && lo_byte < 4 && s.single)   // uniform
+      return prefix | 0xFFFFFFFFull;
   }
   return prefix;
+}
+
+// The block's sum of v, in every thread.  All threads must call.
+__device__ __forceinline__ int block_sum(int v, Scratch& s) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  for (int d = kWarp / 2; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  if (lane == 0) s.warp_tot[warp] = v;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < kRowWarps; ++w) total += s.warp_tot[w];
+  __syncthreads();                        // warp_tot is rewritten next call
+  return total;
 }
 
 // Exclusive rank of `flag` among the block's threads in thread order;
@@ -559,10 +593,37 @@ int lane_bytes_for(long long M) {
   return n;
 }
 
-int pow2_at_least(int n) {
+__host__ __device__ int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
+}
+
+__host__ __device__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Byte offsets in a B6 / B7 block's dynamic shared memory: the survivors'
+// keys (pow2_at_least(cap)), then the staged MINDIST and (not at the leaf)
+// MINMAXDIST of `slots` frontier slots' F lanes, then those slots' node
+// ids and slot indices.
+struct EmitSmem {
+  size_t keys, md, mmd, node, slot, total;
+  __host__ __device__ EmitSmem(int cap, int slots, int F, bool leaf) {
+    const size_t lanes = sizeof(float) * (size_t)slots * F;
+    keys = 0;
+    md = align16(sizeof(u64) * (size_t)pow2_at_least(cap > 0 ? cap : 1));
+    mmd = align16(md + lanes);
+    node = leaf ? mmd : align16(mmd + lanes);
+    slot = node + sizeof(int) * (size_t)slots;
+    total = slot + sizeof(int) * (size_t)slots;
+  }
+};
+
+// Frontier slots whose lanes a B6 / B7 block stages at once: the whole
+// row when its C * F lanes fit kStageBytes, else as many slots as fit (at
+// least one).
+int emit_stage_slots(int C, int F, bool leaf) {
+  const long long fit = kStageBytes / ((long long)F * (leaf ? 4 : 8));
+  return (int)(fit >= C ? C : fit > 0 ? fit : 1);
 }
 
 // The ids of slots first, first + stride, ... (kSlotBatch of them), -1
@@ -641,79 +702,253 @@ knn_dists_kernel(L lv, const float* __restrict__ queries,
   }
 }
 
+// kLanes neighbouring staged scores into shared memory: 16 bytes at once
+// for kLanes 4 (the staged row offset is a multiple of 4 there).
+template <int kLanes>
+__device__ __forceinline__ void stage_lanes(float* p,
+                                            const float (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Lists the live slots (id >= 0) of row[from, C) in slot order, at most
+// `most` of them, as node ids and slot indices; returns their number and
+// sets *next to the first slot not listed (C when the rest of the row
+// was).  Coalesced id loads, a ballot and a scan a tile of kRowThreads
+// slots.  All threads must call; the results are the same in all.
+__device__ int list_live(const int* __restrict__ row, int C, int from,
+                         int most, int* s_node, int* s_slot, Scratch& s,
+                         int* next) {
+  int n = 0;
+  for (int t0 = from; t0 < C; t0 += kRowThreads) {
+    const int slot = t0 + threadIdx.x;
+    const int id = slot < C ? __ldg(row + slot) : -1;
+    int total;
+    const int pos = n + block_rank(id >= 0, s, &total);
+    if (id >= 0 && pos < most) {
+      s_node[pos] = id;
+      s_slot[pos] = slot;
+    }
+    if (n + total > most) {               // uniform: the segment is full
+      // the slot after the last one listed; every live slot before t0 is
+      // listed when n == most
+      if (n == most) {
+        *next = t0;
+      } else {
+        if (id >= 0 && pos == most - 1) s.next = slot + 1;
+        __syncthreads();
+        *next = s.next;
+      }
+      __syncthreads();                    // the lists are read next
+      return most;
+    }
+    n += total;
+  }
+  *next = C;
+  __syncthreads();                        // the lists are read next
+  return n;
+}
+
+// Scores the F lanes of the n listed live slots (node ids s_node) into the
+// staging: MINDIST into s_md and (not at the leaf) MINMAXDIST into s_mmd,
+// lane f of listed slot r at r * F + f, DIST_PAD where the child is -1.
+// A group of F / kLanes threads (at most a block) owns a slot, each thread
+// kLanes neighbouring lanes, whose child and box loads go out together
+// (Level::dists, the score kernel's).
+template <class Q, bool kLeaf, int kLanes>
+__device__ __forceinline__ void score_live(const Level& L, const Q& q,
+                                           const int* s_node, int n,
+                                           float* s_md, float* s_mmd) {
+  const int F = L.F;
+  const int units = F / kLanes;
+  const int group = units < kRowThreads ? units : kRowThreads;
+  const int per_block = kRowThreads / group;
+  const int g = threadIdx.x / group;
+  if (g >= per_block) return;             // the block's ragged tail
+  const int first = (threadIdx.x - g * group) * kLanes;
+  for (int r = g; r < n; r += per_block) {
+    const int node = s_node[r];
+    const int64_t row = (int64_t)node * F;
+    for (int j = first; j < F; j += group * kLanes) {
+      float d[kLanes], u[kLanes];
+      L.template dists<Q, kLeaf, kLanes>(q, node, row + j, d, u);
+      stage_lanes<kLanes>(s_md + r * F + j, d);
+      if (!kLeaf) stage_lanes<kLanes>(s_mmd + r * F + j, u);
+    }
+  }
+}
+
 // B6 / B9 (kLeaf false) and B7 / B10 (kLeaf true): one block per query row.
 //   B6 / B9: out_ids (B, cap) next frontier; tau_out, valid_cnt, keep_cnt
 //            (B,).
 //   B7 / B10: cap == k; out_ids (B, k), out_d (B, k); valid_cnt (B,).
-template <class Q, bool kLeaf>
-__global__ void __launch_bounds__(kRowThreads)
+// The block lists its row's live slots and stages their lanes' scores in
+// shared memory once; every later pass reads only the staging.  A row
+// whose live slots outnumber stage_slots is walked in segments of
+// stage_slots live slots, each re-listed and re-scored in every pass.
+// Dead slots are never touched after the list: their lanes are DIST_PAD,
+// invalid, never kept, and order after every valid lane.
+template <class Q, bool kLeaf, int kLanes>
+__global__ void __launch_bounds__(kRowThreads, kRowBlocks)
 knn_emit_kernel(Level L, const float* __restrict__ queries,
                 const float* __restrict__ tau_in, int* __restrict__ out_ids,
                 float* __restrict__ out_d, float* __restrict__ tau_out,
                 int* __restrict__ valid_cnt, int* __restrict__ keep_cnt,
-                int cap, int k, int tighten, int lane_bytes) {
-  extern __shared__ u64 keys[];           // pow2_at_least(cap) survivors
+                int cap, int k, int tighten, int lane_bytes,
+                int stage_slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Scratch s;
-  const int b = blockIdx.x;
-  const int M = L.C * L.F;
-  const Row<Q> row{L, L.ids + (int64_t)b * L.C,
-                   Q(queries + (int64_t)b * Q::kWidth)};
+  const EmitSmem lay(cap, stage_slots, L.F, kLeaf);
+  u64* const keys = reinterpret_cast<u64*>(smem + lay.keys);
+  float* const s_md = reinterpret_cast<float*>(smem + lay.md);
+  float* const s_mmd = reinterpret_cast<float*>(smem + lay.mmd);
+  int* const s_node = reinterpret_cast<int*>(smem + lay.node);
+  int* const s_slot = reinterpret_cast<int*>(smem + lay.slot);
+  const int b = blockIdx.x, C = L.C, F = L.F;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int* const row = L.ids + (int64_t)b * C;
+  const Q q(queries + (int64_t)b * Q::kWidth);
 
+  // stages the segment of live slots from slot `from` on; returns its
+  // staged lanes and sets *next past it
+  auto stage = [&](int from, int* next) {
+    const int n = list_live(row, C, from, stage_slots, s_node, s_slot, s,
+                            next);
+    score_live<Q, kLeaf, kLanes>(L, q, s_node, n, s_md, s_mmd);
+    __syncthreads();
+    return n * F;
+  };
+  int next;
+  const int first = stage(0, &next);
+  const bool whole = next >= C;           // uniform: the row fits at once
+  // visit(n) over each staged segment of the row (n staged lanes)
+  auto walk = [&](auto&& visit) {
+    if (whole) {
+      visit(first);
+      return;
+    }
+    for (int from = 0; from < C;) {
+      __syncthreads();                    // the last visit is done
+      visit(stage(from, &from));
+    }
+  };
+  // the global lane c * F + f of staged lane i, c its slot
+  auto lane_of = [&](int i) {
+    const int r = i / F;
+    return s_slot[r] * F + (i - r * F);
+  };
+
+  int n_valid = 0;
+  walk([&](int n) {
+    for (int i = threadIdx.x; i < n; i += kRowThreads)
+      n_valid += s_md[i] < kDistValidMax;
+  });
+  n_valid = block_sum(n_valid, s);
+
+  // tau: the k-th smallest MINMAXDIST over the C * F lanes.  A valid lane's
+  // is below DIST_VALID_MAX and every other lane's is DIST_PAD, so with k
+  // valid lanes it is the k-th smallest staged one, else DIST_PAD.
   float tau = kLeaf ? kDistPad : tau_in[b];
   if (!kLeaf && tighten) {
-    const u64 kth = radix_select(
-        [&](int l, u64* key) {
-          *key = make_key(row.mmd(l), l);
-          return true;
-        },
-        M, k - 1, 4, lane_bytes, s);
-    tau = fminf(tau, __uint_as_float((unsigned)(kth >> 32)));
+    float kth = kDistPad;
+    if (n_valid >= k) {
+      const u64 key = radix_select(
+          walk,
+          [&](int i, u64* key, bool) {
+            *key = (u64)__float_as_uint(s_mmd[i]) << 32;
+            return true;
+          },
+          k - 1, 4, lane_bytes, s);
+      kth = __uint_as_float((unsigned)(key >> 32));
+    }
+    tau = fminf(tau, kth);
   }
 
-  // tallies: valid lanes, and kept ones (valid and within tau)
-  int n_valid = 0, n_keep = 0;
-  for (int t0 = 0; t0 < M; t0 += blockDim.x) {
-    const int l = t0 + threadIdx.x;
-    const float d = l < M ? row.md(l) : kDistPad;
-    const bool v = d < kDistValidMax;
-    n_valid += __syncthreads_count(v);
-    if (!kLeaf) n_keep += __syncthreads_count(v && d <= tau);
-  }
-  if (kLeaf) n_keep = n_valid;
-
-  auto kept = [&](int l, u64* key) {
-    const float d = row.md(l);
-    *key = make_key(d, l);
-    return d < kDistValidMax && d <= tau;
+  // kept lanes: their key, the lane field only when with_lane asks for it
+  auto kept = [&](int i, u64* key, bool with_lane) {
+    const float d = s_md[i];
+    if (!(d < kDistValidMax && d <= tau)) return false;
+    *key = with_lane ? make_key(d, lane_of(i))
+                     : (u64)__float_as_uint(d) << 32;
+    return true;
   };
+  int n_keep = n_valid;                   // the leaf keeps every valid lane
+  if (!kLeaf) {
+    n_keep = 0;
+    walk([&](int n) {
+      for (int i = threadIdx.x; i < n; i += kRowThreads) {
+        const float d = s_md[i];
+        n_keep += d < kDistValidMax && d <= tau;
+      }
+    });
+    n_keep = block_sum(n_keep, s);
+  }
+
   int n = 0;                              // survivors gathered in keys
   if (cap > 0) {
     // on overflow only the cap smallest keys survive
     const u64 limit = n_keep > cap
-        ? radix_select(kept, M, cap - 1, 0, lane_bytes, s) : ~0ull;
-    for (int t0 = 0; t0 < M; t0 += blockDim.x) {
-      const int l = t0 + threadIdx.x;
-      u64 key = 0;
-      const bool take = l < M && kept(l, &key) && key <= limit;
-      int tile;
-      const int pos = n + block_rank(take, s, &tile);
-      if (take) keys[pos] = key;
-      n += tile;
-    }
-    bitonic_sort(keys, n);
+        ? radix_select(walk, kept, cap - 1, 0, lane_bytes, s) : ~0ull;
+    // ordered compaction, no atomics: warp w takes a contiguous run of
+    // each segment's staged lanes, counts its survivors, and after one
+    // scan of the warp totals writes them at its offset in lane order
+    walk([&](int n_lanes) {
+      const int per = ((n_lanes + kWarp - 1) / kWarp + kRowWarps - 1) /
+                      kRowWarps * kWarp;
+      const int i0 = warp * per;
+      const int i1 = min(n_lanes, i0 + per);
+      auto take = [&](int i, u64* key) {
+        return i < i1 && kept(i, key, true) && *key <= limit;
+      };
+      int cnt = 0;
+      for (int j = i0; j < i1; j += kWarp) {
+        u64 key;
+        cnt += __popc(__ballot_sync(kFull, take(j + lane, &key)));
+      }
+      if (lane == 0) s.warp_tot[warp] = cnt;
+      __syncthreads();
+      int pos = n, total = 0;
+      for (int w = 0; w < kRowWarps; ++w) {
+        pos += w < warp ? s.warp_tot[w] : 0;
+        total += s.warp_tot[w];
+      }
+      for (int j = i0; j < i1; j += kWarp) {
+        u64 key;
+        const bool t = take(j + lane, &key);
+        const unsigned bal = __ballot_sync(kFull, t);
+        if (t) keys[pos + __popc(bal & ((1u << lane) - 1u))] = key;
+        pos += __popc(bal);
+      }
+      n += total;
+      __syncthreads();                    // warp_tot is rewritten next
+    });
   }
 
+  // the survivors in ascending key order, then the -1 (+inf) tail
   const int64_t base = (int64_t)b * cap;
-  for (int i = threadIdx.x; i < cap; i += blockDim.x) {
-    int id = -1;
-    float d = INFINITY;
-    if (i < n) {
-      const u64 key = keys[i];
-      id = L.child[row.offset((int)(key & 0xffffffffu))];
-      d = __uint_as_float((unsigned)(key >> 32));
+  auto emit = [&](int i, u64 key) {
+    const int l = (int)(key & 0xffffffffu);
+    const int c = l / F;
+    out_ids[base + i] = L.child[(int64_t)__ldg(row + c) * F + (l - c * F)];
+    if (kLeaf) out_d[base + i] = __uint_as_float((unsigned)(key >> 32));
+  };
+  if (n <= kRankSortMax) {
+    if (threadIdx.x < n) {                // keys are unique: ranks are too
+      const u64 key = keys[threadIdx.x];
+      int r = 0;
+      for (int j = 0; j < n; ++j) r += keys[j] < key;
+      emit(r, key);
     }
-    out_ids[base + i] = id;
-    if (kLeaf) out_d[base + i] = d;
+  } else {
+    bitonic_sort(keys, n);
+    for (int i = threadIdx.x; i < n; i += kRowThreads) emit(i, keys[i]);
+  }
+  for (int i = n + threadIdx.x; i < cap; i += kRowThreads) {
+    out_ids[base + i] = -1;
+    if (kLeaf) out_d[base + i] = INFINITY;
   }
   if (threadIdx.x == 0) {
     valid_cnt[b] = n_valid;
@@ -784,15 +1019,19 @@ int launch_dists(const L& lv, const float* queries, float* md, float* mmd,
                                                     st);
 }
 
-// B6 / B9 and B7 / B10: one block per query row.
+// B6 / B9 and B7 / B10: one block per query row, the vector variant where
+// F and the rows allow it, else the scalar-lane one; the staging holds
+// emit_stage_slots slots' lanes.
 template <class Q, bool kLeaf>
 int launch_emit(const Level& L, const float* queries, const float* tau_in,
                 int* out_ids, float* out_d, float* tau_out, int* valid_cnt,
                 int* keep_cnt, int B, int cap, int k, int tighten,
                 cudaStream_t st) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(u64) * (size_t)pow2_at_least(cap > 0 ? cap : 1);
-  auto kernel = knn_emit_kernel<Q, kLeaf>;
+  const int slots = emit_stage_slots(L.C, L.F, kLeaf);
+  const size_t smem = EmitSmem(cap, slots, L.F, kLeaf).total;
+  auto kernel = L.vector_ok() ? knn_emit_kernel<Q, kLeaf, 4>
+                              : knn_emit_kernel<Q, kLeaf, 1>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -800,7 +1039,7 @@ int launch_emit(const Level& L, const float* queries, const float* tau_in,
   }
   kernel<<<B, kRowThreads, smem, st>>>(
       L, queries, tau_in, out_ids, out_d, tau_out, valid_cnt, keep_cnt, cap,
-      k, tighten, lane_bytes_for((long long)L.C * L.F));
+      k, tighten, lane_bytes_for((long long)L.C * L.F), slots);
   return (int)cudaGetLastError();
 }
 
@@ -826,6 +1065,19 @@ LevelD3 make_level_d3(const void* ids, const void* qlo, const void* qhi,
 // The largest cap (B6, B9) or k (B7, B10) whose survivors fit in shared
 // memory.
 extern "C" int rtree_knn_max_cap() { return kMaxCap; }
+
+// Layout queries for the wrappers, tests and chip_smoke.py: the frontier
+// slots a B6 / B9 (leaf 0) or B7 / B10 (leaf 1) block stages at once for a
+// (B, C) frontier of fanout F, and the block's bytes of dynamic shared
+// memory at that cap.
+extern "C" long long rtree_knn_emit_stage_slots(int C, int F, int leaf) {
+  return emit_stage_slots(C, F, leaf != 0);
+}
+
+extern "C" long long rtree_knn_emit_smem(int C, int F, int cap, int leaf) {
+  return (long long)EmitSmem(cap, emit_stage_slots(C, F, leaf != 0), F,
+                             leaf != 0).total;
+}
 
 extern "C" int rtree_knn_dists(const void* ids, const void* points,
                                const void* lx, const void* ly, const void* hx,

@@ -1,10 +1,11 @@
 // R-tree range-select BFS level step, hand-written for Hopper (sm_90a).
 //
 // Four kernels, each behind a plain C entry point (loaded with ctypes by
-// kernels/_build.py and wrapped by kernels/rtree_select.py).  Two bodies,
-// select_masks_kernel and select_fused_kernel, are templates over the node
-// rows they read: D1Rows (four float rows, B1 and B2) or D3Rows (two
-// uint16 code rows and the node's scale and bias, B11 and B12).
+// kernels/_build.py and wrapped by kernels/rtree_select.py).  The fused
+// bodies (select_count_kernel, select_scatter_kernel) are templates over
+// the node rows they read: D1Rows (four float rows, B2) or D3Rows (two
+// uint16 code rows and the node's scale and bias, B12).  B1 is
+// select_masks_kernel over D1Rows, B11 select_masks_d3_kernel.
 //
 // B1  rtree_select_masks — replaces the Pallas kernel
 //     src/repro/kernels/rtree_select.py:select_level_masks (line 64, body
@@ -61,16 +62,31 @@
 //
 // B11 rtree_select_masks_d3 — replaces the Pallas kernel
 //     src/repro/kernels/rtree_select.py:select_level_masks_d3 (line 213,
-//     body _select_d3_kernel line 190).  B1's body on a D3 level: each
-//     lane reads its packed codes qlo, qhi = (x << 8) | y and dequantizes
-//     in registers, lo = bias + code * scale per axis.  scale is a power
-//     of two and a code has 8 significant bits, so the product is exact
-//     and the add is the one rounding: written __fadd_rn(bias,
+//     body _select_d3_kernel line 190).  B1's predicate on a D3 level:
+//     each lane reads its packed codes qlo, qhi = (x << 8) | y and
+//     dequantizes in registers, lo = bias + code * scale per axis.  scale
+//     is a power of two and a code has 8 significant bits, so the product
+//     is exact and the add is the one rounding: written __fadd_rn(bias,
 //     __fmul_rn(code, scale)), any contraction gives the same box.  The
 //     mask is conservative: a superset of the D1 mask on the true boxes.
 //     Bound on the card: memory — 4*B*C ids, 16*B query bytes, 8F + 16
 //     bytes per distinct live node (codes, ptr, scale, bias) and the
-//     4*B*C*F mask, which dominates as for B1.
+//     4*B*C*F mask, which dominates as for B1: at level 1 with B = 4,096
+//     and C = 256, 268 MB of mask, ~0.08 ms; and 99% of those slots are
+//     dead.  So the kernel is a store stream that must not wait on its
+//     loads.  Design (select_masks_d3_kernel): a block owns a tile of
+//     kD3Tile frontier slots, whose masks are one contiguous run.  It
+//     stores zeros over the whole run first, 16 bytes a thread and
+//     coalesced, which waits for nothing; then it ballots on the tile's
+//     ids, lists the live slots in shared memory, and a group of F/4
+//     threads takes each live slot, each thread 4 neighbouring lanes:
+//     it loads the node's scale and bias once (8 bytes each), its 4
+//     lanes' codes (8 bytes an array) and child ids (16 bytes) together,
+//     and stores the 4 mask lanes over the zeros in one 16-byte streaming
+//     store.  A persistent grid sized by occupancy strides over the tiles,
+//     each thread loading its slot id of the next tile ahead.  The
+//     scalar-lane variant (one lane a thread) covers F % 4 != 0 and
+//     misaligned codes, node columns, child ids or mask.
 //
 // B12 rtree_select_fused_d3 — replaces the Pallas kernel
 //     src/repro/kernels/rtree_select.py:select_level_fused_d3 (line 256,
@@ -91,6 +107,8 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaskWarps = 8;          // B1: warps (= slots) per block
+constexpr int kD3Threads = 256;       // B11: threads per block
+constexpr int kD3Tile = 128;          // B11: frontier slots a block tile
 constexpr int kSelThreads = 256;      // B2/B12: threads per block
 constexpr int kSelItems = 4;          // items (slots or lanes) per thread
 constexpr int kSelTile = kSelThreads * kSelItems;   // a chunk, and a tile
@@ -127,16 +145,24 @@ struct D3Rows {
   const float* bias;
   const int* child;
 
+  // The predicate on the box of codes lo, hi dequantized with the node's
+  // scale s and bias b.
+  static __device__ __forceinline__ bool hit_box(float qlx, float qly,
+                                                 float qhx, float qhy,
+                                                 unsigned lo, unsigned hi,
+                                                 float2 s, float2 b) {
+    const float lx = __fadd_rn(b.x, __fmul_rn((float)(lo >> 8), s.x));
+    const float ly = __fadd_rn(b.y, __fmul_rn((float)(lo & 0xFFu), s.y));
+    const float hx = __fadd_rn(b.x, __fmul_rn((float)(hi >> 8), s.x));
+    const float hy = __fadd_rn(b.y, __fmul_rn((float)(hi & 0xFFu), s.y));
+    return intersects(qlx, qly, qhx, qhy, lx, ly, hx, hy);
+  }
+
   __device__ __forceinline__ bool hit(float qlx, float qly, float qhx,
                                       float qhy, int node, int64_t k) const {
-    const float sx = scale[2 * node], sy = scale[2 * node + 1];
-    const float bx = bias[2 * node], by = bias[2 * node + 1];
-    const unsigned lo = qlo[k], hi = qhi[k];
-    const float lx = __fadd_rn(bx, __fmul_rn((float)(lo >> 8), sx));
-    const float ly = __fadd_rn(by, __fmul_rn((float)(lo & 0xFFu), sy));
-    const float hx = __fadd_rn(bx, __fmul_rn((float)(hi >> 8), sx));
-    const float hy = __fadd_rn(by, __fmul_rn((float)(hi & 0xFFu), sy));
-    return intersects(qlx, qly, qhx, qhy, lx, ly, hx, hy);
+    return hit_box(qlx, qly, qhx, qhy, qlo[k], qhi[k],
+                   make_float2(scale[2 * node], scale[2 * node + 1]),
+                   make_float2(bias[2 * node], bias[2 * node + 1]));
   }
 };
 
@@ -162,6 +188,149 @@ select_masks_kernel(const int* __restrict__ ids, const float* __restrict__ q,
     const int64_t k = row + j;
     const bool m = rows.hit(qlx, qly, qhx, qhy, id, k) && rows.child[k] >= 0;
     out[j] = m ? 1 : 0;
+  }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+// kLanes neighbouring values from p through the read-only path: for
+// kLanes 4 one 16-byte load (int) or one 8-byte load (uint16).
+template <int kLanes>
+__device__ __forceinline__ void load_lanes(const int* p, int (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int kLanes>
+__device__ __forceinline__ void load_lanes(const uint16_t* p,
+                                           unsigned (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {            // little-endian: lane 0 is low
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = w.x & 0xFFFFu, v[1] = w.x >> 16;
+    v[2] = w.y & 0xFFFFu, v[3] = w.y >> 16;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// Node `node`'s two float32 columns of an (N, 2) array: one 8-byte load in
+// the vector variant, whose launch checked the alignment.
+template <int kLanes>
+__device__ __forceinline__ float2 load_node_pair(const float* p, int node) {
+  if constexpr (kLanes == 4) {
+    return __ldg(reinterpret_cast<const float2*>(p) + node);
+  } else {
+    return make_float2(__ldg(p + 2 * node), __ldg(p + 2 * node + 1));
+  }
+}
+
+// kLanes neighbouring mask lanes as a stream (evict-first): one 16-byte
+// store for kLanes 4.
+template <int kLanes>
+__device__ __forceinline__ void store_lanes(int* p, const int (&v)[kLanes]) {
+  if constexpr (kLanes == 4) {
+    __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// The id of slot tile * kD3Tile + threadIdx.x (threads below kD3Tile),
+// -1 past n_slots and in the other threads.
+__device__ __forceinline__ int tile_id(const int* __restrict__ ids,
+                                       unsigned tile, unsigned n_slots) {
+  const unsigned slot = tile * kD3Tile + threadIdx.x;
+  return threadIdx.x < kD3Tile && slot < n_slots ? __ldg(ids + slot) : -1;
+}
+
+// B11 over n_slots = B * C frontier slots in tiles of kD3Tile slots, whose
+// masks are one contiguous run of kD3Tile * F ints.  A block owns a tile
+// at a time, and a persistent grid, as many blocks as fit on the card,
+// strides over the tiles; each thread loads its slot id of the block's
+// next tile before it works on this one.  For a tile the block
+//   1. stores zeros over the whole run, kLanes lanes a store, neighbouring
+//      threads on neighbouring units, without waiting on any load;
+//   2. ballots on the tile's ids and lists its live slots in shared
+//      memory;
+//   3. gives each listed slot to a group of F / kLanes threads (at most a
+//      block), each thread kLanes neighbouring lanes: it loads the node's
+//      scale and bias once (8 bytes each) and its codes (kLanes a load)
+//      and child ids (16 bytes) together, and stores its lanes' mask over
+//      the zeros.  The barrier of step 2 orders the two stores.
+// A dead slot costs its zero stores and no load.
+template <int kLanes>
+__global__ void __launch_bounds__(kD3Threads)
+select_masks_d3_kernel(const int* __restrict__ ids,
+                       const float* __restrict__ q, D3Rows rows,
+                       int* __restrict__ mask, unsigned n_slots, int C,
+                       int F) {
+  constexpr int kTileWarps = kD3Tile / kWarp;
+  __shared__ int s_node[kD3Tile];         // the tile's live slots, in order
+  __shared__ int s_slot[kD3Tile];
+  __shared__ int s_cnt[kTileWarps];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int units = F / kLanes;           // a slot's units of kLanes lanes
+  const int group = units < kD3Threads ? units : kD3Threads;
+  const int groups = kD3Threads / group;
+  const int g = threadIdx.x / group;
+  const int first = (threadIdx.x - g * group) * kLanes;
+  const int zero[kLanes] = {};
+  const unsigned n_tiles = (n_slots + kD3Tile - 1) / kD3Tile;
+  unsigned tile = blockIdx.x;
+  int id = tile_id(ids, tile, n_slots);
+  // tile + gridDim.x < 2^32 / kD3Tile: launch_masks_d3 checks n_slots
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int next = tile_id(ids, tile + gridDim.x, n_slots);
+    const unsigned slot0 = tile * kD3Tile;
+    const unsigned left = n_slots - slot0;
+    const int run = (int)(left < kD3Tile ? left : kD3Tile) * units;
+    int* const out = mask + (int64_t)slot0 * F;
+    for (int u = threadIdx.x; u < run; u += kD3Threads)
+      store_lanes<kLanes>(out + u * kLanes, zero);
+    const unsigned bal = __ballot_sync(0xffffffffu, id >= 0);
+    if (lane == 0 && warp < kTileWarps) s_cnt[warp] = __popc(bal);
+    __syncthreads();
+    int pos = __popc(bal & ((1u << lane) - 1u)), n_live = 0;
+    for (int w = 0; w < kTileWarps; ++w) {
+      pos += w < warp ? s_cnt[w] : 0;
+      n_live += s_cnt[w];
+    }
+    if (id >= 0) {
+      s_node[pos] = id;
+      s_slot[pos] = threadIdx.x;
+    }
+    __syncthreads();
+    for (int r = g; g < groups && r < n_live; r += groups) {
+      const int node = s_node[r];
+      const unsigned slot = slot0 + s_slot[r];
+      const float* qb = q + 4 * (size_t)(slot / (unsigned)C);
+      const float qlx = __ldg(qb), qly = __ldg(qb + 1);
+      const float qhx = __ldg(qb + 2), qhy = __ldg(qb + 3);
+      const float2 sc = load_node_pair<kLanes>(rows.scale, node);
+      const float2 bi = load_node_pair<kLanes>(rows.bias, node);
+      const int64_t row = (int64_t)node * F;
+      int* const o = mask + (int64_t)slot * F;
+      for (int j = first; j < F; j += group * kLanes) {
+        int c[kLanes], m[kLanes];
+        unsigned lo[kLanes], hi[kLanes];
+        load_lanes<kLanes>(rows.child + row + j, c);
+        load_lanes<kLanes>(rows.qlo + row + j, lo);
+        load_lanes<kLanes>(rows.qhi + row + j, hi);
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l)
+          m[l] = c[l] >= 0 && D3Rows::hit_box(qlx, qly, qhx, qhy, lo[l],
+                                              hi[l], sc, bi);
+        store_lanes<kLanes>(o + j, m);
+      }
+    }
+    __syncthreads();                      // the lists are rewritten next
+    id = next;
   }
 }
 
@@ -379,6 +548,56 @@ int launch_masks(const void* ids, const void* q, const Rows& rows,
   return (int)cudaGetLastError();
 }
 
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
+
+// One variant of B11 on a persistent grid: as many blocks as fit on the
+// card at once, fewer when the tiles need fewer.
+template <int kLanes>
+int launch_masks_d3_variant(const int* ids, const float* q,
+                            const D3Rows& rows, int* mask, unsigned n_slots,
+                            int C, int F, cudaStream_t st) {
+  auto kernel = select_masks_d3_kernel<kLanes>;
+  static int per_sm = 0;                  // resident blocks an SM
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kD3Threads, 0);
+    if (per_sm <= 0) per_sm = 1;
+  }
+  const unsigned need = (n_slots + kD3Tile - 1) / kD3Tile;
+  const unsigned full = (unsigned)(sm_count() * per_sm);
+  kernel<<<need < full ? need : full, kD3Threads, 0, st>>>(
+      ids, q, rows, mask, n_slots, C, F);
+  return (int)cudaGetLastError();
+}
+
+// B11: the vector variant (4 lanes a thread) where F is a multiple of 4
+// and the codes, node columns, child ids and mask are aligned for its
+// 8- and 16-byte accesses, else the scalar-lane one.
+int launch_masks_d3(const void* ids, const void* q, const D3Rows& rows,
+                    void* mask, int B, int C, int F, void* stream) {
+  const int64_t n_slots = (int64_t)B * C;
+  if (n_slots >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  const bool vec = F % 4 == 0 && aligned(rows.qlo, 8) &&
+                   aligned(rows.qhi, 8) && aligned(rows.scale, 8) &&
+                   aligned(rows.bias, 8) && aligned(rows.child, 16) &&
+                   aligned(mask, 16);
+  const auto st = (cudaStream_t)stream;
+  const unsigned n = (unsigned)n_slots;
+  return vec ? launch_masks_d3_variant<4>((const int*)ids, (const float*)q,
+                                          rows, (int*)mask, n, C, F, st)
+             : launch_masks_d3_variant<1>((const int*)ids, (const float*)q,
+                                          rows, (int*)mask, n, C, F, st);
+}
+
 template <class Rows>
 int launch_fused(const void* ids, const void* q, const Rows& rows, void* out,
                  void* counts, void* scratch, int B, int C, int F, int cap,
@@ -441,8 +660,8 @@ extern "C" int rtree_select_masks_d3(const void* ids, const void* q,
                                      const void* scale, const void* bias,
                                      const void* ptr, void* mask, int B,
                                      int C, int F, void* stream) {
-  return launch_masks(ids, q, d3_rows(qlo, qhi, scale, bias, ptr), mask, B,
-                      C, F, stream);
+  return launch_masks_d3(ids, q, d3_rows(qlo, qhi, scale, bias, ptr), mask,
+                         B, C, F, stream);
 }
 
 extern "C" int rtree_select_fused_d3(const void* ids, const void* q,

@@ -111,14 +111,23 @@ def _d1_rows(lx, ly, hx, hy, child):
     return dict(lx=lx, ly=ly, hx=hx, hy=hy, child=child)
 
 
-def _check_width(name: str, width: int) -> None:
-    if width < 1:
-        raise ValueError(f"{name} must be >= 1, got {width}")
+def _check_width(name: str, width: int, least: int = 1) -> None:
+    if width < least:
+        raise ValueError(f"{name} must be >= {least}, got {width}")
     most = _max_cap()
     if width > most:
         raise ValueError(f"{name} = {width} exceeds the {most} "
                          f"survivors the CUDA kNN kernels keep in shared "
                          f"memory")
+
+
+def emit_stage_slots(c: int, f: int, *, leaf: bool) -> int:
+    """Frontier slots whose lanes one B6 / B9 block (B7 / B10 with
+    ``leaf``) stages in shared memory at once, for C slots of fanout F: C
+    when they fit, else fewer, and a row with more live slots is walked in
+    segments (``csrc/rtree_knn.cu`` holds the budget)."""
+    return _build.layout(_LIB, "rtree_knn_emit_stage_slots", c, f,
+                         int(leaf))
 
 
 # One launcher per kernel body, shared by the kNN (point, width 2) and the
@@ -161,7 +170,7 @@ def launch_level_fused(entry: str, width: int, ids, queries, lx, ly, hx, hy,
                        child, tau, cap: int, k: int, tighten: bool):
     b, c, f = _check(ids, queries, _d1_rows(lx, ly, hx, hy, child),
                      width=width, tau=tau)
-    _check_width("cap", cap)
+    _check_width("cap", cap, least=0)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if tighten and c * f < k:
@@ -218,7 +227,8 @@ def knn_level_fused_cuda(ids, points, lx, ly, hx, hy, child, tau, *,
     """Kernel B6: one internal level — τ = min(tau, k-th smallest
     MINMAXDIST over the C·F lanes) when ``tighten``, MINDIST <= τ pruning,
     and the best-first beam → (next (B, cap) int32 -1 padded, τ (B,)
-    float32, valid_cnt (B,) int32, keep_cnt (B,) int32)."""
+    float32, valid_cnt (B,) int32, keep_cnt (B,) int32); ``cap`` may be
+    0 (the tallies and τ only)."""
     out = launch_level_fused("rtree_knn_level_fused", 2, ids, points, lx,
                              ly, hx, hy, child, tau, cap, k, tighten)
     _launches["knn_level_fused"] += 1

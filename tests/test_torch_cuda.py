@@ -455,12 +455,12 @@ def dists_trees():
 
 
 def _offset_copy(t):
-    """A contiguous copy of ``t`` whose data starts 4 bytes past an
-    allocation's (aligned) start."""
+    """A contiguous copy of ``t`` whose data starts one element (4 bytes
+    for float32, 2 for uint16) past an allocation's (aligned) start."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
-    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
     return out
 
 
@@ -517,6 +517,144 @@ def test_cuda_dists_seams_equal_twins(dists_trees, fanout, query, level,
         else:
             _bits_equal(g, w)
     assert bool((want[0] < 1e37).any()) == (frontier != "dead")
+
+
+# the seams of the emit body (B6, B7, B9, B10): see the test's docstring
+EMIT_CASES = ("dead", "few", "live", "single", "fanout13", "at-budget",
+              "past-budget", "cap0", "cap1", "capmax", "ties", "tau-low")
+
+
+def _emit_frontier(rng, case, n_nodes, b, c):
+    """(B, C) ids of one emit seam case: 10% of the slots -1 unless the
+    case says otherwise."""
+    ids = rng.integers(0, n_nodes, (b, c)).astype(np.int32)
+    if case == "dead":
+        ids[:] = -1
+    elif case == "few":                    # two live slots a row
+        keep = np.argsort(rng.random((b, c)), axis=1)[:, :2]
+        live = np.zeros((b, c), bool)
+        np.put_along_axis(live, keep, True, axis=1)
+        ids[~live] = -1
+    elif case == "ties":                   # one node in every slot of a row
+        ids[:] = ids[:, :1]
+    elif case not in ("live", "at-budget", "past-budget", "capmax"):
+        ids[rng.random((b, c)) < 0.1] = -1
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EMIT_CASES)
+@pytest.mark.parametrize("query", ["point", "rect"])
+def test_cuda_emit_seams_equal_twins(dists_trees, query, case):
+    """B6 / B9 (tighten on and off where C·F >= k) and B7 / B10 ≡ their
+    twins, bit for bit, on the leaf level of a 20,000-rect tree, 67 rows,
+    at the seams of the staged emit body: every slot dead; two live slots
+    a row with k = 64, so fewer valid lanes than k and τ = DIST_PAD; every
+    slot live; C = 1; fanout 13 (the scalar-lane variant); C at the
+    staging budget (rows staged whole) and one slot past it (rows walked
+    in segments), every slot live; cap 0 and cap 1 (k = 1 at the leaf);
+    the largest cap (and k), with over 256 survivors a row; one node
+    repeated in every slot of a row, so MINDIST ties straddle the cap-th
+    key; τ_in below every MINDIST, so nothing is kept."""
+    dev = _need_gpu()
+    fanout = 13 if case == "fanout13" else 16
+    tree, _ = dists_trees(fanout, dev)
+    lvl = tree.levels[0]
+    rows = [getattr(lvl, f) for f in ROWS]
+    rng = np.random.default_rng(EMIT_CASES.index(case))
+    b = 67
+    q = (rng.random((b, 2)) * 1.4 - 0.2).astype(np.float32)
+    if query == "rect":
+        q = np.concatenate([q - np.float32(0.01), q + np.float32(0.01)], 1)
+    q = torch.from_numpy(q).to(dev)
+    mod, pre = (kkern, "knn") if query == "point" else (kjkern, "knn_join")
+    most = kkern._max_cap()
+    k = 64 if case == "few" else 1 if case == "cap1" else 8
+    cap = {"cap0": 0, "cap1": 1, "capmax": most}.get(case, 40)
+    tau = torch.from_numpy(rng.random(b).astype(np.float32) * 0.5).to(dev)
+    if case in ("few", "capmax", "ties"):
+        tau = torch.full((b,), 3.0e38, device=dev)
+    elif case == "tau-low":
+        tau = torch.full((b,), -1.0, device=dev)
+
+    def width(leaf):
+        slots = kkern.emit_stage_slots(1 << 20, fanout, leaf=leaf)
+        return {"single": 1, "at-budget": slots, "past-budget": slots + 1,
+                "capmax": 64}.get(case, 24)
+
+    c = width(False)
+    ids = torch.from_numpy(_emit_frontier(rng, case, lvl.n_nodes, b,
+                                          c)).to(dev)
+    fn = getattr(mod, f"{pre}_level_fused_cuda")
+    twin = getattr(ref, f"{pre}_level_fused_ref")
+    for tighten in ((False, True) if c * fanout >= k else (False,)):
+        kw = dict(cap=cap, k=k, tighten=tighten)
+        got, want = fn(ids, q, *rows, tau, **kw), twin(ids, q, *rows, tau,
+                                                      **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _bits_equal(g, w)
+        if case == "few":
+            assert bool((want[1] == 3.0e38).all())
+        if case == "tau-low":
+            assert int(want[3].sum()) == 0
+        if case == "capmax" and not tighten:
+            assert int(want[3].min()) > 256
+        if case == "ties" and not tighten:
+            assert bool((want[3] > cap).any())
+    c = width(True)
+    ids = torch.from_numpy(_emit_frontier(rng, case, lvl.n_nodes, b,
+                                          c)).to(dev)
+    kl = {"capmax": most, "ties": cap}.get(case, k)
+    fn = getattr(mod, f"{pre}_leaf_fused_cuda")
+    twin = getattr(ref, f"{pre}_leaf_fused_ref")
+    before = mod.launch_counts()[f"{pre}_leaf_fused"]
+    got, want = fn(ids, q, *rows, k=kl), twin(ids, q, *rows, k=kl)
+    torch.cuda.synchronize()
+    assert mod.launch_counts()[f"{pre}_leaf_fused"] == before + 1
+    for g, w in zip(got, want):
+        _bits_equal(g, w)
+    assert bool((want[2] > 0).any()) == (case != "dead")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier", ["dead", "live", "random",
+                                      "offset-codes", "offset-scale"])
+@pytest.mark.parametrize("fanout", [13, 16, 64])
+def test_cuda_select_masks_d3_seams_equal_twin(dists_trees, fanout,
+                                               frontier):
+    """B11 ≡ its twin, bit for bit, on level 1 of a D3 tree with B = 333
+    rows by C = 257 slots (more than one pass of the persistent grid):
+    every slot dead, every slot live, 10% of the slots -1, and 10% -1
+    with qlo or scale a contiguous view one element past an aligned
+    address.  Those views, and fanout 13, take the scalar-lane variant;
+    the rest the vector one."""
+    dev = _need_gpu()
+    _, d3 = dists_trees(fanout, dev)
+    lvl = d3[1]
+    rows = [lvl.qlo, lvl.qhi, lvl.scale, lvl.bias, lvl.ptr]
+    if frontier == "offset-codes":
+        rows[0] = _offset_copy(rows[0])
+    elif frontier == "offset-scale":
+        rows[2] = _offset_copy(rows[2])
+    rng = np.random.default_rng(fanout)
+    b, c = 333, 257
+    ids = rng.integers(0, rows[0].shape[0], (b, c)).astype(np.int32)
+    if frontier == "dead":
+        ids[:] = -1
+    elif frontier != "live":
+        ids[rng.random(ids.shape) < 0.1] = -1
+    ids = torch.from_numpy(ids).to(dev)
+    lo = (rng.random((b, 2)) * 1.2 - 0.1).astype(np.float32)
+    q = torch.from_numpy(np.concatenate(
+        [lo, lo + rng.random((b, 2)).astype(np.float32) * 0.1], 1)).to(dev)
+    before = kern.launch_counts()["select_level_masks_d3"]
+    got = kern.select_level_masks_d3_cuda(ids, q, *rows)
+    want = ref.select_level_masks_d3_ref(ids, q, *rows)
+    torch.cuda.synchronize()
+    assert kern.launch_counts()["select_level_masks_d3"] == before + 1
+    _bits_equal(got, want)
+    assert bool(want.any()) == (frontier != "dead")
 
 
 @pytest.mark.cuda

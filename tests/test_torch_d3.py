@@ -242,11 +242,36 @@ def test_d3_dists_mindist_equals_pallas(inst, op):
 # the B11 / B12 twins ≡ the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("li", [1, 2, 3])
-def test_select_masks_d3_twin_equals_pallas(inst, li):
-    _, _, _, jl, tl, _ = inst
+@pytest.fixture(scope="module")
+def inst13():
+    """3,000 rects at fanout 13 (F no multiple of 4) and both trees' D3
+    levels."""
+    rects = uniform_rects(np.random.default_rng(13), 3000, eps=0.001)
+    return (jlayouts.tree_layout(jrtree.build_rtree(rects, fanout=13), "d3"),
+            tlayouts.tree_layout(trtree.build_rtree(rects, fanout=13,
+                                                    device="cpu"), "d3"))
+
+
+# (li, frontier): random frontiers on three levels, then the seams of the
+# CUDA kernel on level 1: every slot dead, every slot live, C = 1, and a
+# fanout-13 tree (its scalar-lane variant)
+MASKS_D3_CASES = [pytest.param(li, "random", id=str(li)) for li in (1, 2, 3)] \
+    + [pytest.param(1, frontier, id=f"{frontier}-1")
+       for frontier in ("dead", "live", "single", "fanout13")]
+
+
+@pytest.mark.parametrize("li,frontier", MASKS_D3_CASES)
+def test_select_masks_d3_twin_equals_pallas(request, li, frontier):
+    if frontier == "fanout13":
+        jl, tl = request.getfixturevalue("inst13")
+    else:
+        _, _, _, jl, tl, _ = request.getfixturevalue("inst")
     rng = np.random.default_rng(40 + li)
-    ids = _frontier(rng, tl[li].qlo.shape[0], c=min(16, tl[li].qlo.shape[0]))
+    n = tl[li].qlo.shape[0]
+    ids = _frontier(rng, n, c=1 if frontier == "single" else min(16, n),
+                    pad=0.0 if frontier in ("live", "single") else 0.2)
+    if frontier == "dead":
+        ids[:] = -1
     q = _qrects(rng, 4, 0.05)
     want = jkern_sel.select_level_masks_d3(
         jnp.asarray(ids), jnp.asarray(q), *_rows(jl[li], D3_ROWS, False),
@@ -256,7 +281,11 @@ def test_select_masks_d3_twin_equals_pallas(inst, li):
                                         *_rows(tl[li], D3_ROWS, True))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert got.any()
+    assert got.shape[2] == (13 if frontier == "fanout13" else 16)
+    if frontier == "random":
+        assert got.any()
+    if frontier == "dead":
+        assert not got.any()
 
 
 def _seam_frontier(rng, n_nodes, c=20):

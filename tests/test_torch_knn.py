@@ -201,20 +201,50 @@ def test_level_dists_twin_equals_pallas(request, li, leaf, frontier):
     assert got[0].shape[2] == (13 if frontier == "fanout13" else 16)
 
 
-@pytest.mark.parametrize("k", [1, 8, 64])
-def test_fused_twins_equal_jitted_reference(inst, k):
+def _fused_frontier(rng, n_nodes, frontier):
+    """A (64, 8) frontier of a fused-twin case: random with 20% of the
+    slots -1, or a seam of ``_seam_frontier`` (dead, live, one slot a
+    row), or two live slots a row ("few"), or one node in every slot of a
+    row ("ties")."""
+    if frontier not in ("few", "ties"):
+        return _seam_frontier(rng, n_nodes, frontier, c=8)
+    ids = _frontier(rng, n_nodes, c=8, pad=0.0)
+    if frontier == "few":
+        drop = np.argsort(rng.random(ids.shape), axis=1)[:, 2:]
+        np.put_along_axis(ids, drop, -1, axis=1)
+    else:
+        ids[:] = ids[:, :1]
+    return ids
+
+
+# (k, frontier): random frontiers, then the seams of the CUDA emit body:
+# every slot dead, two live slots a row at k = 64 (fewer valid lanes than
+# k, so τ = DIST_PAD), every slot live, C = 1, and one node in every slot
+# of a row (MINDIST ties across lanes at an overflowing cap); the last two
+# with τ_in = DIST_PAD
+FUSED_CASES = [pytest.param(k, "random", id=str(k)) for k in (1, 8, 64)] + \
+    [pytest.param(k, frontier, id=f"{frontier}-{k}")
+     for k, frontier in ((8, "dead"), (64, "few"), (8, "live"),
+                         (8, "single"), (8, "ties"))]
+
+
+@pytest.mark.parametrize("k,frontier", FUSED_CASES)
+def test_fused_twins_equal_jitted_reference(inst, k, frontier):
     """B6 (tighten on and off, random τ_in, a cap that holds and one that
     overflows) and B7 (also C·F < k) ≡ the reference's jitted twins."""
     _, jtree, ttree, pts = inst
     rng = np.random.default_rng(k)
     for li in range(ttree.height):
-        ids = _frontier(rng, ttree.levels[li].n_nodes, c=8)
+        ids = _fused_frontier(rng, ttree.levels[li].n_nodes, frontier)
+        lanes = ids.shape[1] * 16
         jargs = [jnp.asarray(ids), jnp.asarray(pts),
                  *_level_args(jtree, li, False)]
         targs = [torch.from_numpy(ids), torch.from_numpy(pts),
                  *_level_args(ttree, li, True)]
         tau = (rng.random(64) * 0.01).astype(np.float32)
-        for tighten in ((False, True) if 8 * 16 >= k else (False,)):
+        if frontier in ("few", "ties"):
+            tau[:] = np.float32(3.0e38)
+        for tighten in ((False, True) if lanes >= k else (False,)):
             for cap in (4, 64):
                 kw = dict(cap=cap, k=k, tighten=tighten)
                 want = _jit_level_fused(*jargs, jnp.asarray(tau), **kw)
@@ -223,12 +253,16 @@ def test_fused_twins_equal_jitted_reference(inst, k):
                 for g, w, name in zip(got, want, ("next", "tau", "valid",
                                                   "keep")):
                     _assert_same(g, w, f"level {li} {kw} {name}")
-        for kk in (k, 200):                           # 200 > C·F = 128
+                if frontier == "few":
+                    assert bool((got[1] == float(tgeometry.DIST_PAD)).all())
+                if frontier == "ties" and li == 0 and not tighten:
+                    assert bool((got[3] > cap).any())
+        for kk in (k, lanes + 72):                    # C·F < kk: padded
             want = _jit_leaf_fused(*jargs, k=kk)
             got = ref.knn_leaf_fused_ref(*targs, k=kk)
             for g, w, name in zip(got, want, ("ids", "d", "valid")):
                 _assert_same(g, w, f"level {li} leaf k={kk} {name}")
-        assert int((got[0] < 0).sum()) >= 64 * (200 - 128)
+        assert int((got[0] < 0).sum()) >= 64 * 72
 
 
 # ---------------------------------------------------------------------------

@@ -248,14 +248,45 @@ def test_level_dists_twin_equals_pallas(request, leaf, frontier):
         assert got[0].shape[2] == (13 if frontier == "fanout13" else 16)
 
 
-@pytest.mark.parametrize("k", [1, 8, 64])
-def test_fused_twins_equal_jitted_reference(inst, k):
+def _fused_frontier(rng, n_nodes, frontier, b=64, c=8):
+    """A (b, c) frontier at a seam of the CUDA emit body: every slot -1
+    ("dead"), two live slots a row ("few"), every slot live ("live"), one
+    slot a row ("single"), or one node in every slot of a row ("ties")."""
+    ids = rng.integers(0, n_nodes, (b, 1 if frontier == "single" else c))
+    if frontier == "dead":
+        ids[:] = -1
+    elif frontier == "few":
+        drop = np.argsort(rng.random(ids.shape), axis=1)[:, 2:]
+        np.put_along_axis(ids, drop, -1, axis=1)
+    elif frontier == "ties":
+        ids[:] = ids[:, :1]
+    return ids.astype(np.int32)
+
+
+# (k, frontier): every level of a real descent, then on every level the
+# seams of the CUDA emit body: every slot dead, two live slots a row at
+# k = 64 (fewer valid lanes than k, so τ = DIST_PAD), every slot live,
+# C = 1, and one node in every slot of a row (MINDIST ties across lanes at
+# an overflowing cap); the last two with τ_in = DIST_PAD
+FUSED_CASES = [pytest.param(k, "descent", id=str(k)) for k in (1, 8, 64)] \
+    + [pytest.param(k, frontier, id=f"{frontier}-{k}")
+       for k, frontier in ((8, "dead"), (64, "few"), (8, "live"),
+                           (8, "single"), (8, "ties"))]
+
+
+@pytest.mark.parametrize("k,frontier", FUSED_CASES)
+def test_fused_twins_equal_jitted_reference(inst, k, frontier):
     """B9 (tighten on and off, random τ_in, a cap that holds and one that
     overflows) and B10 (also C·F < k) ≡ the reference's jitted twins, on
-    every level of a real descent."""
+    every level of a real descent and on frontiers at the CUDA emit
+    body's seams."""
     _, jtree, ttree, q = inst
     rng = np.random.default_rng(k)
-    fronts = _real_frontiers(ttree, q, k, 64, rng)
+    if frontier == "descent":
+        fronts = _real_frontiers(ttree, q, k, 64, rng)
+    else:
+        fronts = {li: _fused_frontier(rng, lvl.n_nodes, frontier)
+                  for li, lvl in enumerate(ttree.levels)}
     for li, ids in fronts.items():
         c = ids.shape[1]
         jargs = [jnp.asarray(ids), jnp.asarray(q),
@@ -263,6 +294,8 @@ def test_fused_twins_equal_jitted_reference(inst, k):
         targs = [torch.from_numpy(ids), torch.from_numpy(q),
                  *_level_args(ttree, li, True)]
         tau = (rng.random(64) * 0.01).astype(np.float32)
+        if frontier in ("few", "ties"):
+            tau[:] = np.float32(3.0e38)
         for tighten in ((False, True) if c * 16 >= k else (False,)):
             for cap in (4, 64):
                 kw = dict(cap=cap, k=k, tighten=tighten)
@@ -272,6 +305,10 @@ def test_fused_twins_equal_jitted_reference(inst, k):
                 for g, w, name in zip(got, want, ("next", "tau", "valid",
                                                   "keep")):
                     _assert_same(g, w, f"level {li} {kw} {name}")
+                if frontier == "few":
+                    assert bool((got[1] == float(tgeometry.DIST_PAD)).all())
+                if frontier == "ties" and li == 0 and not tighten:
+                    assert bool((got[3] > cap).any())
         for kk in (k, c * 16 + 9):                    # C·F < kk: padded
             want = _jit_leaf_fused(*jargs, k=kk)
             got = ref.knn_join_leaf_fused_ref(*targs, k=kk)
