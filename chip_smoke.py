@@ -108,7 +108,25 @@ Phases, each of which fails the run loudly:
 19. D3 serve: ``serve.main([... "--layout", "d3"])`` at 2M points for
    spatial, kNN and kNN-join; B11, B13 and B14 launches grow, nothing
    overflows, the first batch equals the D1 path's of phases 5, 11 and 15;
-   q/s.
+   q/s;
+20. filtered kNN engine: ``make_knn_filtered_bfs`` (PyTorch ops on the
+   card; the reference's is jnp with no kernel) on the first served
+   filtered batch (64 points, windows of half-extent 0.2), k in {8, 64} ×
+   static/adaptive on D1 and D3, against the same engine on a CPU copy of
+   the tree (ids, distance bits, every counter) and ``FILTERED_REF``; 8
+   rows against a windowed float64 brute force; the whole-universe window
+   against phase 10's kNN; ms per batch and busy share;
+21. browse engine: ``make_browse_bfs`` on the first served kNN batch, k =
+   8, D1 and D3, a session of 4 steps (as served) and one of 72 (several
+   resume descents), each step against the twin session on the card (ids,
+   distance bits, overflow, lost, emitted, descents, deferred beams,
+   counters), each session against ``BROWSE_REF``, the first 32 neighbours
+   against ``make_knn_bfs(k=32)`` bit for bit; B5 launches grow, and B13's
+   on D3; ms per ``next_batch()`` and busy share;
+22. filtered kNN and browse serve: ``serve.main(["--mode", "knn-filtered",
+   ...])`` and ``["--mode", "browse", ...]`` at 2M points on cuda, D1 and
+   D3; nothing overflows, the first batch against a float64 brute force,
+   D3 equal to D1, B5 (and on D3 B13) launches grow in browse; q/s.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -221,6 +239,75 @@ KNN_JOIN_D3_REF = {
              padded={"static": [0, 15808, 11478, 11455],
                      "adaptive": [0, 0, 11478, 11455]},
              ids_sum=4_034_559_553, d_sum=0.000723181390258329),
+}
+# filtered kNN (phases 20 and 22): windows of this half-extent around each
+# served point; browse (phases 21 and 22): a session of BROWSE_STEPS
+# next_batch() calls, as served, and one of BROWSE_DEEP, which resumes
+# more than once
+FILTER_EPS, BROWSE_STEPS, BROWSE_DEEP = 0.2, 4, 72
+# the reference's numbers for the first served filtered batch (64 points,
+# windows of half-extent FILTER_EPS) on the phase-3 tree: the JAX package's
+# make_knn_filtered_bfs by (layout, k), equal in both caps tiers (padded
+# slots per tier), as scripts/a10_reference_numbers.py prints them; and for
+# browse sessions of (layout, steps) over the first served kNN batch, k = 8
+# (make_browse_bfs(backend="xla")).  The deep sessions cross the lost bound
+# on every row (overflow 64): the first descent's bounded beams drop
+# candidates that later emission reaches.
+FILTERED_REF = {
+    ("d1", 8): dict(counters=dict(nodes_visited=1982, predicates=804_864,
+                    vector_ops=12_576, enqueued=1918, pruned_inner=58_969,
+                    masked_waste=13_481), live=[64, 227, 871, 820],
+                    ids_sum=500_525_860, d_sum=0.0003939492196707306,
+                    found=512, padded={"static": [0, 7965, 15_513, 15_564],
+                    "adaptive": [0, 349, 3225, 3276]}),
+    ("d1", 64): dict(counters=dict(nodes_visited=10_221, predicates=4_004_864,
+                     vector_ops=62_576, enqueued=10_157, pruned_inner=266_178,
+                     masked_waste=70_737), live=[64, 227, 5132, 4798],
+                     ids_sum=4_024_399_365, d_sum=0.022336982976781883,
+                     found=4096, padded={"static": [0, 7965, 11_252, 27_970],
+                     "adaptive": [0, 349, 27_252, 27_970]}),
+    ("d3", 8): dict(counters=dict(nodes_visited=2177, predicates=557_312,
+                    vector_ops=8708, enqueued=2113, pruned_inner=63_342,
+                    masked_waste=13_585), live=[64, 228, 943, 942],
+                    ids_sum=500_525_860, d_sum=0.0003939492196707306,
+                    found=512, padded={"static": [0, 16_156, 15_441, 15_442],
+                    "adaptive": [0, 348, 3153, 3154]}),
+    ("d3", 64): dict(counters=dict(nodes_visited=10_511, predicates=2_690_816,
+                     vector_ops=42_044, enqueued=10_447, pruned_inner=266_576,
+                     masked_waste=74_657), live=[64, 228, 5203, 5016],
+                     ids_sum=4_024_399_365, d_sum=0.022336982976781883,
+                     found=4096, padded={"static": [0, 16_156, 11_181, 27_752],
+                     "adaptive": [0, 348, 27_181, 27_752]}),
+}
+BROWSE_REF = {
+    ("d1", 4): dict(counters=dict(nodes_visited=2331, predicates=983_552,
+                    vector_ops=15_368, enqueued=2267, pruned_inner=86_117,
+                    masked_waste=8320), live=[64, 576, 871, 820], padded=[0,
+                    7616, 7321, 7372], ids_sum=1_981_845_840,
+                    d_sum=0.005745814926882531, found=2048, descents=1,
+                    emitted=2048, overflow=0, lost_finite=64,
+                    lost_sum=0.005474856538057793),
+    ("d1", 72): dict(counters=dict(nodes_visited=4298, predicates=1_683_712,
+                     vector_ops=26_308, enqueued=2337, pruned_inner=134_095,
+                     masked_waste=9424), live=[64, 576, 1639, 2019],
+                     padded=[1856, 245_184, 244_121, 243_741],
+                     ids_sum=36_632_160_694, d_sum=1.817284040318924,
+                     found=36_864, descents=30, emitted=36_864, overflow=64,
+                     lost_finite=64, lost_sum=0.005474856538057793),
+    ("d3", 4): dict(counters=dict(nodes_visited=2525, predicates=646_400,
+                    vector_ops=10_100, enqueued=2461, pruned_inner=90_439,
+                    masked_waste=8412), live=[64, 576, 943, 942], padded=[0,
+                    7616, 7249, 7250], ids_sum=1_981_845_840,
+                    d_sum=0.005745814926882531, found=2048, descents=1,
+                    emitted=2048, overflow=0, lost_finite=64,
+                    lost_sum=0.00540862853085855),
+    ("d3", 72): dict(counters=dict(nodes_visited=9717, predicates=2_487_552,
+                     vector_ops=38_868, enqueued=2812, pruned_inner=307_690,
+                     masked_waste=12_110), live=[64, 576, 4399, 4678],
+                     padded=[1472, 196_032, 192_209, 191_930],
+                     ids_sum=36_642_230_984, d_sum=1.8773571207842963,
+                     found=36_864, descents=24, emitted=36_864, overflow=64,
+                     lost_finite=64, lost_sum=0.00540862853085855),
 }
 ALL_PAIRS_BATCH = 4096
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
@@ -1652,6 +1739,264 @@ def phase_d3_serve(kern, kkern, kjkern, serve, d1_first):
     return launches, qps
 
 
+# ---------------------------------------------------------------------------
+# filtered kNN and browse (phases 20-22)
+# ---------------------------------------------------------------------------
+
+def filtered_brute_force(torch, dev, rects, qs, k):
+    """Float64 brute force on ``dev``: each row's k nearest rects among
+    those intersecting its window → (ids (B, k), distances (B, k)) numpy,
+    (-1, inf) padded, ties by id."""
+    r = torch.from_numpy(np.ascontiguousarray(rects)).to(dev).double()
+    ids, ds = [], []
+    for q in qs:
+        px, py, wlx, wly, whx, why = (float(v) for v in q)
+        dx = torch.clamp(torch.maximum(r[:, 0] - px, px - r[:, 2]), min=0)
+        dy = torch.clamp(torch.maximum(r[:, 1] - py, py - r[:, 3]), min=0)
+        hit = (wlx <= r[:, 2]) & (whx >= r[:, 0]) & (wly <= r[:, 3]) & \
+            (why >= r[:, 1])
+        full = torch.where(hit, dx * dx + dy * dy, float("inf"))
+        d, i = torch.sort(full, stable=True)
+        d, i = d[:k].cpu().numpy(), i[:k].cpu().numpy()
+        ids.append(np.where(np.isfinite(d), i, -1))
+        ds.append(d)
+    return np.stack(ids), np.stack(ds)
+
+
+def check_filtered_brute_force(torch, dev, rects, qs, ids, d, what) -> None:
+    """Fail unless each row's distances equal the float64 brute force to
+    rtol 1e-4, its ids are distinct, lie in its window and sit at their
+    reported distances, and missing rows match (-1, +inf)."""
+    want_i, want_d = filtered_brute_force(torch, dev, rects, qs,
+                                          ids.shape[1])
+    ok = np.array_equal(ids < 0, want_i < 0)
+    found = want_i >= 0
+    ok &= np.allclose(d[found], want_d[found], rtol=1e-4, atol=1e-9)
+    ok &= bool(np.isinf(d[~found]).all())
+    for row, q in zip(ids, qs):
+        got = row[row >= 0]
+        r = rects[got]
+        ok &= len(set(got.tolist())) == len(got)
+        ok &= bool(((q[2] <= r[:, 2]) & (q[4] >= r[:, 0]) &
+                    (q[3] <= r[:, 3]) & (q[5] >= r[:, 1])).all())
+    check(ok, f"{what}: differs from the windowed brute force")
+
+
+def check_ref_cell(got, ids, d, ref_, caps_mode, what) -> None:
+    """A result's counters, occupancy and id / distance sums against one
+    ``FILTERED_REF`` or ``BROWSE_REF`` cell (``caps_mode`` None: the cell
+    keeps one padded list)."""
+    for key, v in ref_["counters"].items():
+        check(got[key] == v, f"{what}: {key} {got[key]}, the reference has "
+              f"{v}")
+    padded = ref_["padded"] if caps_mode is None else \
+        ref_["padded"][caps_mode]
+    check(got["lanes_live"][:4] == ref_["live"] and
+          got["lanes_padded"][:4] == padded,
+          f"{what}: occupancy {got['lanes_live']} {got['lanes_padded']}")
+    found = ids >= 0
+    check(int(ids[found].astype(np.int64).sum()) == ref_["ids_sum"] and
+          float(d[found].astype(np.float64).sum()) == ref_["d_sum"] and
+          int(found.sum()) == ref_["found"],
+          f"{what}: ids sum {ids[found].astype(np.int64).sum()}, distance "
+          f"sum {d[found].astype(np.float64).sum()!r}, {found.sum()} found")
+
+
+def phase_filtered_engine(torch, tree, rects, fq, d1_knn, rtree,
+                          knn_filtered):
+    """Phase 20: ``make_knn_filtered_bfs`` (PyTorch ops on the card, as the
+    reference's is jnp with no kernel) on the first served filtered batch,
+    k in {8, 64} × static/adaptive on D1 and D3: ≡ the same engine on a
+    CPU copy of the tree (ids, distance bits, every counter) and
+    ``FILTERED_REF``, no overflow; 8 rows ≡ a windowed float64 brute force;
+    the whole-universe window ≡ phase 10's kNN results; ms per batch and
+    the device's busy share."""
+    t0 = time.time()
+    cpu_tree = rtree.build_rtree(rects, fanout=FANOUT, device="cpu")
+    q = torch.from_numpy(fq).to(tree.device)
+    timed = []
+    for layout in ("d1", "d3"):
+        for k in (8, 64):
+            for caps_mode in ("static", "adaptive"):
+                what = f"filtered {layout} k={k} {caps_mode}"
+                kw = dict(layout=layout, caps_mode=caps_mode)
+                fn = knn_filtered.make_knn_filtered_bfs(tree, k, **kw)
+                ids, d, ctr = fn(q)
+                cids, cd, cctr = knn_filtered.make_knn_filtered_bfs(
+                    cpu_tree, k, **kw)(fq)
+                check(ids.is_cuda, f"{what}: the result left the card")
+                assert_bits_equal(ids.cpu(), cids, f"{what} ids vs CPU")
+                assert_bits_equal(d.cpu(), cd, f"{what} dists vs CPU")
+                got = ctr.asdict()
+                check(got == cctr.asdict(), f"{what} counters: {got} vs "
+                      f"{cctr.asdict()}")
+                check(got["overflow"] == 0 and got["escalations"] == 0,
+                      f"{what}: overflow {got['overflow']}, escalations "
+                      f"{got['escalations']}")
+                ids_np, d_np = ids.cpu().numpy(), d.cpu().numpy()
+                check_ref_cell(got, ids_np, d_np,
+                               FILTERED_REF[(layout, k)], caps_mode, what)
+                if caps_mode == "static":
+                    check_filtered_brute_force(torch, tree.device, rects,
+                                               fq[:8], ids_np[:8], d_np[:8],
+                                               what)
+                    full = fq.copy()
+                    full[:, 2:4], full[:, 4:6] = -1.0, 2.0
+                    fi, fdist, _ = fn(full)
+                    want_i, want_d = d1_knn[k]
+                    check(np.array_equal(fi.cpu().numpy(), want_i) and
+                          np.array_equal(fdist.cpu().numpy().view(np.int32),
+                                         want_d.view(np.int32)),
+                          f"{what}: the whole-universe window differs from "
+                          f"phase 10's kNN")
+                timed.append((what, fn))
+    print(f"  8 cells ≡ the CPU engine (ids, distance bits, counters) and "
+          f"FILTERED_REF; 8 rows ≡ the windowed brute force; the whole "
+          f"window ≡ phase 10's kNN ({time.time() - t0:.1f} s)", flush=True)
+    for what, fn in timed:
+        print(f"  {what}: {host_ms(lambda: fn(q), 10):.3f} ms per "
+              f"{q.shape[0]}-query batch", flush=True)
+        print(f"    {profile_batches(lambda: fn(q))}", flush=True)
+
+
+def tied_lanes(row: np.ndarray) -> np.ndarray:
+    """Lanes of ``row`` whose value occurs more than once in it."""
+    _, inv, cnt = np.unique(row, return_inverse=True, return_counts=True)
+    return cnt[inv] > 1
+
+
+def browse_session(start, points, steps):
+    """A browse session of ``steps`` next_batch() calls → (cursor, ids (B,
+    steps·k), dists (B, steps·k))."""
+    cur = start(points)
+    out = [cur.next_batch() for _ in range(steps)]
+    return (cur, np.concatenate([i for i, _ in out], axis=1),
+            np.concatenate([d for _, d in out], axis=1))
+
+
+def phase_browse_engine(torch, tree, points, kkern, knn_browse, knn_vector):
+    """Phase 21: ``make_browse_bfs`` on the first served kNN batch, k = 8,
+    D1 and D3, sessions of BROWSE_STEPS and BROWSE_DEEP steps: each step ≡
+    the twin session on the card (ids, distance bits, overflow, lost,
+    emitted, descents, the deferred beams, every counter); each session ≡
+    ``BROWSE_REF``; the first 32 neighbours ≡ ``make_knn_bfs(k=32)``,
+    distances bit for bit; B5 launches grow, and B13's on D3; ms per
+    next_batch() and the device's busy share."""
+    t0 = time.time()
+    state_fields = ("pool_ids", "pool_d", "lost", "emitted", "overflow",
+                    "descents")
+    k32 = knn_vector.make_knn_bfs(tree, 4 * KNN_K, caps_mode="static")
+    ki, kd, kc = k32(points)
+    check(int(kc.overflow) == 0, "kNN k=32 overflowed")
+    ki, kd = ki.cpu().numpy(), kd.cpu().numpy()
+    timed = []
+    for layout in ("d1", "d3"):
+        start = knn_browse.make_browse_bfs(tree, KNN_K, layout=layout)
+        twin = knn_browse.make_browse_bfs(tree, KNN_K, layout=layout,
+                                          backend="torch")
+        for steps in (BROWSE_STEPS, BROWSE_DEEP):
+            what = f"browse {layout} {steps} steps"
+            kkern.reset_launch_counts()
+            cur, tcur = start(points), twin(points)
+            ids, d = [], []
+            for step in range(steps):
+                (gi, gd), (wi, wd) = cur.next_batch(), tcur.next_batch()
+                check(np.array_equal(gi, wi) and
+                      np.array_equal(gd.view(np.int32), wd.view(np.int32)),
+                      f"{what}: step {step} differs from the twin session")
+                a, b = cur.state, tcur.state
+                for f in state_fields:
+                    assert_bits_equal(getattr(a, f), getattr(b, f),
+                                      f"{what} step {step} {f}")
+                for x, y in zip(a.def_ids + a.def_d, b.def_ids + b.def_d):
+                    assert_bits_equal(x, y, f"{what} step {step} deferred")
+                check(a.ctr.asdict() == b.ctr.asdict(),
+                      f"{what} step {step} counters")
+                ids.append(gi)
+                d.append(gd)
+            launches = kkern.launch_counts()
+            check(launches["knn_level_dists"] > 0 and
+                  (layout == "d1" or launches["knn_level_dists_d3"] > 0),
+                  f"{what}: launches {launches}")
+            ids, d = np.concatenate(ids, axis=1), np.concatenate(d, axis=1)
+            st = cur.state
+            ref_ = BROWSE_REF[(layout, steps)]
+            check_ref_cell(st.ctr.asdict(), ids, d, ref_, None, what)
+            lost = st.lost.cpu().numpy()
+            fin = np.isfinite(lost)
+            check(int(st.descents) == ref_["descents"] and
+                  int(st.emitted.sum()) == ref_["emitted"] and
+                  int(st.overflow.sum()) == ref_["overflow"] and
+                  int(fin.sum()) == ref_["lost_finite"] and
+                  float(lost[fin].astype(np.float64).sum()) ==
+                  ref_["lost_sum"],
+                  f"{what}: descents {int(st.descents)}, emitted "
+                  f"{int(st.emitted.sum())}, overflow "
+                  f"{int(st.overflow.sum())}, lost {lost[fin].sum()!r}")
+            head_i, head_d = ids[:, :4 * KNN_K], d[:, :4 * KNN_K]
+            tied = np.stack([tied_lanes(row) for row in head_d])
+            check(np.array_equal(head_d.view(np.int32), kd.view(np.int32))
+                  and bool(((head_i == ki) | tied).all()),
+                  f"{what}: the first 32 neighbours differ from kNN k=32")
+            print(f"  {what}: ≡ the twin session step by step and "
+                  f"BROWSE_REF; {int(st.descents)} descents, "
+                  f"{int(st.overflow.sum())} rows past the lost bound; "
+                  f"launches {launches}", flush=True)
+            timed.append((what, start, steps))
+    print(f"  sessions checked in {time.time() - t0:.1f} s", flush=True)
+    for what, start, steps in timed:
+        ms = host_ms(lambda: browse_session(start, points, steps), 3)
+        print(f"  {what}: {ms / steps:.3f} ms per next_batch() "
+              f"({ms:.3f} ms per session of {points.shape[0]} queries)",
+              flush=True)
+        prof = profile_batches(
+            lambda: browse_session(start, points, steps), iters=1)
+        print(f"    per session: {prof}", flush=True)
+
+
+def phase_a10_serve(torch, dev, kkern, serve):
+    """Phase 22: ``serve.main`` for knn-filtered and browse at 2M points on
+    cuda, D1 and D3: no overflow; the first batch ≡ a float64 brute force
+    on the card (filtered: windowed; browse: the first session's
+    BROWSE_STEPS·k neighbours); D3 ≡ D1; B5 launches grow in browse, and
+    B13's on D3.  Returns {(mode, layout): q/s}."""
+    rects, fq = serve.make_knn_filtered_inputs(N_RECTS, SEED, 1, BATCH,
+                                               FILTER_EPS)
+    _, pts = serve.make_knn_inputs(N_RECTS, SEED, 1, BATCH)
+    qps, first = {}, {}
+    for mode, argv in (("knn-filtered", ["--filter-eps", str(FILTER_EPS)]),
+                       ("browse", ["--browse-steps", str(BROWSE_STEPS)])):
+        for layout in ("d1", "d3"):
+            kkern.reset_launch_counts()
+            out = serve.main(["--mode", mode, "--n", str(N_RECTS), "--k",
+                              str(KNN_K), "--batches", str(KNN_BATCHES),
+                              "--batch-size", str(BATCH), "--layout",
+                              layout, *argv])
+            got = kkern.launch_counts()
+            check(not out["overflow"], f"the served {mode} {layout} "
+                  f"overflowed")
+            if mode == "browse":
+                check(got["knn_level_dists"] > 0 and
+                      (layout == "d1" or got["knn_level_dists_d3"] > 0),
+                      f"served browse {layout}: launches {got}")
+            ids, d = out["first_batch"]
+            if mode == "browse":
+                check_knn_brute_force(torch, dev, rects, pts[0], ids, d,
+                                      f"{mode} {layout} serve")
+            else:
+                check_filtered_brute_force(torch, dev, rects, fq[0], ids,
+                                           d, f"{mode} {layout} serve")
+            first[(mode, layout)] = out["first_batch"]
+            qps[(mode, layout)] = out["qps"]
+            unit = "sessions·q/s" if mode == "browse" else "q/s"
+            print(f"  {mode} {layout}: first batch ≡ brute force; "
+                  f"{out['qps']:,.1f} {unit}; launches {got}", flush=True)
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(first[(mode, "d1")], first[(mode, "d3")])),
+              f"served {mode}: D3's first batch differs from D1's")
+    return qps
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1659,8 +2004,9 @@ def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
-    from repro_torch.core import join_vector, knn_join_vector, knn_vector, \
-        layouts, rtree, select_vector, traversal
+    from repro_torch.core import join_vector, knn_browse, knn_filtered, \
+        knn_join_vector, knn_vector, layouts, rtree, select_vector, \
+        traversal
     from repro_torch.core.join_scalar import elevate
     from repro_torch.core.layouts import tree_layout
     from repro_torch.distributed.spatial_shard import SpatialShards
@@ -1828,7 +2174,6 @@ def main() -> None:
         torch, tree, queries, points, qrects,
         {"select": d1_select, "knn": d1_knn, "knn_join": d1_kj}, kern, kkern,
         kjkern, select_vector, knn_vector, knn_join_vector)
-    del tree
 
     print("[19] D3 serve", flush=True)
     d3_serve_launches, d3_qps = phase_d3_serve(
@@ -1837,6 +2182,31 @@ def main() -> None:
                                      "knn-join": d1_first_kj})
     print(f"  served D3 q/s on {name} ({smi}): " + ", ".join(
         f"{m} {v:,.1f}" for m, v in d3_qps.items()), flush=True)
+
+    t0 = time.time()
+    _, fq = serve.make_knn_filtered_inputs(N_RECTS, SEED, 1, BATCH,
+                                           FILTER_EPS)
+    print(f"[20] filtered kNN engine on the phase-3 tree, windows of "
+          f"half-extent {FILTER_EPS}; static caps k=8 "
+          f"{knn_filtered.filtered_caps(tree, 8)}", flush=True)
+    phase_filtered_engine(torch, tree, data, fq[0], d1_knn, rtree,
+                          knn_filtered)
+    print(f"  phase 20: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print(f"[21] browse engine on the phase-3 tree, k = {KNN_K}", flush=True)
+    phase_browse_engine(torch, tree, points, kkern, knn_browse, knn_vector)
+    print(f"  phase 21: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+    del tree
+
+    t0 = time.time()
+    print("[22] filtered kNN and browse serve", flush=True)
+    a10_qps = phase_a10_serve(torch, dev, kkern, serve)
+    print(f"  served on {name} ({smi}): " + ", ".join(
+        f"{m} {lo} {v:,.1f}" for (m, lo), v in a10_qps.items())
+        + f"; phase 22: {time.time() - t0:.1f} s", flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which

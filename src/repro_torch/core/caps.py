@@ -1,6 +1,7 @@
 """Frontier-capacity policies of the select, join and kNN operators (the
 reference's ``core/caps.py``: ``geometric_caps``, ``adaptive_caps``,
-``select_frontier_caps``, ``join_pair_caps`` and ``knn_frontier_caps``).  Pure integer code,
+``select_frontier_caps``, ``join_pair_caps``, ``knn_frontier_caps``,
+``filtered_frontier_caps`` and ``browse_caps``).  Pure integer code,
 copied so the port imports nothing of the JAX package; the caps decide
 overflow and escalation, so they must equal the reference's on the same
 tree.
@@ -206,3 +207,52 @@ def join_pair_caps(height: int, fanout: int, result_cap: int,
     return geometric_caps(
         height, fanout, result_cap, slack=4, min_cap=base,
         max_cap=4 * result_cap, lane_round=False, final="target")
+
+
+def filtered_frontier_caps(tree, k: int, slack: int = 8,
+                           min_cap: int = 256, lanes: int = LANES,
+                           policy: str = "static") -> Tuple[int, ...]:
+    """Filtered-kNN frontier caps: the kNN policy with wider static slack
+    (the window mask thins candidates and τ tightens only on contained
+    children, so frontiers shrink later).  The adaptive tier uses plain
+    kNN's occupancy floors; escalation covers what they under-size."""
+    sizes = [lvl.n_nodes for lvl in tree.levels]
+    if policy == "adaptive":
+        return adaptive_caps(
+            tree.height - 1, tree.fanout, k, slack=slack,
+            level_sizes=sizes, lanes=lanes,
+            floor=_distance_floor(k, tree.fanout, slack))
+    return geometric_caps(
+        tree.height - 1, tree.fanout, k, slack=slack, min_cap=min_cap,
+        level_sizes=sizes, lanes=lanes)
+
+
+def browse_caps(tree, k: int, slack: int = 4, pool_slack: int = 16,
+                lanes: int = LANES) -> Tuple[Tuple[int, ...],
+                                             Tuple[int, ...], int]:
+    """Caps of the resumable browse: (frontier_caps, defer_caps,
+    pool_cap).
+
+      frontier_caps — the kNN policy for the active descent frontier
+                      (root-1 … leaf).
+      defer_caps    — per level (0 = leaf … height-1 = root), the deferred
+                      beam of τ-pruned nodes kept across resumes, at 4× the
+                      frontier slack; the root level holds the root alone.
+      pool_cap      — the scored-leaf candidate pool, emitted k at a time.
+
+    A session's state pins its buffer shapes, so browse keeps static caps
+    (no escalation).  Each floor is taken in base-``LANES`` rows and then
+    ``round_up_adaptive``d to the layout's lane width."""
+    def fl(c: int) -> int:
+        return round_up_adaptive(round_up_to_lanes(c, LANES), lanes)
+
+    sizes = [lvl.n_nodes for lvl in tree.levels]
+    frontier = tuple(fl(c) for c in geometric_caps(
+        tree.height - 1, tree.fanout, k, slack=slack, min_cap=64,
+        level_sizes=sizes, lane_round=False))
+    deep = tuple(fl(c) for c in geometric_caps(
+        tree.height - 1, tree.fanout, k, slack=4 * slack, min_cap=128,
+        level_sizes=sizes, lane_round=False))
+    # geometric_caps runs coarse → fine; defer caps index by level
+    defer = tuple(reversed(deep)) + (1,)
+    return frontier, defer, fl(max(pool_slack * k, 512))

@@ -119,12 +119,13 @@ def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
                       ctx_score, level_fused_op, leaf_fused_op, *,
                       layout: str, caps: Optional[Sequence[int]],
                       backend: str, fused: bool, caps_mode: str):
-    """The builder behind ``make_knn_bfs`` and the kNN-join's
-    ``make_knn_join_bfs``, which differ only in their score stage
-    (``ctx_score`` = (ctx, score)) and fused kernels (``level_fused_op`` /
-    ``leaf_fused_op``, the ``kernels/ops`` functions): the distance engine
-    over ``tree.levels`` with static caps or the two-tier escalating
-    runner."""
+    """The builder behind ``make_knn_bfs``, the kNN-join's
+    ``make_knn_join_bfs`` and ``knn_filtered.make_knn_filtered_bfs``, which
+    differ only in their score stage (``ctx_score`` = (ctx, score)), fused
+    kernels (``level_fused_op`` / ``leaf_fused_op``, the ``kernels/ops``
+    functions; None without a fused generation) and caps policy
+    (``spec.caps_policy``): the distance engine over ``tree.levels`` with
+    static caps or the two-tier escalating runner."""
     if k <= 0:
         raise ValueError("k must be positive")
     if fused and layout != "d1":
@@ -160,10 +161,10 @@ def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
     if caps is not None:
         return build(caps)
     lanes = layout_lanes(layout)
-    full = knn_frontier_caps(tree, k, lanes=lanes)
+    full = spec.caps_policy(tree, k, lanes=lanes)
     if caps_mode == "static":
         return build(full)
-    tight = knn_frontier_caps(tree, k, lanes=lanes, policy="adaptive")
+    tight = spec.caps_policy(tree, k, lanes=lanes, policy="adaptive")
     return traversal.maybe_escalating(build, tight, full)
 
 

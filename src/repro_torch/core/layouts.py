@@ -181,6 +181,20 @@ def d3_dequantize(qlo, qhi, scale, bias):
     return lx, ly, hx, hy
 
 
+def nearest_root(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x >= 0``
+    from an estimate ``r`` within one float32 ULP of it: ``r`` steps to
+    its upper or lower neighbour where ``x`` lies past the square of the
+    midpoint between them.  A midpoint has 25 significant bits, so its
+    square is exact in float64, and a float32 root is never a midpoint."""
+    xd = x.double()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.zeros_like(r))
+    hi = (r.double() + up.double()) * 0.5
+    lo = (r.double() + dn.double()) * 0.5
+    return torch.where(xd > hi * hi, up, torch.where(xd < lo * lo, dn, r))
+
+
 def d3_slacked_upper(sq_dist: torch.Tensor, disp: torch.Tensor
                      ) -> torch.Tensor:
     """Sound squared upper bound for the TRUE box from a squared bound
@@ -190,11 +204,14 @@ def d3_slacked_upper(sq_dist: torch.Tensor, disp: torch.Tensor
     re-mask invalid lanes.
 
     The square root must be the correctly rounded one (the reference's,
-    and the kernels' ``__fsqrt_rn``).  PyTorch's vectorized float32
-    ``sqrt`` on the CPU is not (it misses by 1 ULP on some inputs), so it
-    is taken in float64 and rounded once to float32, which is exact for a
-    float32 input."""
-    root = torch.sqrt(torch.clamp(sq_dist, min=0.0).double()).float()
+    and the kernels' ``__fsqrt_rn``).  PyTorch's CPU ``sqrt`` is not: its
+    float32 one misses by 1 ULP on some inputs, and its float64 one, on
+    the first call in a process, has returned some lanes 10^5 float64
+    ULPs off.  So the root is estimated in float64 and then settled by
+    ``nearest_root`` with exact float64 products, whatever the library
+    sqrt's last bits."""
+    x = torch.clamp(sq_dist, min=0.0)
+    root = nearest_root(x, torch.sqrt(x.double()).float())
     up = root + disp
     return up * up * np.float32(1.0 + 2.0 ** -16)
 

@@ -14,16 +14,20 @@ shares (the reference's ``core/traversal.py``).
                            (kNN): score → τ tightening → MINDIST pruning →
                            best-first beam enqueue → leaf top-k.
   ``make_escalating_engine`` — the two-tier overflow-escalating runner.
+  ``make_browse_engine`` — the distance level loop run from and into a
+                           ``BrowseState``: the resumable browse.
 
-The select, join, kNN and kNN-join specs are registered; browse,
-filtered kNN and the mesh engine arrive with their slices.
+The select, join, kNN, kNN-join, filtered-kNN and browse specs are
+registered; the mesh engine arrives with its slice (ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
+import numpy as np
 import torch
 
 from .compaction import _scatter_compact, beam_rows
@@ -78,6 +82,8 @@ _OPERATOR_MODULES = (
     "repro_torch.core.join_vector",
     "repro_torch.core.knn_vector",
     "repro_torch.core.knn_join_vector",
+    "repro_torch.core.knn_filtered",
+    "repro_torch.core.knn_browse",
 )
 
 
@@ -420,3 +426,292 @@ def maybe_escalating(build, tight_caps, full_caps):
     if tight_caps == full_caps:
         return build(tight_caps)
     return make_escalating_engine(build, tight_caps, full_caps)
+
+
+# ---------------------------------------------------------------------------
+# Resumable distance browsing — the engine's resume entry point
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BrowseState:
+    """The whole traversal state of a browse session, as tensors on one
+    device (the reference's ``BrowseState`` pytree):
+
+      queries   — (B, Q) query coordinates
+      pool_ids/pool_d — (B, pool_cap) scored but unemitted leaf candidates,
+                  ascending by distance
+      def_ids/def_d — per level (0 … height-1): the τ-deferred node beams,
+                  children a past descent pruned, kept with their MINDIST
+                  so a later batch can re-activate them
+      lost      — (B,) smallest distance any bounded beam ever dropped;
+                  emission at or past it flags ``overflow``
+      emitted   — (B,) neighbours emitted so far
+      overflow  — (B,) bool, sticky
+      ctr       — Counters summed over the descents
+      descents  — resume descents run (0-d)
+
+    ``to(device)`` moves it and ``clone()`` copies it; either resumes
+    exactly where the session stood."""
+    queries: torch.Tensor
+    pool_ids: torch.Tensor
+    pool_d: torch.Tensor
+    def_ids: Tuple[torch.Tensor, ...]
+    def_d: Tuple[torch.Tensor, ...]
+    lost: torch.Tensor
+    emitted: torch.Tensor
+    overflow: torch.Tensor
+    ctr: Counters
+    descents: torch.Tensor
+
+    def _map(self, fn) -> "BrowseState":
+        return BrowseState(
+            queries=fn(self.queries), pool_ids=fn(self.pool_ids),
+            pool_d=fn(self.pool_d),
+            def_ids=tuple(fn(a) for a in self.def_ids),
+            def_d=tuple(fn(a) for a in self.def_d), lost=fn(self.lost),
+            emitted=fn(self.emitted), overflow=fn(self.overflow),
+            ctr=Counters(*[fn(v) for v in self.ctr.values()]),
+            descents=fn(self.descents))
+
+    def to(self, device) -> "BrowseState":
+        return self._map(lambda a: a.to(device))
+
+    def clone(self) -> "BrowseState":
+        return self._map(torch.clone)
+
+
+def browse_state_from_arrays(mapping: Mapping, device="cuda"
+                             ) -> BrowseState:
+    """A reference ``BrowseState``'s leaves as numpy arrays → the port's
+    state on ``device``, so the port resumes a session the reference
+    began.  ``mapping`` has the ``BrowseState`` field names; ``def_ids``
+    and ``def_d`` are per-level sequences and ``ctr`` maps each
+    ``Counters`` field to its value."""
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(
+            device)
+
+    ctr = mapping["ctr"]
+    return BrowseState(
+        queries=put(mapping["queries"], np.float32),
+        pool_ids=put(mapping["pool_ids"], np.int32),
+        pool_d=put(mapping["pool_d"], np.float32),
+        def_ids=tuple(put(a, np.int32) for a in mapping["def_ids"]),
+        def_d=tuple(put(a, np.float32) for a in mapping["def_d"]),
+        lost=put(mapping["lost"], np.float32),
+        emitted=put(mapping["emitted"], np.int32),
+        overflow=put(mapping["overflow"], np.bool_),
+        ctr=Counters(*[put(ctr[f.name], np.int32)
+                       for f in dataclasses.fields(Counters)]),
+        descents=put(mapping["descents"], np.int32))
+
+
+class BrowseEngine(NamedTuple):
+    """The resumable browse's entry points (see ``make_browse_engine``)."""
+    init: Callable
+    needs_descent: Callable
+    resume: Callable
+    emit: Callable
+
+
+def _beam_with_bound(ids: torch.Tensor, d: torch.Tensor, mask: torch.Tensor,
+                     cap: int):
+    """``compaction.beam_rows`` that also returns the kept distances and the
+    smallest dropped distance (+inf when nothing was dropped): the browse's
+    lost-bound bookkeeping.  The reference takes ``lax.top_k`` of the
+    negated distances (lowest lane first among ties, the bound at position
+    ``cap``); a stable sort gives the same order."""
+    b, m = ids.shape
+    pad = float(DIST_PAD)
+    d = torch.where(mask, d, pad)
+    v = torch.where(mask, ids, -1)
+    if m < cap + 1:
+        d = torch.cat([d, d.new_full((b, cap + 1 - m), pad)], dim=1)
+        v = torch.cat([v, v.new_full((b, cap + 1 - m), -1)], dim=1)
+    dd, pos = torch.sort(d, dim=1, stable=True)
+    vv = torch.gather(v, 1, pos[:, :cap])
+    kept = dd[:, :cap] < float(DIST_VALID_MAX)
+    dropped = dd[:, cap]
+    bound = torch.where(dropped < float(DIST_VALID_MAX), dropped,
+                        float("inf"))
+    return (torch.where(kept, vv, -1), torch.where(kept, dd[:, :cap], pad),
+            bound)
+
+
+def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
+                       caps: Sequence[int], defer_caps: Sequence[int],
+                       pool_cap: int, score) -> BrowseEngine:
+    """The resumable browse: the distance level loop, run from and into a
+    ``BrowseState``.  Per resume descent, root to leaf:
+
+      inject — merge the level's deferred nodes with MINDIST <= τ into the
+               active frontier
+      score  — the operator's score stage, unchanged
+      τ      — starts at the ``batch_k``-th pool distance (the pool holds
+               real objects) and tightens to the ``batch_k``-th smallest
+               child MINMAXDIST where C·F >= batch_k
+      prune  — children with MINDIST > τ are stashed in the level's
+               deferred beam, not dropped
+      leaf   — every valid candidate beam-merges into the pool
+
+    Every bounded beam folds its smallest dropped distance into
+    ``state.lost``; emission flags ``overflow`` where an emitted distance
+    reaches it, and sets ``Counters.overflow``.
+
+      init(queries)        → a fresh state, the root deferred at the top
+      needs_descent(state) → host bool: can the pool not yet serve
+                             ``batch_k`` for sure?  (one device sync)
+      resume(ctx, state)   → the state after one full descent
+      emit(state)          → (ids (B, batch_k), d (B, batch_k), state)
+    """
+    caps = tuple(caps)
+    defer_caps = tuple(defer_caps)
+    if len(defer_caps) != height:
+        raise ValueError(f"need {height} defer caps, got {len(defer_caps)}")
+    if pool_cap < batch_k:
+        raise ValueError("pool_cap must be >= batch_k")
+    sm = spec.stage_model
+    pad, valid_max = float(DIST_PAD), float(DIST_VALID_MAX)
+
+    def init(queries: torch.Tensor) -> BrowseState:
+        b, dev = queries.shape[0], queries.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        def_ids, def_d = [], []
+        for lj in range(height):
+            dc = defer_caps[lj]
+            if lj == height - 1:
+                # the root is the first deferred node, at distance 0
+                def_ids.append(torch.zeros((b, dc), **i32))
+                def_d.append(torch.zeros((b, dc), **f32))
+            else:
+                def_ids.append(torch.full((b, dc), -1, **i32))
+                def_d.append(torch.full((b, dc), pad, **f32))
+        zero = torch.zeros((), **i32)
+        return BrowseState(
+            queries=queries,
+            pool_ids=torch.full((b, pool_cap), -1, **i32),
+            pool_d=torch.full((b, pool_cap), pad, **f32),
+            def_ids=tuple(def_ids), def_d=tuple(def_d),
+            lost=torch.full((b,), float("inf"), **f32),
+            emitted=torch.zeros((b,), **i32),
+            overflow=torch.zeros((b,), dtype=torch.bool, device=dev),
+            ctr=Counters(*([zero] * 10), lanes_live=occupancy_zeros(dev),
+                         lanes_padded=occupancy_zeros(dev),
+                         escalations=zero),
+            descents=zero)
+
+    def needs_descent(state: BrowseState) -> bool:
+        min_def = torch.stack([d.amin(dim=1) for d in state.def_d]).amin(0)
+        pool_kth = state.pool_d[:, batch_k - 1]
+        pool_kth = torch.where(pool_kth < valid_max, pool_kth, float("inf"))
+        return bool(((min_def < valid_max) & (min_def <= pool_kth)).any())
+
+    def resume(ctx, state: BrowseState) -> BrowseState:
+        queries = state.queries
+        b, dev = queries.shape[0], queries.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        # τ starts at the batch_k-th pool distance: the pool holds real
+        # objects, so batch_k of the next neighbours lie within it
+        pool_kth = state.pool_d[:, batch_k - 1]
+        tau = torch.where(pool_kth < valid_max, pool_kth, pad)
+        frontier = torch.full((b, 1), -1, **i32)
+        fdist = torch.full((b, 1), pad, dtype=torch.float32, device=dev)
+        pool_ids, pool_d = state.pool_ids, state.pool_d
+        def_ids, def_d = list(state.def_ids), list(state.def_d)
+        lost = state.lost
+        zero = torch.zeros((), **i32)
+        nodes = preds = vops = enq = pruned = waste = zero
+        occ_live, occ_padded = occupancy_zeros(dev), occupancy_zeros(dev)
+        disp = 0
+        for li in range(height - 1, -1, -1):
+            leaf = li == 0
+            fcap = 1 if li == height - 1 else caps[height - 2 - li]
+            # inject: activate this level's deferred nodes within τ
+            act = (def_ids[li] >= 0) & (def_d[li] <= tau[:, None])
+            comb_d = torch.cat([fdist, torch.where(act, def_d[li], pad)], 1)
+            ids, _, bound = _beam_with_bound(
+                torch.cat([frontier, def_ids[li]], 1), comb_d,
+                comb_d < valid_max, fcap)
+            lost = torch.minimum(lost, bound)
+            def_ids[li] = torch.where(act, -1, def_ids[li])
+            def_d[li] = torch.where(act, pad, def_d[li])
+            # score: the operator's stage, as in the fixed-k engine
+            fvalid = ids >= 0
+            n_front = fvalid.sum(dtype=torch.int32)
+            nodes = nodes + n_front
+            _occ_record(occ_live, occ_padded, step=height - 1 - li,
+                        valid=fvalid, width=ids.shape[1], batch=b)
+            md, mmd, ptr, stages = score(ctx, li, ids, queries, leaf)
+            f = md.shape[-1]
+            ev = stages if leaf else 2 * stages
+            preds = preds + n_front * (f * ev)
+            vops = vops + n_front * ev
+            entry_valid = md < valid_max
+            waste = waste + n_front * f - entry_valid.sum(dtype=torch.int32)
+            flat_d = md.reshape(b, -1)
+            flat_ptr = ptr.reshape(b, -1)
+            if leaf:
+                disp += sm.leaf
+                # every scored candidate is a real object: pool it
+                pool_d2 = torch.cat([pool_d, flat_d], 1)
+                pool_ids, pool_d, bound = _beam_with_bound(
+                    torch.cat([pool_ids, flat_ptr], 1), pool_d2,
+                    pool_d2 < valid_max, pool_cap)
+                lost = torch.minimum(lost, bound)
+                continue
+            disp += sm.inner
+            mflat = mmd.reshape(b, -1)
+            if mflat.shape[1] >= batch_k:       # the τ soundness gate
+                kth = torch.topk(mflat, batch_k, dim=1, largest=False,
+                                 sorted=True).values[:, batch_k - 1]
+                tau = torch.minimum(tau, kth)
+            keep = entry_valid & (md <= tau[:, None, None])
+            n_keep = keep.sum(dtype=torch.int32)
+            pruned = pruned + (entry_valid.sum(dtype=torch.int32) - n_keep)
+            frontier, fdist, bound = _beam_with_bound(
+                flat_ptr, flat_d, keep.reshape(b, -1),
+                caps[height - 1 - li])
+            lost = torch.minimum(lost, bound)
+            enq = enq + n_keep
+            # stash: τ-pruned children stay reachable for later batches
+            rej = (entry_valid & ~keep).reshape(b, -1)
+            dj_d = torch.cat([def_d[li - 1], torch.where(rej, flat_d, pad)],
+                             1)
+            def_ids[li - 1], def_d[li - 1], bound = _beam_with_bound(
+                torch.cat([def_ids[li - 1], flat_ptr], 1), dj_d,
+                dj_d < valid_max, defer_caps[li - 1])
+            lost = torch.minimum(lost, bound)
+        dctr = Counters(nodes_visited=nodes, predicates=preds,
+                        vector_ops=vops, enqueued=enq, pruned_inner=pruned,
+                        masked_waste=waste,
+                        dispatches=torch.tensor(disp, **i32),
+                        lanes_live=occ_live, lanes_padded=occ_padded)
+        return dataclasses.replace(
+            state, pool_ids=pool_ids, pool_d=pool_d,
+            def_ids=tuple(def_ids), def_d=tuple(def_d), lost=lost,
+            ctr=state.ctr + dctr, descents=state.descents + 1)
+
+    def emit(state: BrowseState):
+        d = state.pool_d[:, :batch_k]
+        found = d < valid_max
+        out_ids = torch.where(found, state.pool_ids[:, :batch_k], -1)
+        out_d = torch.where(found, d, float("inf"))
+        crossed = (found & (d >= state.lost[:, None])).any(dim=1)
+        # the crossing also sets Counters.overflow, the flag every other
+        # operator's callers read
+        ctr = dataclasses.replace(
+            state.ctr,
+            overflow=state.ctr.overflow | crossed.any().to(torch.int32))
+        new = dataclasses.replace(
+            state,
+            pool_ids=torch.cat([state.pool_ids[:, batch_k:],
+                                torch.full_like(out_ids, -1)], 1),
+            pool_d=torch.cat([state.pool_d[:, batch_k:],
+                              torch.full_like(d, pad)], 1),
+            emitted=state.emitted + found.sum(dim=1, dtype=torch.int32),
+            overflow=state.overflow | crossed, ctr=ctr)
+        return out_ids, out_d, new
+
+    return BrowseEngine(init=init, needs_descent=needs_descent,
+                        resume=resume, emit=emit)

@@ -12,9 +12,11 @@ placement.  The spatial join of a probe relation merges its (probe id,
 global data id) pairs by a lexicographic sort on the host.  kNN and the
 kNN-join route in two phases on the partition MBRs (primary partition,
 then the partitions within the primary's k-th distance) and merge the
-candidates by (distance, global id).
+candidates by (distance, global id); filtered kNN routes the same way on
+its point columns.
 
-The single-program mesh path arrives with the fleet slice (ROADMAP A11).
+The single-program mesh path, and the distributed browse that runs on it,
+arrive with the fleet slice (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -243,6 +245,28 @@ class SpatialShards:
         dmat = mindist_rect_matrix_np(qrects, self.router_mbrs)   # (B, P)
         return self._two_phase_knn(qrects, k, dmat, "knn_join")
 
+    def knn_filtered(self, queries: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Distributed filtered kNN (core/knn_filtered.py): rows (px, py,
+        wlx, wly, whx, why) → the k nearest data rects intersecting each
+        row's window, as (global ids (B, k) int64, squared distances (B,
+        k) float64, overflow flag).  Routed as ``knn`` on the point
+        columns: a partition MBR's MINDIST lower-bounds every candidate's
+        distance, filtered or not, so the τ bound stays sound."""
+        queries = np.asarray(queries, np.float32)
+        dmat = mindist_matrix_np(queries[:, :2], self.router_mbrs)
+        return self._two_phase_knn(queries, k, dmat, "knn_filtered")
+
+    def browse(self, points: np.ndarray, k: int):
+        """Distributed browsing needs one cursor per partition and a
+        cross-shard pool merge per batch, which the reference runs on its
+        mesh path only; the port serves browse from a single tree
+        (``core/knn_browse.py``) until that path is ported."""
+        raise NotImplementedError(
+            "distributed browsing runs on the mesh path, not ported yet "
+            "(ROADMAP item A11); browse a single tree with "
+            "core/knn_browse.make_browse_bfs")
+
     def _two_phase_knn(self, queries: np.ndarray, k: int, dmat: np.ndarray,
                        op: str) -> Tuple[np.ndarray, np.ndarray, bool]:
         """Primary-partition answer → τ bound → τ-bounded secondary
@@ -307,6 +331,8 @@ class SpatialShards:
         spec = traversal.get_spec(op)
         if k is None and spec.kind == "distance":
             raise ValueError(f"warming {op!r} needs k")
+        if op == "browse":
+            self.browse(np.zeros((batch, 2), np.float32), k)
         if op == "join":
             if probe is None:
                 raise ValueError("join warmup needs the probe relation")

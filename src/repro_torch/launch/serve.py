@@ -1,8 +1,9 @@
 """Spatial query service of the port: builds a spatially-partitioned
 index fleet on the device (distributed/spatial_shard.py) and serves batched
 range-select requests behind the straggler pool (runtime/straggler.py),
-spatial joins of a probe relation against the fleet, batched exact kNN, or
-the batched kNN-join of query rects.
+spatial joins of a probe relation against the fleet, batched exact kNN,
+the batched kNN-join of query rects, filtered kNN (the k nearest inside a
+per-query window), or resumable browse sessions over one tree.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 200000 \\
         --partitions 8 --batches 20 --batch-size 64 --selectivity 0.001
@@ -14,15 +15,20 @@ the batched kNN-join of query rects.
         --n 2000000 --k 8 --query-eps 0.002
     PYTHONPATH=src python -m repro_torch.launch.serve --layout d3 \\
         --mode knn --n 2000000 --k 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn-filtered \\
+        --n 2000000 --k 8 --filter-eps 0.2
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode browse \\
+        --n 2000000 --k 8 --browse-steps 4
 
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
 raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``,
-``knn`` and ``knn-join`` are ported; the other modes of the reference exit
-with a "not ported yet" message naming their ROADMAP item.  ``--layout``
-picks the fleet's node layout: ``d1`` (the default) or the quantized
-``d3``, which serves select, kNN and kNN-join; ``--mode join --layout d3``
-exits "not ported yet" too.
+``knn``, ``knn-join``, ``knn-filtered`` and ``browse`` are ported; ``lm``
+exits with a "not ported yet" message naming its ROADMAP item.  Browse is
+served from one tree over the whole dataset, as the reference serves it
+off its mesh path.  ``--layout`` picks the node layout: ``d1`` (the
+default) or the quantized ``d3``, which serves every mode but ``join``;
+``--mode join --layout d3`` exits "not ported yet" too.
 """
 from __future__ import annotations
 
@@ -45,10 +51,12 @@ MODE_TO_SPEC = {
     "join": "join",
     "knn": "knn",
     "knn-join": "knn_join",
+    "knn-filtered": "knn_filtered",
+    "browse": "browse",
 }
 
 # modes of the reference that later slices port
-NOT_PORTED = {"knn-filtered": "A10", "browse": "A10", "lm": "A14"}
+NOT_PORTED = {"lm": "A14"}
 
 
 def make_rects(n: int, seed: int) -> np.ndarray:
@@ -87,6 +95,17 @@ def make_knn_join_inputs(n: int, seed: int, batches: int, batch_size: int,
     rects, centres = make_knn_inputs(n, seed, batches, batch_size)
     e = np.float32(eps)
     return rects, np.concatenate([centres - e, centres + e], axis=-1)
+
+
+def make_knn_filtered_inputs(n: int, seed: int, batches: int,
+                             batch_size: int, eps: float):
+    """The served dataset and the filtered kNN's query rows, as the
+    reference draws them from one generator: ``make_knn_inputs``' data and
+    query points, each point followed by its window of half-extent
+    ``eps``.  Returns (rects, qs (batches, batch_size, 6))."""
+    rects, pts = make_knn_inputs(n, seed, batches, batch_size)
+    e = np.float32(eps)
+    return rects, np.concatenate([pts, pts - e, pts + e], axis=-1)
 
 
 def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
@@ -233,11 +252,88 @@ def _serve_knn_join(args, spec):
             "first_batch": first}
 
 
+def _serve_knn_filtered(args, spec):
+    """Filtered kNN over the partitioned fleet: each query's k nearest
+    data rects among those intersecting its window (half-extent
+    ``--filter-eps``), routed in two phases on the point columns as kNN.
+    Returns q/s, the neighbour rows returned, the overflow flag, and the
+    first batch's (ids, dists)."""
+    rects, qs = make_knn_filtered_inputs(args.n, args.seed, args.batches,
+                                         args.batch_size, args.filter_eps)
+    shards = _build_shards(args, rects)
+    shards.warm("knn_filtered", args.batch_size, k=args.k)
+    t0 = time.time()
+    returned = 0
+    overflowed = False
+    first = None
+    for b in range(args.batches):
+        ids, dists, ovf = shards.knn_filtered(qs[b], args.k)
+        first = (ids, dists) if first is None else first
+        returned += int((ids >= 0).sum())
+        overflowed |= ovf
+    dt = time.time() - t0
+    qps = args.batches * args.batch_size / dt
+    print(f"served {args.batches} batches × {args.batch_size} filtered-kNN "
+          f"queries (k={args.k}, window ±{args.filter_eps}) in {dt:.2f}s → "
+          f"{qps:,.0f} q/s, {returned} neighbor rows"
+          + (", WARNING: frontier overflow — results may be approximate"
+             if overflowed else ""))
+    return {"qps": qps, "neighbors": returned, "overflow": overflowed,
+            "first_batch": first}
+
+
+def _serve_browse(args, spec):
+    """Browse sessions over one tree of the whole dataset (the reference's
+    path off its mesh): each request opens a session over its query batch
+    and takes ``--browse-steps`` batches of k neighbours.  Returns
+    sessions·q/s, the neighbour rows returned, the overflow flag (a lost
+    bound crossed), and the first session's (ids, dists), each (B,
+    browse_steps·k)."""
+    from ..core import knn_browse
+
+    rects, qs = make_knn_inputs(args.n, args.seed, args.batches,
+                                args.batch_size)
+    t0 = time.time()
+    tree = rtree.build_rtree(rects, fanout=args.fanout, device=args.device)
+    print(f"built tree over {args.n} rects on {args.device} in "
+          f"{time.time() - t0:.2f}s")
+    start = knn_browse.make_browse_bfs(tree, args.k, layout=args.layout)
+
+    def session(points):
+        cursor = start(points)
+        out = [cursor.next_batch() for _ in range(args.browse_steps)]
+        return (np.concatenate([i for i, _ in out], axis=1),
+                np.concatenate([d for _, d in out], axis=1),
+                bool(cursor.overflow.any()))
+
+    session(qs[0])                  # warm: one session at the served shape
+    t0 = time.time()
+    returned = 0
+    overflowed = False
+    first = None
+    for b in range(args.batches):
+        ids, dists, ovf = session(qs[b])
+        first = (ids, dists) if first is None else first
+        returned += int((ids >= 0).sum())
+        overflowed |= ovf
+    dt = time.time() - t0
+    qps = args.batches * args.batch_size / dt
+    print(f"served {args.batches} browse sessions × {args.batch_size} "
+          f"queries × {args.browse_steps} batches of k={args.k} in "
+          f"{dt:.2f}s → {qps:,.0f} sessions·q/s, {returned} neighbor rows"
+          + (", WARNING: lost-bound crossed — results may be approximate"
+             if overflowed else ""))
+    return {"qps": qps, "neighbors": returned, "overflow": overflowed,
+            "first_batch": first}
+
+
 RUNNERS = {
     "select": _serve_select,
     "join": _serve_join,
     "knn": _serve_knn,
     "knn_join": _serve_knn_join,
+    "knn_filtered": _serve_knn_filtered,
+    "browse": _serve_browse,
 }
 
 
@@ -254,7 +350,13 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--selectivity", type=float, default=0.001)
     ap.add_argument("--k", type=int, default=8,
-                    help="neighbours per query (knn, knn-join modes)")
+                    help="neighbours per query (knn, knn-join, knn-filtered "
+                         "modes) and per browse batch")
+    ap.add_argument("--filter-eps", type=float, default=0.2,
+                    help="half-extent of the per-query filter window "
+                         "(knn-filtered mode)")
+    ap.add_argument("--browse-steps", type=int, default=4,
+                    help="next_batch() calls per browse session")
     ap.add_argument("--join-cap", type=int, default=1 << 17,
                     help="result-pair capacity (join mode)")
     ap.add_argument("--query-eps", type=float, default=0.002,
@@ -288,6 +390,7 @@ def main(argv=None):
         args.batch_size = min(args.batch_size, 8)
         args.join_cap = min(args.join_cap, 1 << 15)
         args.k = min(args.k, 4)
+        args.browse_steps = min(args.browse_steps, 2)
         # slow shared smoke boxes: a lapsed deadline would only add
         # spurious re-issue work, never find a bug
         args.deadline = max(args.deadline, 60.0)

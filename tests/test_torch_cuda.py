@@ -7,7 +7,9 @@ installed:
 
 B1–B14 are held against their plain PyTorch twins, and the select, join,
 kNN and kNN-join engines on the card (D1, and D3 for all but the join)
-against the same engines on the CPU.  B1–B4, B11 and B12 are compares and
+against the same engines on the CPU; a browse session on the card (B5,
+and B13 on D3) against its twin session on the card, and filtered kNN
+(PyTorch ops) on the card against the same engine on the CPU.  B1–B4, B11 and B12 are compares and
 integer arithmetic; B5–B10, B13 and B14 compute distances with the
 roundings pinned in ``core/geometry.py`` and ``core/layouts.py``.  So
 everything is exact, float bits included.
@@ -16,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (join_vector, knn_join_vector, knn_vector,
-                              layouts, rtree, select_vector)
+from repro_torch.core import (join_vector, knn_browse, knn_filtered,
+                              knn_join_vector, knn_vector, layouts, rtree,
+                              select_vector)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rtree_join as jkern
 from repro_torch.kernels import rtree_knn as kkern
@@ -793,3 +796,70 @@ def test_cuda_d3_engine_equals_cpu_engine(d3_inst, op, caps_mode):
                            caps_mode=caps_mode)
     _bits_equal(ca, da)
     _bits_equal(cb, db)
+
+
+# ---------------------------------------------------------------------------
+# browse (B5, B13) and filtered kNN on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def a10_inst():
+    rng = np.random.default_rng(47)
+    rects = uniform_rects(rng, 20000, eps=0.001)
+    pts = rng.random((16, 2)).astype(np.float32)
+    return rects, pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fanout", [13, 64])
+@pytest.mark.parametrize("layout", ["d1", "d3"])
+def test_cuda_browse_equals_twin_session(a10_inst, layout, fanout):
+    """A browse session on the card (B5, and B13 on D3's internal levels)
+    ≡ the twin session on the card, step by step: ids, distance bits,
+    overflow and the whole state, counters included."""
+    dev = _need_gpu()
+    rects, pts = a10_inst
+    tree = rtree.build_rtree(rects, fanout=fanout, device=dev)
+    cur = knn_browse.browse_knn(tree, pts, 8, layout=layout)
+    twin = knn_browse.browse_knn(tree, pts, 8, layout=layout,
+                                 backend="torch")
+    name = "knn_level_dists_d3" if layout == "d3" else "knn_level_dists"
+    before = kkern.launch_counts()
+    for step in range(72):           # 576 neighbours: past the 512-slot pool
+        for g, w in zip(cur.next_batch(), twin.next_batch()):
+            _bits_equal(torch.from_numpy(g), torch.from_numpy(w))
+        a, b = cur.state, twin.state
+        for f in ("pool_ids", "pool_d", "lost", "emitted", "overflow",
+                  "descents"):
+            _bits_equal(getattr(a, f), getattr(b, f))
+        for x, y in zip(a.def_ids + a.def_d, b.def_ids + b.def_d):
+            _bits_equal(x, y)
+        assert a.ctr.asdict() == b.ctr.asdict(), step
+    assert int(cur.state.descents) > 1
+    after = kkern.launch_counts()
+    assert after[name] > before[name]
+    assert after["knn_level_dists"] > before["knn_level_dists"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fanout", [13, 64])
+@pytest.mark.parametrize("layout", ["d1", "d3"])
+def test_cuda_knn_filtered_equals_cpu_engine(a10_inst, layout, fanout):
+    """Filtered kNN on the card ≡ the same engine on the CPU: ids,
+    distance bits and every counter, windows of half-extent 0.2 and
+    0.05."""
+    dev = _need_gpu()
+    rects, pts = a10_inst
+    for eps in (0.2, 0.05):
+        e = np.float32(eps)
+        qs = np.concatenate([pts, pts - e, pts + e], axis=1)
+        outs = []
+        for device in (dev, "cpu"):
+            tree = rtree.build_rtree(rects, fanout=fanout, device=device)
+            outs.append(knn_filtered.make_knn_filtered_bfs(
+                tree, 8, layout=layout)(qs))
+        (ci, cd, ct), (ti, td, tt) = outs
+        assert ci.is_cuda
+        _bits_equal(ci, ti)
+        _bits_equal(cd, td)
+        assert ct.asdict() == tt.asdict()

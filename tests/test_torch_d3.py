@@ -163,6 +163,26 @@ def test_slacked_upper_rounds_its_square_root_once():
     _assert_same(got, want, "slacked upper")
 
 
+def test_nearest_root_settles_a_root_one_ulp_off():
+    """``nearest_root`` returns the correctly rounded root from estimates
+    one float32 ULP above or below it (as a library sqrt that misses in its
+    last bits gives them), on the inputs of the test above, at zero and on
+    both sides of powers of two."""
+    rng = np.random.default_rng(3)
+    m = np.concatenate([(rng.random(200_000) * 1e-3).astype(np.float32),
+                        np.float32([0.0, 1.0, 4.0, 2.0 ** -20, 3e38])])
+    m = np.concatenate([m, np.nextafter(m[-4:], np.float32(0)),
+                        np.nextafter(m[-4:], np.float32(np.inf))])
+    want = np.sqrt(m.astype(np.float64)).astype(np.float32)
+    step = rng.integers(-1, 2, m.shape)
+    est = np.where(step > 0, np.nextafter(want, np.float32(np.inf)),
+                   np.where(step < 0, np.nextafter(want, np.float32(0)),
+                            want))
+    assert (est != want).sum() > 100_000
+    got = tlayouts.nearest_root(torch.from_numpy(m), torch.from_numpy(est))
+    _assert_same(got.numpy(), want, "nearest root")
+
+
 # ---------------------------------------------------------------------------
 # the D3-trace distance forms and the B13 / B14 twins
 # ---------------------------------------------------------------------------

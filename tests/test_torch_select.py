@@ -174,7 +174,8 @@ def test_generic_build_equals_wrapper(inst):
     for x, y in zip(a[:2], b[:2]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert a[2].asdict() == b[2].asdict()
-    assert ttraversal.spec_names() == ("join", "knn", "knn_join", "select")
+    assert ttraversal.spec_names() == ("browse", "join", "knn",
+                                       "knn_filtered", "knn_join", "select")
 
 
 def test_escalation_equals_reference():
@@ -244,8 +245,9 @@ def test_serve_dryrun_cpu():
 
 
 def test_serve_unported_mode_exits():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--mode", "knn-filtered", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not ported yet.*A14"):
+        serve.main(["--mode", "lm", "--device", "cpu"])
+    assert serve.NOT_PORTED == {"lm": "A14"}
 
 
 # ---------------------------------------------------------------------------
