@@ -126,7 +126,25 @@ Phases, each of which fails the run loudly:
 22. filtered kNN and browse serve: ``serve.main(["--mode", "knn-filtered",
    ...])`` and ``["--mode", "browse", ...]`` at 2M points on cuda, D1 and
    D3; nothing overflows, the first batch against a float64 brute force,
-   D3 equal to D1, B5 (and on D3 B13) launches grow in browse; q/s.
+   D3 equal to D1, B5 (and on D3 B13) launches grow in browse; q/s;
+23. mesh engines: the 2M points in the 9 partitions of ``serve
+   --partitions 8``, packed into one forest (``enable_mesh``), D1 and D3:
+   the mesh programs of select, kNN and kNN-join (k in {8, 64}), filtered
+   kNN (k = 8), the distributed browse (k = 8, 4 steps) and the join (D1,
+   ``--join-cap`` 1048576, O3/O4) each ≡ its twin program on the card
+   (ids, counts or distance bits, every counter but dispatches; the
+   browse step by step, each partition's counters) and ≡ the host path on
+   the same fleet; B5 a kNN batch = 2 × the forest's height (on D3 B5 2
+   and B13 2 × (height - 1)), and over 4 partitions too; for the mesh and
+   the host call: launches by kernel, ms per batch, busy share, peak
+   device memory;
+24. mesh serve: ``serve.main([... "--mesh", "on"])`` and ``"off"`` for
+   spatial, join (D1), kNN, kNN-join, filtered kNN and browse, D1 and D3:
+   nothing overflows, the two paths' first batches equal (browse: the
+   first k ids and every distance bit of the first session), q/s, joins/s
+   and sessions·q/s side by side, B5 on the served mesh kNN = (batches +
+   1) × 2 × height; B1, B3, B5, B8, B11, B13 and B14 launch on the mesh
+   path (``mesh_launches`` in the kernels' line).
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -245,6 +263,8 @@ KNN_JOIN_D3_REF = {
 # next_batch() calls, as served, and one of BROWSE_DEEP, which resumes
 # more than once
 FILTER_EPS, BROWSE_STEPS, BROWSE_DEEP = 0.2, 4, 72
+# the mesh path's fleet: ``serve --partitions 8`` builds a 3×3 grid
+MESH_PARTITIONS, MESH_KS = 8, (8, 64)
 # the reference's numbers for the first served filtered batch (64 points,
 # windows of half-extent FILTER_EPS) on the phase-3 tree: the JAX package's
 # make_knn_filtered_bfs by (layout, k), equal in both caps tiers (padded
@@ -1997,6 +2017,313 @@ def phase_a10_serve(torch, dev, kkern, serve):
     return qps
 
 
+# ---------------------------------------------------------------------------
+# the fleet's single-program (mesh) path (phases 23-24)
+# ---------------------------------------------------------------------------
+
+def counts_of(mods) -> dict:
+    """Every kernel wrapper's launch count in ``mods``, the nonzero ones."""
+    return {k: v for m in mods for k, v in m.launch_counts().items() if v}
+
+
+def mesh_cell(torch, fn, mods, iters: int = 3):
+    """One engine call ``fn``, warm: (its launches by kernel, ms per call on
+    the host clock, peak device MiB and the MiB above what was resident
+    before, the profiler's busy share and top device items)."""
+    fn()
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = counts_of(mods)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(fn, iters, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    return (launches, ms, peak / 2 ** 20, (peak - base) / 2 ** 20,
+            profile_batches(fn, iters=iters))
+
+
+def print_cells(what, mesh, host) -> None:
+    for path, (launches, ms, peak, above, prof) in (("mesh", mesh),
+                                                    ("host", host)):
+        print(f"  {what} {path}: {ms:.3f} ms per batch, launches {launches}"
+              f", peak {peak:.1f} MiB ({above:.1f} above resident)",
+              flush=True)
+        print(f"    {prof}", flush=True)
+
+
+def same_counters(a, b) -> bool:
+    """Every ``Counters`` field but ``dispatches`` equal."""
+    a, b = a.asdict(), b.asdict()
+    a.pop("dispatches")
+    b.pop("dispatches")
+    return a == b
+
+
+def same_neighbours(ai, ad, bi, bd) -> bool:
+    """Two (ids, squared distances) answers agree: the distances bit for
+    bit, and each row's ids as a set within each run of tied distances.
+    The host path keeps a single partition's answer in its engine's lane
+    order at a tie, the mesh path orders every merge by (distance, id),
+    as the reference's two paths do."""
+    ad, bd = np.asarray(ad, np.float32), np.asarray(bd, np.float32)
+    if not np.array_equal(ad.view(np.int32), bd.view(np.int32)):
+        return False
+    return all(np.array_equal(ai[r][np.lexsort((ai[r], ad[r]))],
+                              bi[r][np.lexsort((bi[r], bd[r]))])
+               for r in range(len(ai)))
+
+
+def mesh_distance_cell(torch, shards, traversal, mods, op, queries, k,
+                       what):
+    """A distance operator's mesh program over ``shards``' forest ≡ its
+    twin program on the card (ids, distance bits, every counter but
+    dispatches) ≡ the host path (ids, distances, overflow); then the mesh
+    and host calls timed.  Returns (mesh cell, host cell, mesh ids, d)."""
+    prog = shards._mesh_program(op, k=k)
+    twin = traversal.make_mesh_engine(op, shards._forest, k=k,
+                                      layout=shards.layout, backend="torch")
+    ids, d, ctr = prog(queries)
+    tids, td, tctr = twin(queries)
+    assert_bits_equal(ids, tids, f"{what} ids")
+    assert_bits_equal(d, td, f"{what} dists")
+    check(same_counters(ctr, tctr), f"{what} counters {ctr.asdict()} vs "
+          f"the twin's {tctr.asdict()}")
+    q = queries.cpu().numpy()
+    host = shards.host_view()
+    mi, md, mo = getattr(shards, op)(q, k)
+    hi, hd, ho = getattr(host, op)(q, k)
+    check(same_neighbours(mi, md, hi, hd) and mo == ho and not mo,
+          f"{what}: mesh and host path differ (overflow {mo}, {ho})")
+    print(f"  {what}: ≡ twin program (ids, distance bits, counters) and "
+          f"the host path; counters {ctr.asdict()}", flush=True)
+    cells = (mesh_cell(torch, lambda: getattr(shards, op)(q, k), mods),
+             mesh_cell(torch, lambda: getattr(host, op)(q, k), mods))
+    print_cells(what, *cells)
+    return cells + (mi, md)
+
+
+def phase_mesh_engines(torch, dev, mods, serve, SpatialShards, traversal,
+                       knn_browse, rtree, elevate):
+    """Phase 23: the mesh programs over the 9-partition fleet of 2M points
+    (``serve --partitions 8``), D1 and D3: select, kNN and kNN-join (k in
+    MESH_KS), filtered kNN (k = 8), the distributed browse (k = 8, 4
+    steps) and the join (D1), each ≡ its twin program on the card (every
+    counter but dispatches) and ≡ the host path on the same fleet; B5 a
+    kNN batch is 2 × the forest's height, also over 4 partitions;
+    launches, ms per batch, busy share and peak memory of the mesh and
+    host calls.  Returns {layout: forest height}."""
+    rects = serve.make_rects(N_RECTS, SEED)
+    sel_q = torch.from_numpy(serve.make_queries(
+        1, BATCH, SELECTIVITY, SEED + 1)[0]).to(dev)
+    pts = torch.from_numpy(serve.make_knn_inputs(N_RECTS, SEED, 1,
+                                                 BATCH)[1][0]).to(dev)
+    qrects = torch.from_numpy(serve.make_knn_join_inputs(
+        N_RECTS, SEED, 1, BATCH, QUERY_EPS)[1][0]).to(dev)
+    fq = torch.from_numpy(serve.make_knn_filtered_inputs(
+        N_RECTS, SEED, 1, BATCH, FILTER_EPS)[1][0]).to(dev)
+    heights = {}
+    for layout in ("d1", "d3"):
+        t0 = time.time()
+        shards = SpatialShards.build(rects, MESH_PARTITIONS, fanout=FANOUT,
+                                     layout=layout, device=dev, mesh=True)
+        forest = shards._forest
+        h = heights[layout] = forest.height
+        print(f"  {layout}: {forest.n_partitions} partitions packed in "
+              f"{time.time() - t0:.2f} s; height {h}, padded level sizes "
+              f"{[lvl.n_nodes for lvl in forest.partition_tree.levels]}, "
+              f"flat {[lvl.n_nodes for lvl in forest.flat.levels]}",
+              flush=True)
+        # select: every partition answers the full batch
+        prog = shards._mesh_program("select", result_cap=RESULT_CAP)
+        twin = traversal.make_mesh_engine("select", forest,
+                                          result_cap=RESULT_CAP,
+                                          layout=layout, backend="torch")
+        ids, counts, ctr = prog(sel_q)
+        tids, tcounts, tctr = twin(sel_q)
+        assert_equal(ids, tids, f"mesh select {layout} ids")
+        assert_equal(counts, tcounts, f"mesh select {layout} counts")
+        check(same_counters(ctr, tctr), f"mesh select {layout} counters")
+        q = sel_q.cpu().numpy()
+        host = shards.host_view()
+        got, want = shards.range_select(q), host.range_select(q)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"mesh select {layout}: differs from the host path")
+        check(int(ctr.overflow) == 0, f"mesh select {layout} overflowed")
+        print(f"  select {layout}: ≡ twin program and the host path; "
+              f"counters {ctr.asdict()}", flush=True)
+        print_cells(f"select {layout}",
+                    mesh_cell(torch, lambda: shards.range_select(q), mods),
+                    mesh_cell(torch, lambda: host.range_select(q), mods))
+        knn8 = None
+        for op, queries, ks in (("knn", pts, MESH_KS),
+                                ("knn_join", qrects, MESH_KS),
+                                ("knn_filtered", fq, (KNN_K,))):
+            for k in ks:
+                mesh, _, mi, md = mesh_distance_cell(
+                    torch, shards, traversal, mods, op, queries, k,
+                    f"{op} k={k} {layout}")
+                if op == "knn" and k == KNN_K:
+                    knn8 = (mi, md)
+                    b5 = mesh[0].get("knn_level_dists", 0)
+                    b13 = mesh[0].get("knn_level_dists_d3", 0)
+                    want = (2 * h, 0) if layout == "d1" else (2, 2 * (h - 1))
+                    check((b5, b13) == want, f"kNN {layout} mesh batch: B5 "
+                          f"{b5}, B13 {b13} launches, expected {want}")
+        # the distributed browse, 4 steps, against its twin cursor
+        start = lambda p_: shards.browse(p_, KNN_K)       # noqa: E731
+        twin = knn_browse.make_sharded_browse(forest, KNN_K, layout=layout,
+                                              backend="torch")
+        pts_np = pts.cpu().numpy()
+        cur, tcur = start(pts_np), twin(pts_np)
+        for step in range(BROWSE_STEPS):
+            (gi, gd), (wi, wd) = cur.next_batch(), tcur.next_batch()
+            check(np.array_equal(gi, wi) and
+                  np.array_equal(gd.view(np.int32), wd.view(np.int32)),
+                  f"mesh browse {layout}: step {step} differs from the twin")
+            a, b = cur.state, tcur.state
+            for f in ("pool_ids", "pool_d", "lost", "emitted", "overflow",
+                      "descents"):
+                assert_bits_equal(getattr(a, f), getattr(b, f),
+                                  f"mesh browse {layout} step {step} {f}")
+            check(a.ctr.asdict() == b.ctr.asdict(),
+                  f"mesh browse {layout} step {step} counters")
+            if step == 0:
+                check(np.array_equal(gi, knn8[0]) and
+                      np.array_equal(gd.astype(np.float64), knn8[1]),
+                      f"mesh browse {layout}: the first {KNN_K} differ "
+                      f"from kNN")
+        check(not cur.overflow.any(), f"mesh browse {layout} overflowed")
+        print(f"  browse {layout}: {BROWSE_STEPS} steps ≡ the twin cursor "
+              f"(ids, distance bits, pools, lost, descents, each "
+              f"partition's counters); first {KNN_K} ≡ kNN; descents "
+              f"{cur.state.descents.tolist()}", flush=True)
+        single = knn_browse.make_browse_bfs(
+            rtree.build_rtree(rects, fanout=FANOUT, device=dev), KNN_K,
+            layout=layout)
+        print_cells(f"browse session ({BROWSE_STEPS} steps) {layout}",
+                    mesh_cell(torch, lambda: browse_session(
+                        start, pts_np, BROWSE_STEPS), mods),
+                    mesh_cell(torch, lambda: browse_session(
+                        single, pts_np, BROWSE_STEPS), mods))
+        del shards, forest, host, single
+    # B5 a batch at 4 partitions: still two descents of the forest
+    shards = SpatialShards.build(rects, 4, fanout=FANOUT, device=dev,
+                                 mesh=True)
+    launches = mesh_cell(torch, lambda: shards.knn(pts.cpu().numpy(), KNN_K),
+                         mods)[0]
+    h4 = shards._forest.height
+    check(launches.get("knn_level_dists") == 2 * h4,
+          f"kNN over 4 partitions: {launches}, height {h4}")
+    print(f"  kNN over {shards._forest.n_partitions} partitions (height "
+          f"{h4}): B5 {launches.get('knn_level_dists')} launches a batch = "
+          f"2 × height", flush=True)
+    del shards
+    # the join (D1; the D3 join is A9b)
+    rects, probes = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    shards = SpatialShards.build(rects, MESH_PARTITIONS, fanout=FANOUT,
+                                 sort_key="lx", device=dev, mesh=True)
+    probe_tree = rtree.build_rtree(probes, fanout=FANOUT, sort_key="lx",
+                                   device=dev)
+    check(probe_tree.height <= shards._forest.height, "probe taller")
+    elevated = elevate(probe_tree, shards._forest.height)
+    kw = dict(result_cap=JOIN_CAP, o3=True, o4=True)
+    pairs, counts, ctr = shards._mesh_program(
+        "join", outer_tree=elevated, **kw)()
+    twin = traversal.make_mesh_engine("join", shards._forest,
+                                      outer_tree=elevated, layout="d1",
+                                      backend="torch", **kw)
+    tpairs, tcounts, tctr = twin()
+    assert_equal(counts, tcounts, "mesh join counts")
+    assert_equal(pairs, tpairs, "mesh join pairs")
+    check(same_counters(ctr, tctr), "mesh join counters")
+    del twin, tpairs
+    host = shards.host_view()
+    got, ovf = shards.join(probe_tree, **kw)
+    want, hovf = host.join(probe_tree, **kw)
+    check(np.array_equal(got, want) and not ovf and not hovf,
+          "mesh join: differs from the host path")
+    print(f"  join: {len(got)} pairs ≡ twin program and the host path; "
+          f"counters {ctr.asdict()}", flush=True)
+    print_cells("join", mesh_cell(torch, lambda: shards.join(
+        probe_tree, **kw), mods, iters=2), mesh_cell(
+        torch, lambda: host.join(probe_tree, **kw), mods, iters=2))
+    return heights
+
+
+MESH_SERVE_MODES = (
+    ("spatial", ["--batches", "20"]),
+    ("join", ["--join-cap", str(JOIN_CAP), "--query-eps", str(QUERY_EPS),
+              "--batches", "3"]),
+    ("knn", ["--k", str(KNN_K)]),
+    ("knn-join", ["--k", str(KNN_K), "--query-eps", str(QUERY_EPS)]),
+    ("knn-filtered", ["--k", str(KNN_K), "--filter-eps", str(FILTER_EPS)]),
+    ("browse", ["--k", str(KNN_K), "--browse-steps", str(BROWSE_STEPS)]),
+)
+
+
+def phase_mesh_serve(mods, serve, heights):
+    """Phase 24: ``serve.main`` for every fleet mode, D1 and D3 (the join
+    D1), with ``--mesh on`` and ``--mesh off`` in turn at 2M points: no
+    overflow, the first batch of the two paths equal (the join's last;
+    browse: the first session's first k ids, all its distance bits), the
+    rates side by side, B5 on the served mesh kNN = (batches + the warm
+    batch) × 2 × height.  Returns {kernel: launches on the mesh path}."""
+    mesh_launches = {}
+    for layout in ("d1", "d3"):
+        for mode, argv in MESH_SERVE_MODES:
+            if mode == "join" and layout != "d1":
+                continue
+            outs = {}
+            for mesh in ("on", "off"):
+                for m in mods:
+                    m.reset_launch_counts()
+                out = serve.main(["--mode", mode, "--n", str(N_RECTS),
+                                  "--partitions", str(MESH_PARTITIONS),
+                                  "--fanout", str(FANOUT), "--batch-size",
+                                  str(BATCH), "--batches", str(KNN_BATCHES),
+                                  "--layout", layout, "--mesh", mesh,
+                                  *argv])
+                outs[mesh] = (out, counts_of(mods))
+                check(not out["overflow"], f"served {mode} {layout} --mesh "
+                      f"{mesh} overflowed")
+            (on, got), (off, host_got) = outs["on"], outs["off"]
+            if mode == "join":
+                check(np.array_equal(on["last_pairs"], off["last_pairs"]),
+                      f"served join --mesh on/off: the pairs differ")
+            elif mode == "spatial":
+                check(all(np.array_equal(a, b) for a, b in
+                          zip(on["first_batch"], off["first_batch"])),
+                      f"served spatial {layout}: mesh ≠ host first batch")
+            else:
+                (ai, ad), (bi, bd) = on["first_batch"], off["first_batch"]
+                n = KNN_K if mode == "browse" else ai.shape[1]
+                check(same_neighbours(ai[:, :n], ad[:, :n], bi[:, :n],
+                                      bd[:, :n]) and same_neighbours(
+                          ai, ad, ai, bd),
+                      f"served {mode} {layout}: mesh ≠ host first batch")
+            rate = "joins_per_s" if mode == "join" else "qps"
+            unit = {"join": "joins/s", "browse": "sessions·q/s"}.get(mode,
+                                                                     "q/s")
+            print(f"  {mode} {layout}: mesh {on[rate]:,.3f} {unit}, host "
+                  f"{off[rate]:,.3f}; first batch equal; launches mesh "
+                  f"{got}, host {host_got}", flush=True)
+            if mode == "knn" and layout == "d1":
+                want = (KNN_BATCHES + 1) * 2 * heights["d1"]
+                check(got.get("knn_level_dists") == want,
+                      f"served mesh kNN: B5 {got}, expected {want}")
+            for k, v in got.items():
+                mesh_launches.setdefault(k, v)
+    for name in ("select_level_masks", "join_pair_masks", "knn_level_dists",
+                 "knn_join_level_dists", "select_level_masks_d3",
+                 "knn_level_dists_d3", "knn_join_level_dists_d3"):
+        check(mesh_launches.get(name, 0) > 0,
+              f"{name} not launched on the served mesh path")
+    return mesh_launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2208,6 +2535,22 @@ def main() -> None:
         f"{m} {lo} {v:,.1f}" for (m, lo), v in a10_qps.items())
         + f"; phase 22: {time.time() - t0:.1f} s", flush=True)
 
+    mods = (kern, jkern, kkern, kjkern)
+    t0 = time.time()
+    print(f"[23] mesh engines over the {N_RECTS} points in "
+          f"{MESH_PARTITIONS + 1} partitions, D1 and D3", flush=True)
+    heights = phase_mesh_engines(torch, dev, mods, serve, SpatialShards,
+                                 traversal, knn_browse, rtree, elevate)
+    print(f"  phase 23: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print("[24] serve --mesh on / off, every fleet mode, D1 and D3",
+          flush=True)
+    mesh_launches = phase_mesh_serve(mods, serve, heights)
+    print(f"  phase 24: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which
     # serve does not drive, from the fused engine cells (phases 4, 7, 10, 13
@@ -2228,13 +2571,18 @@ def main() -> None:
         "knn_level_dists_d3": d3_serve_launches,
         "knn_join_level_dists_d3": d3_serve_launches,
     }
+    # and, for the kernels the mesh path runs, its served launches (phase
+    # 24, counts reset before each serve run)
     for k in kernels:
         k["launches"] = path_launches[k["name"]][k["name"]]
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
+        if k["name"] in mesh_launches:
+            k["mesh_launches"] = mesh_launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "mesh_launches")
     print(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys}
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

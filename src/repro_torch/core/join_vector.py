@@ -41,6 +41,11 @@ from .rtree import RTree
 # path only, with no kernel)
 D3_JOIN_ITEM = "A9b"
 
+# pair lanes an unfused level scores at once: one 2M-point partition's leaf
+# step (65,536 pairs × 64 × 64), whose int32 mask and compaction fit the
+# card; the mesh path's partitions beyond it run in blocks of rows
+LANE_BUDGET = 1 << 28
+
 
 def _gather_children(layer, ids: torch.Tensor):
     """(P,) node ids → per-child (lx, ly, hx, hy, ptr) each (P, F) +
@@ -103,7 +108,9 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
                   pair_caps: Optional[Sequence[int]] = None,
                   o3: bool = False, o4: bool = False,
                   o5: Optional[str] = None, backend: str = "auto",
-                  fused: bool = False, caps_mode: str = "adaptive"):
+                  fused: bool = False, caps_mode: str = "adaptive",
+                  caps_tree: Optional[RTree] = None,
+                  lane_budget: Optional[int] = LANE_BUDGET):
     """Build the pair-frontier join: () → (pairs (R, 2) int32, n, Counters).
 
     ``o5``: None | 'dense' | 'gather' — how flip indices are computed (both
@@ -113,7 +120,14 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     twins anywhere.  ``fused=True``: one fused whole-level step per level —
     no (P, F_out, F_in) mask is materialized, and every result but
     ``Counters.dispatches`` is unchanged.  ``caps_mode`` as in
-    ``make_select_bfs``.
+    ``make_select_bfs``; ``caps_tree`` (default ``tree_i``) stands in for
+    the inner tree in the adaptive caps (the mesh path's padded partition).
+
+    ``fn(roots=(outer_roots, inner_roots))`` runs one pair frontier a row
+    from those root pairs (each (R,)), the mesh path's partitions: →
+    (pairs (R, result_cap, 2), counts (R,), Counters), each row compacted
+    into its own slots.  An unfused level scores at most ``lane_budget``
+    pair lanes at once, in blocks of rows; the counters do not change.
     """
     layout_lanes(layout)                 # d0 / d2 raise naming A9a
     if layout != "d1":
@@ -174,7 +188,8 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
 
     def score(ctx_, li, frontier, qargs):
         layers_o, layers_i = ctx_
-        o_ids, i_ids = frontier[0][0], frontier[1][0]   # (P,)
+        # every row's pair frontier as one flat (P,) pair list
+        o_ids, i_ids = frontier[0].reshape(-1), frontier[1].reshape(-1)
         go, stages = _gather_children(layers_o[li], o_ids)
         gi, _ = _gather_children(layers_i[li], i_ids)
         optr, iptr = go[4], gi[4]
@@ -190,14 +205,19 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
         delta, m = _score_stage_counters(o_ids, i_ids, (go, gi), stages, m)
         p, fo = optr.shape
         fi = iptr.shape[1]
+        rows = frontier[0].shape[0]
         a_vals = optr[:, :, None].expand(p, fo, fi)
         b_vals = iptr[:, None, :].expand(p, fo, fi)
-        return (m.reshape(1, -1),
-                (a_vals.reshape(1, -1), b_vals.reshape(1, -1)),
+        return (m.reshape(rows, -1),
+                (a_vals.reshape(rows, -1), b_vals.reshape(rows, -1)),
                 fo, stages, delta)
 
     def fused_level(ctx_, li, frontier, qargs, cap):
         layers_o, layers_i = ctx_
+        if frontier[0].shape[0] != 1:
+            raise NotImplementedError(
+                "the fused join (B4) runs one pair frontier; rows of pair "
+                "frontiers (the mesh path) run unfused")
         o_ids, i_ids = frontier[0][0], frontier[1][0]
         go, stages = _gather_children(layers_o[li], o_ids)
         gi, _ = _gather_children(layers_i[li], i_ids)
@@ -221,12 +241,15 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
             JOIN_SPEC, height=h, caps=pair_caps_[:-1],
             result_cap=pair_caps_[-1], score=score,
             fused_level=fused_level if fused else None, n_streams=2,
-            device=to.device)
+            device=to.device, lane_budget=lane_budget,
+            slot_lanes=to.fanout * ti.fanout)
 
-        def fn():
-            res, counts, ctr = run(ctx)
-            pairs = torch.stack([res[0][0], res[1][0]], dim=1)
-            return pairs, counts[0], ctr
+        def fn(roots=None):
+            res, counts, ctr = run(ctx, roots=roots)
+            pairs = torch.stack([res[0], res[1]], dim=-1)
+            if roots is None:
+                return pairs[0], counts[0], ctr
+            return pairs, counts, ctr
         return fn
 
     if pair_caps is not None:
@@ -239,7 +262,8 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     # the level scored at step i), so the adaptive clamp at e = h-1-i needs
     # the pair count one level finer: sizes[e] = pairs(e-1); the final
     # e = 0 step is the result-pair buffer, exempt from the clamp
-    pc = reachable_pair_counts(to, ti)
+    pc = reachable_pair_counts(
+        to, ti if caps_tree is None else elevate(caps_tree, h))
     sizes = (pc[0],) + pc[:-1]
     tight = default_pair_caps(h, fanout, result_cap, level_sizes=sizes,
                               policy="adaptive")

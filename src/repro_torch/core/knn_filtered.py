@@ -114,12 +114,14 @@ def make_knn_filtered_score(tree: RTree, layout: str, backend: str):
 def make_knn_filtered_bfs(tree: RTree, k: int, layout: str = "d1",
                           caps: Optional[Sequence[int]] = None,
                           backend: str = "auto", fused: bool = False,
-                          caps_mode: str = "adaptive"):
+                          caps_mode: str = "adaptive",
+                          caps_tree: Optional[RTree] = None):
     """Build the batched filtered kNN: queries (B, 6) rows (px, py, wlx,
     wly, whx, why) → (ids (B, k) int32, squared dists (B, k) float32,
     Counters), the k nearest data rects that intersect [wlx, wly, whx,
-    why], (-1, +inf) padded.  ``caps_mode`` as in ``make_knn_bfs``
-    ('adaptive': the occupancy-tight tier escalating to the static one).
+    why], (-1, +inf) padded.  ``caps_mode`` and ``caps_tree`` as in
+    ``make_knn_bfs`` ('adaptive': the occupancy-tight tier escalating to the
+    static one).
     ``backend='cuda'`` and ``fused=True`` raise ``ValueError``."""
     if k <= 0:
         raise ValueError("k must be positive")
@@ -129,7 +131,7 @@ def make_knn_filtered_bfs(tree: RTree, k: int, layout: str = "d1",
         KNN_FILTERED_SPEC, tree, k,
         make_knn_filtered_score(tree, layout, backend), None, None,
         layout=layout, caps=caps, backend=backend, fused=False,
-        caps_mode=caps_mode)
+        caps_mode=caps_mode, caps_tree=caps_tree)
 
 
 # Per unfused level: score gather + distance math, the window-mask compose

@@ -52,12 +52,14 @@ def make_knn_join_score(tree: RTree, layout: str, backend: str):
 def make_knn_join_bfs(tree: RTree, k: int, layout: str = "d1",
                       caps: Optional[Sequence[int]] = None,
                       backend: str = "auto", fused: bool = False,
-                      caps_mode: str = "adaptive"):
+                      caps_mode: str = "adaptive",
+                      caps_tree: Optional[RTree] = None):
     """Build the batched kNN-join: rects (B, 4) → (ids (B, k) int32 inner
     rect ids by distance, -1 padded when k > n_rects; dists (B, k) float32
     squared rect MINDISTs, +inf padded; Counters).
 
-    ``backend``, ``fused`` and ``caps_mode`` as in ``make_knn_bfs``:
+    ``backend``, ``fused``, ``caps_mode`` and ``caps_tree`` as in
+    ``make_knn_bfs``:
     unfused runs B8 per level, fused B9 inside and B10 at the leaf, on a
     tree on the card; their twins on the CPU.  ``rects`` may be any
     array-like; it is moved to the tree's device.
@@ -65,7 +67,8 @@ def make_knn_join_bfs(tree: RTree, k: int, layout: str = "d1",
     return make_distance_bfs(
         KNN_JOIN_SPEC, tree, k, make_knn_join_score(tree, layout, backend),
         ops.knn_join_level_fused, ops.knn_join_leaf_fused, layout=layout,
-        caps=caps, backend=backend, fused=fused, caps_mode=caps_mode)
+        caps=caps, backend=backend, fused=fused, caps_mode=caps_mode,
+        caps_tree=caps_tree)
 
 
 KNN_JOIN_SPEC = traversal.register(traversal.OperatorSpec(

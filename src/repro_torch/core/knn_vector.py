@@ -94,7 +94,8 @@ def make_distance_score(tree: RTree, layout: str, backend: str, dists_op,
 def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
                  caps: Optional[Sequence[int]] = None,
                  backend: str = "auto", fused: bool = False,
-                 caps_mode: str = "adaptive"):
+                 caps_mode: str = "adaptive",
+                 caps_tree: Optional[RTree] = None):
     """Build the batched kNN: points (B, 2) → (ids (B, k) int32 rect ids
     by distance, -1 padded when k > n_rects; dists (B, k) float32 squared
     distances, +inf padded; Counters).
@@ -106,19 +107,24 @@ def make_knn_bfs(tree: RTree, k: int, layout: str = "d1",
     engine's PyTorch selection; ``Counters.dispatches`` drops to 1 per
     level and everything else is unchanged.  ``caps_mode`` (used only when
     ``caps`` is None): 'adaptive' builds the two-tier escalating engine,
-    'static' the single static-caps engine.  ``points`` may be any
-    array-like; it is moved to the tree's device.
+    'static' the single static-caps engine.  ``caps_tree`` (default
+    ``tree``) is the tree whose level sizes set the default caps (the mesh
+    path's padded partition).  ``points`` may be any array-like; it is
+    moved to the tree's device.  The engine is ``fn(points, tau_init=None,
+    active=None, roots=None)``, the hooks of ``make_distance_engine``.
     """
     return make_distance_bfs(
         KNN_SPEC, tree, k, make_knn_score(tree, layout, backend),
         ops.knn_level_fused, ops.knn_leaf_fused, layout=layout, caps=caps,
-        backend=backend, fused=fused, caps_mode=caps_mode)
+        backend=backend, fused=fused, caps_mode=caps_mode,
+        caps_tree=caps_tree)
 
 
 def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
                       ctx_score, level_fused_op, leaf_fused_op, *,
                       layout: str, caps: Optional[Sequence[int]],
-                      backend: str, fused: bool, caps_mode: str):
+                      backend: str, fused: bool, caps_mode: str,
+                      caps_tree: Optional[RTree] = None):
     """The builder behind ``make_knn_bfs``, the kNN-join's
     ``make_knn_join_bfs`` and ``knn_filtered.make_knn_filtered_bfs``, which
     differ only in their score stage (``ctx_score`` = (ctx, score)), fused
@@ -152,19 +158,20 @@ def make_distance_bfs(spec: traversal.OperatorSpec, tree: RTree, k: int,
             spec, height=tree.height, k=k, caps=caps_, score=score,
             fused_level=fused_level if fused else None)
 
-        def fn(queries, tau_init=None, active=None):
+        def fn(queries, tau_init=None, active=None, roots=None):
             q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=tree.device).contiguous()
-            return run(ctx, q, tau_init=tau_init, active=active)
+            return run(ctx, q, tau_init=tau_init, active=active, roots=roots)
         return fn
 
     if caps is not None:
         return build(caps)
     lanes = layout_lanes(layout)
-    full = spec.caps_policy(tree, k, lanes=lanes)
+    caps_tree = tree if caps_tree is None else caps_tree
+    full = spec.caps_policy(caps_tree, k, lanes=lanes)
     if caps_mode == "static":
         return build(full)
-    tight = spec.caps_policy(tree, k, lanes=lanes, policy="adaptive")
+    tight = spec.caps_policy(caps_tree, k, lanes=lanes, policy="adaptive")
     return traversal.maybe_escalating(build, tight, full)
 
 

@@ -57,7 +57,8 @@ def frontier_caps(tree: RTree, result_cap: int, slack: int = 4,
 def make_select_bfs(tree: RTree, layout: str = "d1", result_cap: int = 4096,
                     caps: Optional[Sequence[int]] = None,
                     backend: str = "auto", fused: bool = False,
-                    caps_mode: str = "adaptive"):
+                    caps_mode: str = "adaptive",
+                    caps_tree: Optional[RTree] = None):
     """Build the batched BFS select: queries (B, 4) → results.
 
     ``backend``: 'auto' runs the CUDA kernels when the tree lies on a CUDA
@@ -75,8 +76,14 @@ def make_select_bfs(tree: RTree, layout: str = "d1", result_cap: int = 4096,
     re-run on the static caps after an overflow, results equal to the
     static path); 'static' builds the single static-caps engine.
 
-    Returns fn(queries) → (ids (B, result_cap), counts (B,), Counters);
-    ``queries`` may be any array-like, it is moved to the tree's device.
+    ``caps_tree`` (default ``tree``) is the tree whose level sizes set the
+    default caps: the mesh path runs over a packed forest with one padded
+    partition's caps.
+
+    Returns fn(queries, roots=None) → (ids (B, result_cap), counts (B,),
+    Counters); ``queries`` may be any array-like, it is moved to the tree's
+    device; ``roots`` (B,) starts each row at that node of the root level
+    (default 0).
     """
     lanes = layout_lanes(layout)     # d1 and d3; d0 / d2 raise
     ops.resolve_backend(backend, tree.rects)
@@ -126,19 +133,22 @@ def make_select_bfs(tree: RTree, layout: str = "d1", result_cap: int = 4096,
             result_cap=result_cap, score=score,
             fused_level=fused_level if fused else None)
 
-        def fn(queries):
+        def fn(queries, roots=None):
             q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=tree.device).contiguous()
-            res, counts, ctr = run(ctx, q)
+            res, counts, ctr = run(ctx, q,
+                                   roots=None if roots is None else (roots,))
             return res[0], counts, ctr
         return fn
 
     if caps is not None:
         return build(caps)
-    full = frontier_caps(tree, result_cap, lanes=lanes)
+    caps_tree = tree if caps_tree is None else caps_tree
+    full = frontier_caps(caps_tree, result_cap, lanes=lanes)
     if caps_mode == "static":
         return build(full)
-    tight = frontier_caps(tree, result_cap, lanes=lanes, policy="adaptive")
+    tight = frontier_caps(caps_tree, result_cap, lanes=lanes,
+                          policy="adaptive")
     return traversal.maybe_escalating(build, tight, full)
 
 

@@ -16,9 +16,13 @@ shares (the reference's ``core/traversal.py``).
   ``make_escalating_engine`` — the two-tier overflow-escalating runner.
   ``make_browse_engine`` — the distance level loop run from and into a
                            ``BrowseState``: the resumable browse.
+  ``make_mesh_engine``   — the partitioned fleet as one program: every
+                           level of every partition in one launch over
+                           (partition × query) rows of a packed forest
+                           (distributed/forest.py).
 
 The select, join, kNN, kNN-join, filtered-kNN and browse specs are
-registered; the mesh engine arrives with its slice (ROADMAP A11).
+registered.
 """
 from __future__ import annotations
 
@@ -139,10 +143,20 @@ def _apply_delta(acc: dict, delta: Optional[dict], *, fcnt, f, stages, hits):
             acc[key] = acc[key] + val
 
 
+def _row_blocks(rows: int, row_lanes: int, lane_budget: Optional[int]):
+    """Row ranges of at most ``lane_budget`` score lanes each (at least one
+    row a block); one range when there is no budget."""
+    if lane_budget is None:
+        return [(0, rows)]
+    step = max(1, lane_budget // max(row_lanes, 1))
+    return [(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
 def make_mask_engine(spec: OperatorSpec, *, height: int,
                      caps: Sequence[int], result_cap: int, score,
                      fused_level=None, n_streams: int = 1,
-                     device=None):
+                     device=None, lane_budget: Optional[int] = None,
+                     slot_lanes: int = 1):
     """Build the level loop for a mask operator.
 
     ``score(ctx, li, frontier, qargs)`` → (mask (B, M) bool, values — an
@@ -150,24 +164,59 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
     stages, delta).  ``fused_level(ctx, li, frontier, qargs, cap)`` → the
     whole-level alternative: (values — tuple of (B, cap), qcnt (B,),
     overflow (B,), f, stages, delta); the engine then only routes
-    compacted frontiers.  Returns ``run(ctx, *qargs)`` → (values, counts,
-    Counters).  A query-less operator (the join) calls ``run(ctx)``: the
-    batch is then 1 and the engine works on ``device``.  The loop reads
-    nothing back to the host.
+    compacted frontiers.  Returns ``run(ctx, *qargs, roots=None)`` →
+    (values, counts, Counters).  ``roots`` (an ``n_streams``-tuple of (B,)
+    node ids of the root level) starts each row at its own root, the mesh
+    path's hook; by default every row starts at node 0.  A query-less
+    operator (the join) calls ``run(ctx)`` or ``run(ctx, roots=...)``: the
+    batch is then 1 or the roots' rows, on ``device``.  With
+    ``lane_budget`` an unfused level scores and compacts its rows in
+    blocks of at most that many lanes (a frontier slot holds
+    ``slot_lanes``), so a wide batch never materializes the whole level's
+    mask; the results and counters do not change.  The loop reads nothing
+    back to the host.
     """
     caps = tuple(caps)
     sm = spec.stage_model
 
-    def run(ctx, *qargs):
+    def score_compact(ctx, li, frontier, qargs, cap):
+        """The unfused level in row blocks → (outs, qcnt, overflow, hits,
+        f, stages, delta)."""
+        parts = []
+        for r0, r1 in _row_blocks(frontier[0].shape[0],
+                                  frontier[0].shape[1] * slot_lanes,
+                                  lane_budget):
+            mask, values, f, stages, delta = score(
+                ctx, li, tuple(a[r0:r1] for a in frontier),
+                tuple(q[r0:r1] for q in qargs))
+            outs, qcnt, o = _scatter_compact(values, mask, cap, -1)
+            parts.append((outs, qcnt, o, mask.sum(dtype=torch.int32), delta))
+        if len(parts) == 1:
+            outs, qcnt, o, hits, delta = parts[0]
+        else:
+            outs = [torch.cat(s) for s in zip(*(p[0] for p in parts))]
+            qcnt = torch.cat([p[1] for p in parts])
+            o = torch.cat([p[2] for p in parts])
+            hits = sum(p[3] for p in parts)
+            delta = None if parts[0][4] is None else {
+                key: sum(p[4][key] for p in parts) for key in parts[0][4]}
+        return outs, qcnt, o, hits, f, stages, delta
+
+    def run(ctx, *qargs, roots=None):
         if qargs:
             b, dev = qargs[0].shape[0], qargs[0].device
+        elif roots is not None:
+            b, dev = roots[0].shape[0], roots[0].device
         elif device is None:
             raise ValueError("a query-less mask engine needs its device")
         else:
             b, dev = 1, device
         i32 = dict(dtype=torch.int32, device=dev)
-        frontier = tuple(torch.zeros((b, 1), **i32)
-                         for _ in range(n_streams))     # root
+        if roots is None:
+            frontier = tuple(torch.zeros((b, 1), **i32)
+                             for _ in range(n_streams))     # root
+        else:
+            frontier = tuple(r.to(**i32).reshape(b, 1) for r in roots)
         acc = {k: torch.zeros((), **i32) for k in
                ("nodes_visited", "predicates", "vector_ops", "masked_waste",
                 "pruned_outer", "pruned_inner")}
@@ -186,34 +235,23 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
             _occ_record(occ_live, occ_padded, step=height - 1 - li,
                         valid=fvalid, width=frontier[0].shape[1], batch=b)
             if fused_level is not None:
-                vals, qcnt, o, f, stages, delta = fused_level(
+                outs, qcnt, o, f, stages, delta = fused_level(
                     ctx, li, frontier, qargs, cap)
                 hits = qcnt.sum(dtype=torch.int32)
                 disp += sm.fused
-                if leaf:
-                    counts = qcnt
-                    res = vals
-                    if spec.leaf_enqueue:
-                        enq = enq + hits
-                else:
-                    frontier = vals
-                    enq = enq + hits
-                ovf = ovf | o
             else:
-                mask, values, f, stages, delta = score(ctx, li, frontier,
-                                                       qargs)
-                hits = mask.sum(dtype=torch.int32)
+                outs, qcnt, o, hits, f, stages, delta = score_compact(
+                    ctx, li, frontier, qargs, cap)
                 disp += sm.leaf if leaf else sm.inner
-                outs, qcnt, o = _scatter_compact(values, mask, cap, -1)
-                if leaf:
-                    counts = qcnt
-                    res = tuple(outs)
-                    if spec.leaf_enqueue:
-                        enq = enq + hits
-                else:
-                    frontier = tuple(outs)
+            if leaf:
+                counts = qcnt
+                res = tuple(outs)
+                if spec.leaf_enqueue:
                     enq = enq + hits
-                ovf = ovf | o
+            else:
+                frontier = tuple(outs)
+                enq = enq + hits
+            ovf = ovf | o
             _apply_delta(acc, delta, fcnt=fcnt, f=f, stages=stages,
                          hits=hits)
         ctr = Counters(enqueued=enq, overflow=ovf.any().to(torch.int32),
@@ -287,20 +325,23 @@ def make_distance_engine(spec: OperatorSpec, *, height: int, k: int,
     the engine owns the counters, which are the same except
     ``dispatches``.
 
-    Returns ``run(ctx, queries, tau_init=None, active=None)`` →
+    Returns ``run(ctx, queries, tau_init=None, active=None, roots=None)`` →
     (ids (B, k), dists (B, k), Counters).  ``tau_init`` (B,) seeds the
     pruning bound below DIST_PAD (sound when it upper-bounds each query's
-    k-th neighbour) and ``active`` (B,) bool masks queries out of the
-    descent (empty root frontier, (-1, +inf) rows): the hooks of the mesh
-    path.  The loop reads nothing back to the host.
+    k-th neighbour), ``active`` (B,) bool masks queries out of the descent
+    (empty root frontier, (-1, +inf) rows) and ``roots`` (B,) starts each
+    row at its own node of the root level (default 0): the hooks of the
+    mesh path.  The loop reads nothing back to the host.
     """
     caps = tuple(caps)
     sm = spec.stage_model
 
-    def run(ctx, queries: torch.Tensor, tau_init=None, active=None):
+    def run(ctx, queries: torch.Tensor, tau_init=None, active=None,
+            roots=None):
         b, dev = queries.shape[0], queries.device
         i32 = dict(dtype=torch.int32, device=dev)
-        ids = torch.zeros((b, 1), **i32)                # root frontier
+        ids = (torch.zeros((b, 1), **i32) if roots is None      # root frontier
+               else roots.to(**i32).reshape(b, 1))
         if active is not None:
             ids = torch.where(torch.as_tensor(active, device=dev)[:, None],
                               ids, -1)
@@ -429,6 +470,147 @@ def maybe_escalating(build, tight_caps, full_caps):
 
 
 # ---------------------------------------------------------------------------
+# Mesh entry point — the whole partition fan-out as one program
+# ---------------------------------------------------------------------------
+
+def _route_mindist(spec: OperatorSpec, queries: torch.Tensor,
+                   mbrs: torch.Tensor) -> torch.Tensor:
+    """(B, P) float32 squared MINDIST from each query to each partition MBR:
+    the router step, on the device.  ``query_width`` 4 is rect-to-rect;
+    otherwise the leading two columns are a point (kNN and the filtered
+    kNN's 6-column rows).  Rounded as the reference's program rounds it,
+    ``fma(dx, dx, dy*dy)``."""
+    from .geometry import mindist, mindist_rect
+    q = [queries[:, j, None] for j in range(queries.shape[1])]
+    m = [mbrs[None, :, j] for j in range(4)]
+    if spec.query_width == 4:
+        return mindist_rect(*q[:4], *m)
+    return mindist(q[0], q[1], *m)
+
+
+def collective_tau(kth: torch.Tensor) -> torch.Tensor:
+    """The phase-2 bound from each query's k-th phase-1 distance, widened
+    by the host router's hair: ``kth * (1 + 1e-5) + 1e-30`` in float32,
+    one rounding, as the reference's program contracts it into an FMA;
+    +inf stays +inf."""
+    from .geometry import fma32
+    c = torch.full_like(kth, float(np.float32(1.0 + 1e-5)))
+    e = torch.full_like(kth, float(np.float32(1e-30)))
+    return torch.where(torch.isfinite(kth), fma32(kth, c, e), kth)
+
+
+def make_mesh_engine(name: str, forest, *, outer_tree=None, **params):
+    """Build the single-program path of any registered operator over a
+    packed forest (``distributed/forest.pack_forest``).
+
+    The reference runs the batch as one ``shard_map`` program that
+    ``vmap``s the spec's engine over the partitions.  Here the spec's
+    builder runs once over ``forest.flat`` with each row's caps taken from
+    one padded partition (``forest.partition_tree``), and the batch runs as
+    P·B rows, row ``p·B + b`` being query ``b`` in partition ``p`` from
+    root ``p``: every level is one launch over partition × query, whatever
+    P is.  ``outer_tree`` is the spatial join's probe tree, shared by every
+    partition; it must already have the forest's height.
+
+      mask kind     — every partition answers the full batch (a
+                      partition the query misses yields no rows); local
+                      ids become global through ``forest.ids_flat``.
+      distance kind — two phases: phase 1 answers each query on its primary
+                      partition (the smallest router MINDIST); the
+                      per-query k-th distance after a (distance, id) top-k
+                      merge gives the float32 bound τ; phase 2 descends
+                      only the (query, partition) rows within τ, seeded
+                      with τ as ``tau_init``; a final top-k merges both.
+
+    Static caps are pinned, as the reference pins them.  Returns ``run``:
+    distance kind ``run(queries)`` → (global ids (B, k) int32, dists (B,
+    k) float32, Counters); select ``run(queries)`` → (global ids (P, B,
+    cap), counts (P, B), Counters); join ``run()`` → (pairs (P, cap, 2)
+    (probe id, global id), counts (P,), Counters).  Counters sum the work
+    over partitions and keep ``overflow`` as "any"; ``dispatches`` counts
+    one descent a phase.
+    """
+    from ..distributed import collectives as coll
+
+    spec = get_spec(name)
+    if name == "browse":
+        raise ValueError("browse is resumable, not one-shot — use "
+                         "knn_browse.make_sharded_browse for the "
+                         "distributed cursor")
+    if outer_tree is not None and outer_tree.height != forest.height:
+        raise ValueError(f"outer tree height {outer_tree.height} != forest "
+                         f"height {forest.height}: elevate the shorter one")
+    params = dict(params)
+    params.setdefault("caps_mode", "static")
+    p_total = forest.n_partitions
+    dev = forest.device
+    trees = (forest.flat,) if outer_tree is None else \
+        (outer_tree, forest.flat)
+    fn = spec.builder(*trees, caps_tree=forest.partition_tree, **params)
+    ids_flat = forest.ids_flat
+    parts = torch.arange(p_total, dtype=torch.int32, device=dev)
+
+    def globalize(ids):
+        return torch.where(ids >= 0, ids_flat[ids.clamp(min=0).long()], -1)
+
+    def as_rows(queries):
+        q = torch.as_tensor(queries, dtype=torch.float32,
+                            device=dev).contiguous()
+        return q, q.repeat(p_total, 1), \
+            parts.repeat_interleave(q.shape[0])
+
+    if spec.kind == "mask" and spec.query_width is None:
+        def run_join():
+            pairs, counts, ctr = fn(roots=(torch.zeros_like(parts), parts))
+            gpairs = torch.stack([pairs[..., 0], globalize(pairs[..., 1])],
+                                 dim=-1)
+            return gpairs, counts, coll.psum_counters(ctr)
+        return run_join
+
+    if spec.kind == "mask":
+        def run_mask(queries):
+            q, rows, roots = as_rows(queries)
+            ids, counts, ctr = fn(rows, roots=roots)
+            return (coll.gather_partitions(globalize(ids), p_total),
+                    coll.gather_partitions(counts, p_total),
+                    coll.psum_counters(ctr))
+        return run_mask
+
+    k = params["k"]
+
+    def merge(ids, d):
+        """(P·B, k) per-partition streams → (B, k) by (distance, id)."""
+        g = coll.gather_partitions(globalize(ids), p_total)
+        d = coll.gather_partitions(d, p_total)
+        b = g.shape[1]
+        return coll.topk_by_distance(g.transpose(0, 1).reshape(b, -1),
+                                     d.transpose(0, 1).reshape(b, -1), k)
+
+    def run_distance(queries):
+        q, rows, roots = as_rows(queries)
+        mbrs = forest.flat.levels[-1].node_mbr              # (P, 4)
+        dmat = _route_mindist(spec, q, mbrs)                # (B, P)
+        primary = torch.argmin(dmat, dim=1).to(torch.int32)
+        # phase 1: primary partitions only
+        act1 = primary[None, :] == parts[:, None]           # (P, B)
+        ids1, d1, c1 = fn(rows, active=act1.reshape(-1), roots=roots)
+        p1_ids, p1_d = merge(ids1, d1)
+        # phase 2: the partitions within the bound, seeded with it
+        tau = collective_tau(p1_d[:, k - 1])
+        act2 = ~act1 & (dmat.T <= tau[None, :])
+        ids2, d2, c2 = fn(rows, tau_init=tau.repeat(p_total),
+                          active=act2.reshape(-1), roots=roots)
+        p2_ids, p2_d = merge(ids2, d2)
+        f_ids, f_d = coll.topk_by_distance(torch.cat([p1_ids, p2_ids], 1),
+                                           torch.cat([p1_d, p2_d], 1), k)
+        ctr = dataclasses.replace(
+            c1 + c2, overflow=torch.maximum(c1.overflow, c2.overflow))
+        return f_ids, f_d, coll.psum_counters(ctr)
+
+    return run_distance
+
+
+# ---------------------------------------------------------------------------
 # Resumable distance browsing — the engine's resume entry point
 # ---------------------------------------------------------------------------
 
@@ -510,6 +692,8 @@ class BrowseEngine(NamedTuple):
     """The resumable browse's entry points (see ``make_browse_engine``)."""
     init: Callable
     needs_descent: Callable
+    pending: Callable
+    descend: Callable
     resume: Callable
     emit: Callable
 
@@ -558,11 +742,21 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
     ``state.lost``; emission flags ``overflow`` where an emitted distance
     reaches it, and sets ``Counters.overflow``.
 
-      init(queries)        → a fresh state, the root deferred at the top
+      init(queries, roots=None) → a fresh state, each row's root (node 0,
+                             or its entry of ``roots``) deferred at the top
       needs_descent(state) → host bool: can the pool not yet serve
                              ``batch_k`` for sure?  (one device sync)
+      pending(state, groups=None) → that test on the device, for the whole
+                             batch or per group of rows
+      descend(ctx, state, groups=None) → (the state after one full descent,
+                             its counters and descents left as they were;
+                             the descent's Counters, summed over the batch
+                             or per group of rows)
       resume(ctx, state)   → the state after one full descent
       emit(state)          → (ids (B, batch_k), d (B, batch_k), state)
+
+    ``groups`` splits the batch into that many equal runs of rows (the
+    partitions of the distributed cursor, knn_browse.make_sharded_browse).
     """
     caps = tuple(caps)
     defer_caps = tuple(defer_caps)
@@ -573,7 +767,7 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
     sm = spec.stage_model
     pad, valid_max = float(DIST_PAD), float(DIST_VALID_MAX)
 
-    def init(queries: torch.Tensor) -> BrowseState:
+    def init(queries: torch.Tensor, roots=None) -> BrowseState:
         b, dev = queries.shape[0], queries.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -582,7 +776,9 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
             dc = defer_caps[lj]
             if lj == height - 1:
                 # the root is the first deferred node, at distance 0
-                def_ids.append(torch.zeros((b, dc), **i32))
+                def_ids.append(
+                    torch.zeros((b, dc), **i32) if roots is None
+                    else roots.to(**i32)[:, None].expand(b, dc).clone())
                 def_d.append(torch.zeros((b, dc), **f32))
             else:
                 def_ids.append(torch.full((b, dc), -1, **i32))
@@ -601,16 +797,28 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
                          escalations=zero),
             descents=zero)
 
-    def needs_descent(state: BrowseState) -> bool:
+    def pending(state: BrowseState, groups: Optional[int] = None
+                ) -> torch.Tensor:
         min_def = torch.stack([d.amin(dim=1) for d in state.def_d]).amin(0)
         pool_kth = state.pool_d[:, batch_k - 1]
         pool_kth = torch.where(pool_kth < valid_max, pool_kth, float("inf"))
-        return bool(((min_def < valid_max) & (min_def <= pool_kth)).any())
+        rows = (min_def < valid_max) & (min_def <= pool_kth)
+        return rows.any() if groups is None else \
+            rows.reshape(groups, -1).any(dim=1)
 
-    def resume(ctx, state: BrowseState) -> BrowseState:
+    def needs_descent(state: BrowseState) -> bool:
+        return bool(pending(state))
+
+    def descend(ctx, state: BrowseState, groups: Optional[int] = None):
         queries = state.queries
         b, dev = queries.shape[0], queries.device
         i32 = dict(dtype=torch.int32, device=dev)
+
+        def fold(rows):
+            """Per-row tallies (B,) → the batch's sum or each group's."""
+            return rows.sum(dtype=torch.int32) if groups is None else \
+                rows.reshape(groups, -1).sum(dim=1, dtype=torch.int32)
+
         # τ starts at the batch_k-th pool distance: the pool holds real
         # objects, so batch_k of the next neighbours lie within it
         pool_kth = state.pool_d[:, batch_k - 1]
@@ -620,9 +828,11 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
         pool_ids, pool_d = state.pool_ids, state.pool_d
         def_ids, def_d = list(state.def_ids), list(state.def_d)
         lost = state.lost
-        zero = torch.zeros((), **i32)
+        zero = fold(torch.zeros((b,), **i32))
         nodes = preds = vops = enq = pruned = waste = zero
-        occ_live, occ_padded = occupancy_zeros(dev), occupancy_zeros(dev)
+        occ_live = torch.zeros(zero.shape + (OCC_STEPS,), **i32)
+        occ_padded = torch.zeros_like(occ_live)
+        rows_per_group = b // (groups or 1)
         disp = 0
         for li in range(height - 1, -1, -1):
             leaf = li == 0
@@ -637,18 +847,19 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
             def_ids[li] = torch.where(act, -1, def_ids[li])
             def_d[li] = torch.where(act, pad, def_d[li])
             # score: the operator's stage, as in the fixed-k engine
-            fvalid = ids >= 0
-            n_front = fvalid.sum(dtype=torch.int32)
+            n_front = fold((ids >= 0).sum(dim=1, dtype=torch.int32))
             nodes = nodes + n_front
-            _occ_record(occ_live, occ_padded, step=height - 1 - li,
-                        valid=fvalid, width=ids.shape[1], batch=b)
+            slot = min(height - 1 - li, OCC_STEPS - 1)
+            occ_live[..., slot] += n_front
+            occ_padded[..., slot] += rows_per_group * ids.shape[1] - n_front
             md, mmd, ptr, stages = score(ctx, li, ids, queries, leaf)
             f = md.shape[-1]
             ev = stages if leaf else 2 * stages
             preds = preds + n_front * (f * ev)
             vops = vops + n_front * ev
             entry_valid = md < valid_max
-            waste = waste + n_front * f - entry_valid.sum(dtype=torch.int32)
+            n_valid = fold(entry_valid.sum(dim=(1, 2), dtype=torch.int32))
+            waste = waste + n_front * f - n_valid
             flat_d = md.reshape(b, -1)
             flat_ptr = ptr.reshape(b, -1)
             if leaf:
@@ -667,8 +878,8 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
                                  sorted=True).values[:, batch_k - 1]
                 tau = torch.minimum(tau, kth)
             keep = entry_valid & (md <= tau[:, None, None])
-            n_keep = keep.sum(dtype=torch.int32)
-            pruned = pruned + (entry_valid.sum(dtype=torch.int32) - n_keep)
+            n_keep = fold(keep.sum(dim=(1, 2), dtype=torch.int32))
+            pruned = pruned + (n_valid - n_keep)
             frontier, fdist, bound = _beam_with_bound(
                 flat_ptr, flat_d, keep.reshape(b, -1),
                 caps[height - 1 - li])
@@ -685,12 +896,16 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
         dctr = Counters(nodes_visited=nodes, predicates=preds,
                         vector_ops=vops, enqueued=enq, pruned_inner=pruned,
                         masked_waste=waste,
-                        dispatches=torch.tensor(disp, **i32),
+                        dispatches=torch.full_like(zero, disp),
                         lanes_live=occ_live, lanes_padded=occ_padded)
         return dataclasses.replace(
             state, pool_ids=pool_ids, pool_d=pool_d,
-            def_ids=tuple(def_ids), def_d=tuple(def_d), lost=lost,
-            ctr=state.ctr + dctr, descents=state.descents + 1)
+            def_ids=tuple(def_ids), def_d=tuple(def_d), lost=lost), dctr
+
+    def resume(ctx, state: BrowseState) -> BrowseState:
+        new, dctr = descend(ctx, state)
+        return dataclasses.replace(new, ctr=state.ctr + dctr,
+                                   descents=state.descents + 1)
 
     def emit(state: BrowseState):
         d = state.pool_d[:, :batch_k]
@@ -714,4 +929,5 @@ def make_browse_engine(spec: OperatorSpec, *, height: int, batch_k: int,
         return out_ids, out_d, new
 
     return BrowseEngine(init=init, needs_descent=needs_descent,
-                        resume=resume, emit=emit)
+                        pending=pending, descend=descend, resume=resume,
+                        emit=emit)

@@ -1,7 +1,6 @@
-"""Distributed spatial query processing, host fan-out path: partition the
-dataset spatially, build one R-tree per partition on the device, fan
-queries out, merge results on the host (the reference's
-``distributed/spatial_shard.py``, host path).
+"""Distributed spatial query processing: partition the dataset spatially,
+build one R-tree per partition on the device, fan queries out, merge
+results (the reference's ``distributed/spatial_shard.py``).
 
 Partitioning follows the STR idea one level up: sort by x into vertical
 slabs, then by y within each slab — every partition is a contiguous spatial
@@ -15,8 +14,26 @@ then the partitions within the primary's k-th distance) and merge the
 candidates by (distance, global id); filtered kNN routes the same way on
 its point columns.
 
-The single-program mesh path, and the distributed browse that runs on it,
-arrive with the fleet slice (ROADMAP A11).
+Two execution paths share one public API (``range_select`` / ``join`` /
+``knn`` / ``knn_join`` / ``knn_filtered`` / ``browse``):
+
+  host path — one engine per partition (spec registry), a Python loop
+      fanning routed query subsets out and merging on the host: a launch
+      a level per touched partition per phase.
+  mesh path (``enable_mesh``) — the partition trees are packed into one
+      forest (distributed/forest.py) and a whole batch runs as one program
+      (core/traversal.make_mesh_engine): routing on the device, every
+      partition's descent in one launch a level over (partition × query)
+      rows, and the cross-partition merges on the device
+      (distributed/collectives.py).  The distance operators' second phase
+      descends under the first phase's bound with no host round trip, so
+      a batch's launches are O(levels), not O(partitions × levels).  The
+      distributed browse runs on this path only.
+
+Both paths agree because both reduce to the same total order: candidates
+merge by (distance, global id), select and join rows by sorted global id.
+The reference's mesh shards the forest over a device mesh; on one card the
+forest has one shard (``torch.distributed`` waits for a second card).
 """
 from __future__ import annotations
 
@@ -27,10 +44,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import rtree, traversal
+from ..core import knn_browse, rtree, traversal
 from ..core.geometry import intersects as np_intersects
 from ..core.geometry import mindist_matrix_np, mindist_rect_matrix_np
+from ..core.join_scalar import elevate
 from ..core.layouts import layout_lanes
+from . import forest as forest_mod
 
 
 @dataclasses.dataclass
@@ -54,7 +73,14 @@ class SpatialShards:
         # one engine cache for every operator, keyed by (spec name,
         # partition, build params) through the spec registry
         self._engines = {}
-        # summed Counters of the last batch over the partitions it touched
+        # mesh path state (enable_mesh): the packed forest, its programs and
+        # browse engines
+        self._forest = None
+        self._n_shards = 1
+        self._mesh_programs = {}
+        self._browse_starts = {}
+        # Counters of the last batch: the mesh program's, or the host path's
+        # sum over the partitions it touched
         self.last_counters = None
         # host seconds of the last join's (K, 2) lexsort merge
         self.last_merge_s = 0.0
@@ -62,7 +88,11 @@ class SpatialShards:
     @classmethod
     def build(cls, rects: np.ndarray, n_partitions: int, fanout: int = 64,
               sort_key: Optional[str] = None, layout: str = "d1",
-              device="cuda") -> "SpatialShards":
+              device="cuda", mesh=None) -> "SpatialShards":
+        """Partition ``rects`` into ``n_partitions`` spatial tiles (STR one
+        level up) and build each tile's tree on ``device``.  ``mesh``:
+        None serves on the host path; True (the fleet's device) or a
+        device enables the mesh path (``enable_mesh``)."""
         n = len(rects)
         cx = (rects[:, 0] + rects[:, 2]) / 2
         cy = (rects[:, 1] + rects[:, 3]) / 2
@@ -89,7 +119,81 @@ class SpatialShards:
                                rects.dtype)
                 parts.append(Partition(tree=tree, mbr=mbr, offset=len(parts),
                                        ids=ids))
-        return cls(parts, fanout, layout=layout)
+        out = cls(parts, fanout, layout=layout)
+        if mesh is not None:
+            out.enable_mesh(None if mesh is True else mesh)
+        return out
+
+    # ------------------------------------------------------------------
+    # mesh dispatcher
+    # ------------------------------------------------------------------
+
+    @property
+    def mesh_enabled(self) -> bool:
+        return self._forest is not None
+
+    def enable_mesh(self, mesh=None, n_shards: int = 1,
+                    min_height: Optional[int] = None) -> "SpatialShards":
+        """Pack the partition fleet into one forest on ``mesh`` (a device;
+        default the fleet's) and route the public API through the
+        one-program path.  ``n_shards`` pads the partition count to its
+        multiple with empty partitions (the reference's mesh axis size; 1
+        on one card); ``min_height`` raises the forest's height (a taller
+        join probe)."""
+        dev = self.partitions[0].tree.device if mesh is None else \
+            torch.device(mesh)
+        packed = forest_mod.pack_forest(
+            [p.tree for p in self.partitions],
+            [p.ids for p in self.partitions], n_shards=n_shards,
+            min_height=min_height)
+        self._forest = packed.to(dev)
+        self._n_shards = n_shards
+        self._mesh_programs = {}
+        self._browse_starts = {}
+        return self
+
+    def disable_mesh(self) -> "SpatialShards":
+        self._forest = None
+        self._mesh_programs = {}
+        self._browse_starts = {}
+        return self
+
+    def host_view(self) -> "SpatialShards":
+        """A host-path fleet over the same partitions, sharing the host
+        engine cache but no mesh state, so using it cannot move this
+        object's operators off the mesh path; ``self`` when this object
+        already serves on the host path."""
+        if not self.mesh_enabled:
+            return self
+        twin = SpatialShards(self.partitions, self.fanout,
+                             layout=self.layout)
+        twin._engines = self._engines
+        return twin
+
+    def _mesh_program(self, op: str, outer_tree=None, **params):
+        """The mesh program of ``op`` over the packed forest, cached per
+        build params.  A program closes over its outer tree (the join's
+        probe), so only the latest per (op, params) is kept: a caller
+        streaming fresh probe relations cannot grow the cache.  The entry
+        holds the outer tree too, so its ``id`` in the key stays its own."""
+        params = dict(params, layout=self.layout)
+        key = (op, tuple(sorted(params.items())),
+               None if outer_tree is None else id(outer_tree))
+        if key not in self._mesh_programs:
+            if outer_tree is not None:
+                for stale in [s for s in self._mesh_programs
+                              if s[:2] == key[:2] and s[2] is not None]:
+                    del self._mesh_programs[stale]
+            self._mesh_programs[key] = (outer_tree, traversal.make_mesh_engine(
+                op, self._forest, outer_tree=outer_tree, **params))
+        return self._mesh_programs[key][1]
+
+    def _mesh_distance(self, op: str, queries: np.ndarray, k: int
+                       ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        ids, d, ctr = self._mesh_program(op, k=k)(queries)
+        self.last_counters = ctr
+        return (ids.cpu().numpy().astype(np.int64),
+                d.cpu().numpy().astype(np.float64), bool(int(ctr.overflow)))
 
     # ------------------------------------------------------------------
     # routing + per-partition engines
@@ -133,6 +237,15 @@ class SpatialShards:
                      ) -> List[np.ndarray]:
         """Batched distributed select → per-query sorted global rect ids."""
         queries = np.asarray(queries, np.float32)
+        if self.mesh_enabled:
+            prog = self._mesh_program("select", result_cap=result_cap)
+            ids, counts, ctr = prog(queries)
+            self.last_counters = ctr
+            ids = ids.cpu().numpy()
+            counts = counts.cpu().numpy()
+            return [np.sort(np.concatenate(
+                [ids[p, qi, :counts[p, qi]] for p in range(ids.shape[0])]
+            ).astype(np.int64)) for qi in range(len(queries))]
         routing = self.route(queries)
         results = [[] for _ in range(len(queries))]
         acc = None
@@ -165,7 +278,9 @@ class SpatialShards:
         (M, 4) rect array or a pre-built RTree on the fleet's device (its
         rect order defines the probe ids).  ``o3``/``o4`` enable the
         sorted-key pruning — both the probe tree and the partition trees
-        must then be built with ``sort_key='lx'``."""
+        must then be built with ``sort_key='lx'``.  On the mesh path a
+        probe taller than the forest re-packs the forest at its height,
+        and the probe is elevated to the forest's (memoized per probe)."""
         params = dict(result_cap=result_cap, o3=o3, o4=o4,
                       layout=self.layout)
         probe_tree = probe if isinstance(probe, rtree.RTree) else \
@@ -173,6 +288,26 @@ class SpatialShards:
                               fanout=self.fanout,
                               sort_key="lx" if (o3 or o4) else None,
                               device=self.partitions[0].tree.device)
+        if self.mesh_enabled:
+            if probe_tree.height > self._forest.height:
+                self.enable_mesh(self._forest.device, self._n_shards,
+                                 min_height=probe_tree.height)
+            # elevated on the host side once, so the program cache (keyed
+            # on the probe object) hits across joins of the same probe
+            ck = ("elevated_probe", self._forest.height)
+            cached = self._engines.get(ck)
+            if cached is None or cached[0] is not probe_tree:
+                cached = (probe_tree,
+                          elevate(probe_tree, self._forest.height))
+                self._engines[ck] = cached
+            pairs, counts, ctr = self._mesh_program(
+                "join", outer_tree=cached[1], result_cap=result_cap, o3=o3,
+                o4=o4)()
+            self.last_counters = ctr
+            pairs = pairs.cpu().numpy()
+            counts = counts.cpu().numpy()
+            rows = [pairs[p, :counts[p]] for p in range(pairs.shape[0])]
+            return self._merge_pairs(rows), bool(int(ctr.overflow))
         rows = []
         ovf = False
         acc = None
@@ -192,12 +327,17 @@ class SpatialShards:
             ovf |= bool(int(ctr.overflow))
         if acc is not None:
             self.last_counters = acc
+        return self._merge_pairs(rows), ovf
+
+    def _merge_pairs(self, rows) -> np.ndarray:
+        """Each partition's (probe id, global id) rows → one (K, 2) int64
+        array sorted lexicographically (timed in ``last_merge_s``)."""
         t0 = time.perf_counter()
         cat = np.concatenate(rows).astype(np.int64) if rows else \
             np.empty((0, 2), np.int64)
         out = cat[np.lexsort((cat[:, 1], cat[:, 0]))]
         self.last_merge_s = time.perf_counter() - t0
-        return out, ovf
+        return out
 
     # ------------------------------------------------------------------
     # distance operators (kNN, kNN-join)
@@ -229,8 +369,12 @@ class SpatialShards:
         MBR MINDIST is within τ.  The candidates merge by (distance,
         global id).  ``overflow`` True means some partition's frontier
         fell back to its best-first beam and the result may be approximate.
+        On the mesh path both phases run in one program, the bound a
+        float32 on the device.
         """
         points = np.asarray(points, np.float32)
+        if self.mesh_enabled:
+            return self._mesh_distance("knn", points, k)
         dmat = mindist_matrix_np(points, self.router_mbrs)   # (B, P)
         return self._two_phase_knn(points, k, dmat, "knn")
 
@@ -242,6 +386,8 @@ class SpatialShards:
         rect-to-rect MINDIST.  Routed as ``knn``, with the router matrix
         of rect-to-MBR MINDISTs."""
         qrects = np.asarray(qrects, np.float32)
+        if self.mesh_enabled:
+            return self._mesh_distance("knn_join", qrects, k)
         dmat = mindist_rect_matrix_np(qrects, self.router_mbrs)   # (B, P)
         return self._two_phase_knn(qrects, k, dmat, "knn_join")
 
@@ -254,18 +400,26 @@ class SpatialShards:
         columns: a partition MBR's MINDIST lower-bounds every candidate's
         distance, filtered or not, so the τ bound stays sound."""
         queries = np.asarray(queries, np.float32)
+        if self.mesh_enabled:
+            return self._mesh_distance("knn_filtered", queries, k)
         dmat = mindist_matrix_np(queries[:, :2], self.router_mbrs)
         return self._two_phase_knn(queries, k, dmat, "knn_filtered")
 
     def browse(self, points: np.ndarray, k: int):
-        """Distributed browsing needs one cursor per partition and a
-        cross-shard pool merge per batch, which the reference runs on its
-        mesh path only; the port serves browse from a single tree
-        (``core/knn_browse.py``) until that path is ported."""
-        raise NotImplementedError(
-            "distributed browsing runs on the mesh path, not ported yet "
-            "(ROADMAP item A11); browse a single tree with "
-            "core/knn_browse.make_browse_bfs")
+        """Open a distributed browse session: one cursor a partition and a
+        cross-partition pool merge on every ``next_batch()``
+        (core/knn_browse.make_sharded_browse).  It runs on the mesh path
+        only, as the reference's does, so it requires ``enable_mesh()``
+        first: enabling it here would move every other operator of this
+        object off the host path."""
+        if not self.mesh_enabled:
+            raise RuntimeError(
+                "distributed browsing runs on the mesh path — call "
+                "enable_mesh() first")
+        if k not in self._browse_starts:
+            self._browse_starts[k] = knn_browse.make_sharded_browse(
+                self._forest, k, layout=self.layout)
+        return self._browse_starts[k](np.asarray(points, np.float32))
 
     def _two_phase_knn(self, queries: np.ndarray, k: int, dmat: np.ndarray,
                        op: str) -> Tuple[np.ndarray, np.ndarray, bool]:
@@ -321,23 +475,36 @@ class SpatialShards:
 
     def warm(self, op: str, batch: int, k: Optional[int] = None,
              result_cap: int = 4096, probe=None, **op_params) -> None:
-        """Build operator ``op``'s engines and run each once at every
-        power-of-two bucket up to ``batch`` (routed subsets can land in any
-        bucket ≤ the full batch's), so a serving loop pays no kernel build
-        or first-launch cost.  Distance operators build with ``k``, the
-        others with ``result_cap``.  ``join`` warms by one join of
-        ``probe`` (rects or RTree) with ``op_params`` — its engines close
-        over the probe tree."""
+        """Build operator ``op``'s engines and run them once, so a serving
+        loop pays no kernel build or first-launch cost.  Host path: every
+        partition's engine at every power-of-two bucket up to ``batch``
+        (routed subsets can land in any bucket ≤ the full batch's).  Mesh
+        path: the one program at the serving batch shape.  Distance
+        operators build with ``k``, the others with ``result_cap``.
+        ``join`` warms by one join of ``probe`` (rects or RTree) with
+        ``op_params`` — its engines close over the probe tree; ``browse``
+        by one session's first batch."""
         spec = traversal.get_spec(op)
         if k is None and spec.kind == "distance":
             raise ValueError(f"warming {op!r} needs k")
-        if op == "browse":
-            self.browse(np.zeros((batch, 2), np.float32), k)
         if op == "join":
             if probe is None:
                 raise ValueError("join warmup needs the probe relation")
             self.join(probe, result_cap=result_cap, **op_params)
-            return
+        elif op == "browse":
+            self.browse(np.zeros((batch, 2), np.float32), k).next_batch()
+        elif self.mesh_enabled:
+            params = {"k": k} if spec.kind == "distance" else \
+                {"result_cap": result_cap}
+            self._mesh_program(op, **params)(
+                np.zeros((batch, spec.query_width), np.float32))
+        else:
+            self._warm_host(spec, batch, k, result_cap)
+        if self.partitions and self.partitions[0].tree.device.type == "cuda":
+            torch.cuda.synchronize(self.partitions[0].tree.device)
+
+    def _warm_host(self, spec, batch: int, k: Optional[int],
+                   result_cap: int) -> None:
         buckets = []
         bucket = 1 << (max(batch, 1) - 1).bit_length()
         while bucket >= 1:
@@ -346,8 +513,6 @@ class SpatialShards:
         params = {"k": k} if spec.kind == "distance" else \
             {"result_cap": result_cap}
         for pi in range(len(self.partitions)):
-            fn = self.engine_for(op, pi, **params)
+            fn = self.engine_for(spec.name, pi, **params)
             for bk in buckets:
                 fn(np.zeros((bk, spec.query_width), np.float32))
-        if self.partitions and self.partitions[0].tree.device.type == "cuda":
-            torch.cuda.synchronize(self.partitions[0].tree.device)

@@ -3,7 +3,8 @@ index fleet on the device (distributed/spatial_shard.py) and serves batched
 range-select requests behind the straggler pool (runtime/straggler.py),
 spatial joins of a probe relation against the fleet, batched exact kNN,
 the batched kNN-join of query rects, filtered kNN (the k nearest inside a
-per-query window), or resumable browse sessions over one tree.
+per-query window), or resumable browse sessions (over one tree, or
+distributed over the fleet on its mesh path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 200000 \\
         --partitions 8 --batches 20 --batch-size 64 --selectivity 0.001
@@ -19,16 +20,23 @@ per-query window), or resumable browse sessions over one tree.
         --n 2000000 --k 8 --filter-eps 0.2
     PYTHONPATH=src python -m repro_torch.launch.serve --mode browse \\
         --n 2000000 --k 8 --browse-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn \\
+        --n 2000000 --k 8 --mesh on
 
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
 raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``,
 ``knn``, ``knn-join``, ``knn-filtered`` and ``browse`` are ported; ``lm``
-exits with a "not ported yet" message naming its ROADMAP item.  Browse is
-served from one tree over the whole dataset, as the reference serves it
-off its mesh path.  ``--layout`` picks the node layout: ``d1`` (the
-default) or the quantized ``d3``, which serves every mode but ``join``;
-``--mode join --layout d3`` exits "not ported yet" too.
+exits with a "not ported yet" message naming its ROADMAP item.
+``--mesh on`` serves the fleet through its single-program path (a packed
+forest, one launch a level over partition × query; browse sessions are
+distributed cursors over the partitions), ``--mesh off`` through the host
+fan-out (browse from one tree over the whole dataset, as the reference
+serves it off its mesh path); ``auto`` (the default) takes the mesh path
+when more than one CUDA device is visible, so on one card the host path,
+as the reference decides.  ``--layout`` picks the node layout: ``d1``
+(the default) or the quantized ``d3``, which serves every mode but
+``join``; ``--mode join --layout d3`` exits "not ported yet" too.
 """
 from __future__ import annotations
 
@@ -115,13 +123,24 @@ def make_queries(n: int, batch: int, selectivity: float, seed: int = 1):
     return np.concatenate([lo, lo + side], axis=-1)
 
 
+def _use_mesh(args) -> bool:
+    """Serve through the mesh path?  ``--mesh on`` always, ``off`` never,
+    ``auto`` when more than one CUDA device is visible (the reference's
+    rule: more than one device)."""
+    if args.mesh != "auto":
+        return args.mesh == "on"
+    return args.device == "cuda" and torch.cuda.device_count() > 1
+
+
 def _build_shards(args, rects, sort_key=None):
     t0 = time.time()
+    mesh = _use_mesh(args)
     shards = SpatialShards.build(rects, args.partitions, fanout=args.fanout,
                                  sort_key=sort_key, layout=args.layout,
-                                 device=args.device)
+                                 device=args.device, mesh=mesh or None)
+    note = ", mesh path (one program a batch)" if mesh else ""
     print(f"built {len(shards.partitions)} partitions over {args.n} rects "
-          f"on {args.device} in {time.time() - t0:.2f}s")
+          f"on {args.device} in {time.time() - t0:.2f}s{note}")
     return shards
 
 
@@ -283,21 +302,32 @@ def _serve_knn_filtered(args, spec):
 
 
 def _serve_browse(args, spec):
-    """Browse sessions over one tree of the whole dataset (the reference's
-    path off its mesh): each request opens a session over its query batch
-    and takes ``--browse-steps`` batches of k neighbours.  Returns
-    sessions·q/s, the neighbour rows returned, the overflow flag (a lost
-    bound crossed), and the first session's (ids, dists), each (B,
+    """Browse sessions: each request opens a session over its query batch
+    and takes ``--browse-steps`` batches of k neighbours.  On the mesh path
+    a session is a distributed cursor over the fleet (one cursor a
+    partition, a cross-partition pool merge a batch); off it, a cursor on
+    one tree of the whole dataset (the reference's path off its mesh).
+    Returns sessions·q/s, the neighbour rows returned, the overflow flag (a
+    lost bound crossed), and the first session's (ids, dists), each (B,
     browse_steps·k)."""
     from ..core import knn_browse
 
     rects, qs = make_knn_inputs(args.n, args.seed, args.batches,
                                 args.batch_size)
-    t0 = time.time()
-    tree = rtree.build_rtree(rects, fanout=args.fanout, device=args.device)
-    print(f"built tree over {args.n} rects on {args.device} in "
-          f"{time.time() - t0:.2f}s")
-    start = knn_browse.make_browse_bfs(tree, args.k, layout=args.layout)
+    if _use_mesh(args):
+        shards = _build_shards(args, rects)
+
+        def start(points):
+            return shards.browse(points, args.k)
+        kind = "distributed browse"
+    else:
+        t0 = time.time()
+        tree = rtree.build_rtree(rects, fanout=args.fanout,
+                                 device=args.device)
+        print(f"built tree over {args.n} rects on {args.device} in "
+              f"{time.time() - t0:.2f}s")
+        start = knn_browse.make_browse_bfs(tree, args.k, layout=args.layout)
+        kind = "browse"
 
     def session(points):
         cursor = start(points)
@@ -318,7 +348,7 @@ def _serve_browse(args, spec):
         overflowed |= ovf
     dt = time.time() - t0
     qps = args.batches * args.batch_size / dt
-    print(f"served {args.batches} browse sessions × {args.batch_size} "
+    print(f"served {args.batches} {kind} sessions × {args.batch_size} "
           f"queries × {args.browse_steps} batches of k={args.k} in "
           f"{dt:.2f}s → {qps:,.0f} sessions·q/s, {returned} neighbor rows"
           + (", WARNING: lost-bound crossed — results may be approximate"
@@ -364,6 +394,11 @@ def main(argv=None):
                          "of the query rects (knn-join mode)")
     ap.add_argument("--deadline", type=float, default=5.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="auto", choices=("auto", "on", "off"),
+                    help="the fleet's single-program path (one launch a "
+                         "level over partition × query) or the host "
+                         "fan-out; auto: the mesh path when more than one "
+                         "CUDA device is visible")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the fleet lives and the queries run: cuda "
                          "runs the CUDA kernels, cpu their PyTorch twins")

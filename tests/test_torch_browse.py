@@ -235,13 +235,22 @@ def test_browse_registered_and_bad_params(inst):
 
 
 def test_fleet_browse_raises_naming_a11():
+    """The distributed browse (A11) is ported: on the host path the fleet
+    asks for the mesh path, as the reference's does, and names no ROADMAP
+    item; on the mesh path it serves."""
     rng = np.random.default_rng(2)
     shards = TShards.build(uniform_rects(rng, 500), 2, fanout=16,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        shards.browse(rng.random((4, 2)).astype(np.float32), 4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        shards.warm("browse", 4, k=4)
+    pts = rng.random((4, 2)).astype(np.float32)
+    for call in (lambda: shards.browse(pts, 4),
+                 lambda: shards.warm("browse", 4, k=4)):
+        with pytest.raises(RuntimeError, match="enable_mesh") as err:
+            call()
+        assert "A11" not in str(err.value)
+    shards.enable_mesh()
+    shards.warm("browse", 4, k=4)
+    ids, d = shards.browse(pts, 4).next_batch()
+    assert ids.shape == d.shape == (4, 4) and (ids >= 0).all()
 
 
 @pytest.mark.parametrize("layout", ["d1", "d3"])
