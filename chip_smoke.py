@@ -144,7 +144,25 @@ Phases, each of which fails the run loudly:
    first k ids and every distance bit of the first session), q/s, joins/s
    and sessions·q/s side by side, B5 on the served mesh kNN = (batches +
    1) × 2 × height; B1, B3, B5, B8, B11, B13 and B14 launch on the mesh
-   path (``mesh_launches`` in the kernels' line).
+   path (``mesh_launches`` in the kernels' line);
+25. serve queue: ``serve.main([... "--queue"])`` at 2M points, 9
+   partitions, 40 requests of 64 rows from 8 clients, batches of up to 256
+   rows, depth 2: D1 select, kNN, kNN-join and filtered kNN with ``--mesh
+   off`` and ``on``, D3 kNN with ``--mesh on``; every response bit-equal
+   to the direct call of a fleet built the same way on the same path; no
+   dispatch failure, retry, degraded dispatch, pool failure or failed
+   request; B1, B5, B8 (and on D3 B13) launch (``queue_launches`` in the
+   kernels' line); queued q/s beside the direct q/s, dispatches, rows per
+   dispatch, re-issues; the queued mesh kNN and select under torch.profiler
+   (busy share, top device items);
+26. chaos: a ServeQueue of D1 kNN over ``replicate(devices=[cuda:0,
+   cuda:0])`` with the host-path fallback, fault-free (against one
+   replica too) and under ``kill:r1@5``, ``crash:r0@3,slow:r1@4:0.2`` and
+   ``kill:r0@0,kill:r1@0``: no failed request, responses equal to the
+   fault-free run's, the pool's failures equal to the injected exceptions,
+   a quarantine under the first plan, degraded dispatches under the last;
+   then ``serve.main([... "--queue", "--chaos", "crash:r0@3"])`` on one
+   replica.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -265,6 +283,12 @@ KNN_JOIN_D3_REF = {
 FILTER_EPS, BROWSE_STEPS, BROWSE_DEEP = 0.2, 4, 72
 # the mesh path's fleet: ``serve --partitions 8`` builds a 3×3 grid
 MESH_PARTITIONS, MESH_KS = 8, (8, 64)
+# the serve queue (phases 25-26): 40 requests of BATCH rows from 8
+# closed-loop clients, coalesced into batches of up to 256 rows, two in
+# flight; the chaos plans of phase 26 over two replicas on one card
+QUEUE_REQUESTS, QUEUE_CLIENTS, QUEUE_MAX_BATCH, QUEUE_DEPTH = 40, 8, 256, 2
+CHAOS_PLANS = ("kill:r1@5", "crash:r0@3,slow:r1@4:0.2",
+               "kill:r0@0,kill:r1@0")
 # the reference's numbers for the first served filtered batch (64 points,
 # windows of half-extent FILTER_EPS) on the phase-3 tree: the JAX package's
 # make_knn_filtered_bfs by (layout, k), equal in both caps tiers (padded
@@ -2324,6 +2348,290 @@ def phase_mesh_serve(mods, serve, heights):
     return mesh_launches
 
 
+# ---------------------------------------------------------------------------
+# the serve queue, health tracking, fault injection and replicas (25-26)
+# ---------------------------------------------------------------------------
+
+QUEUE_MODES = (       # (mode, spec name, the mode's flags, its score kernel)
+    ("spatial", "select", [], "select_level_masks"),
+    ("knn", "knn", ["--k", str(KNN_K)], "knn_level_dists"),
+    ("knn-join", "knn_join", ["--k", str(KNN_K), "--query-eps",
+                              str(QUERY_EPS)], "knn_join_level_dists"),
+    ("knn-filtered", "knn_filtered", ["--k", str(KNN_K), "--filter-eps",
+                                      str(FILTER_EPS)], None),
+)
+
+
+def queue_args(layout="d1"):
+    """The queued runs' argv past the mode's flags, and the namespace
+    ``serve._queued_payloads`` reads (the same sizes and seeds)."""
+    import argparse
+    argv = ["--n", str(N_RECTS), "--partitions", str(MESH_PARTITIONS),
+            "--fanout", str(FANOUT), "--batch-size", str(BATCH),
+            "--batches", str(QUEUE_REQUESTS), "--layout", layout,
+            "--clients", str(QUEUE_CLIENTS), "--max-batch",
+            str(QUEUE_MAX_BATCH), "--depth", str(QUEUE_DEPTH)]
+    ns = argparse.Namespace(n=N_RECTS, seed=SEED, batches=QUEUE_REQUESTS,
+                            batch_size=BATCH, selectivity=SELECTIVITY,
+                            k=KNN_K, query_eps=QUERY_EPS,
+                            filter_eps=FILTER_EPS)
+    return argv, ns
+
+
+def direct_call(shards, op, rows):
+    if op == "select":
+        return shards.range_select(rows)
+    return getattr(shards, op)(rows, KNN_K)
+
+
+def same_response(op, got, want, exact: bool = True) -> bool:
+    """A queued response against a direct one: select id arrays equal;
+    (ids, distance bits) equal, or with ``exact`` False the same
+    neighbours within ties (a host-path fallback behind mesh replicas)."""
+    if op == "select":
+        return len(got) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got, want))
+    if not exact:
+        return same_neighbours(got[0], got[1], want[0], want[1])
+    return np.array_equal(got[0], want[0]) and np.array_equal(
+        np.asarray(got[1]).view(np.int64), np.asarray(want[1]).view(np.int64))
+
+
+def warm_buckets(engines, op, params, top: int = QUEUE_MAX_BATCH) -> None:
+    """Every power-of-two bucket from one request's to ``top``."""
+    bk = 1 << (BATCH - 1).bit_length()
+    while bk <= top:
+        for e in engines:
+            e.warm(op, bk, **params)
+        bk <<= 1
+
+
+def drive_queue(ServeQueue, engines, op, payloads, params, clients,
+                max_batch: int = QUEUE_MAX_BATCH, profile: bool = False,
+                **qkw):
+    """``clients`` closed-loop threads send ``payloads`` through one
+    ServeQueue over ``engines`` (batches of up to ``max_batch`` rows); the
+    pool is settled (every engine call's outcome recorded) before the
+    summary is read.  Returns (results by request, seconds, summary, failed
+    requests, with ``profile`` the device's busy share of the run under
+    torch.profiler)."""
+    import concurrent.futures as cf
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    errors = []
+
+    def client(cid):
+        out = []
+        for i in range(cid, len(payloads), clients):
+            try:
+                out.append((i, q.submit(payloads[i]).result(timeout=300)))
+            except Exception as exc:          # a failed request
+                errors.append((i, exc))
+        return out
+
+    ctx = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                   ) if profile else contextlib.nullcontext()
+    with ServeQueue(engines, op, max_batch=max_batch, depth=QUEUE_DEPTH,
+                    seed=SEED, **params, **qkw) as q:
+        with ctx as prof:
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(clients) as ex:
+                parts = [f.result(timeout=600) for f in
+                         [ex.submit(client, c) for c in range(clients)]]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        q.close()
+        q.pool.shutdown(wait=True)
+        summary = q.summary
+    busy = None
+    if profile:
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        dev_us = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        busy = (f"device busy {dev_us / (dt * 1e6):.1%} of {dt:.3f} s "
+                f"({dev_us / 1e3:.1f} device ms; top: " + ", ".join(
+                    f"{n.replace('void ', '')[:40]} {t / 1e3:.1f}"
+                    for n, t in top) + ")" if dev_us else
+                "profiler recorded no device time")
+    return (dict(pair for part in parts for pair in part), dt, summary,
+            errors, busy)
+
+
+def phase_queue_serve(torch, dev, mods, serve, SpatialShards, ServeQueue):
+    """Phase 25: ``serve.main([... "--queue"])`` at 2M points, 9
+    partitions, QUEUE_REQUESTS requests of BATCH rows from QUEUE_CLIENTS
+    clients, batches of up to QUEUE_MAX_BATCH rows, QUEUE_DEPTH in flight:
+    D1 select, kNN, kNN-join and filtered kNN with ``--mesh off`` and
+    ``on``, D3 kNN with ``--mesh on``.  Every response bit-equal to the
+    direct call of the same fleet (built the same way) on the same path;
+    no dispatch failure, retry, degraded dispatch, pool failure or failed
+    request; the launches of the mode's score kernel grow (B1, B5, B8; B13
+    on D3).  Queued q/s beside the direct q/s (the same requests one at a
+    time, as the synchronous runner serves them), dispatches, rows per
+    dispatch, re-issues; for the mesh kNN, a queued run over the direct
+    fleet under torch.profiler (busy share).  Returns ({kernel: launches
+    on the queued path}, {(mode, layout, mesh): (queued, direct) q/s}, the
+    D1 host-path fleet); prints each queued run's peak device memory."""
+    launches, rates, fleets = {}, {}, {}
+    cells = [(m, "d1", mesh) for m in QUEUE_MODES for mesh in ("off", "on")]
+    cells.append((QUEUE_MODES[1], "d3", "on"))
+    for (mode, op, flags, score), layout, mesh in cells:
+        argv, ns = queue_args(layout)
+        for m in mods:
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.main(["--mode", mode, "--queue", "--mesh", mesh,
+                          *argv, *flags])
+        got = counts_of(mods)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        what = f"queued {mode} {layout} --mesh {mesh}"
+        for key in ("failed_requests", "failures", "retries",
+                    "dispatch_failures", "degraded_dispatches"):
+            check(out[key] == 0, f"{what}: {key} {out[key]}")
+        check(sorted(out["results"]) == list(range(QUEUE_REQUESTS)),
+              f"{what}: {len(out['results'])} responses")
+        if score is not None:
+            check(got.get(score, 0) > 0, f"{what}: {score} not launched "
+                  f"({got})")
+        if layout == "d3":
+            check(got.get("knn_level_dists_d3", 0) > 0,
+                  f"{what}: knn_level_dists_d3 not launched ({got})")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        # the direct calls: the same requests on a fleet built the same way
+        rects, payloads, params = serve._queued_payloads(ns, op)
+        if (layout, "off") not in fleets:
+            fleets[layout, "off"] = SpatialShards.build(
+                rects, MESH_PARTITIONS, fanout=FANOUT, layout=layout,
+                device=dev)
+        if (layout, mesh) not in fleets:
+            fleets[layout, mesh] = SpatialShards(
+                fleets[layout, "off"].partitions, FANOUT,
+                layout=layout).enable_mesh()
+        shards = fleets[layout, mesh]
+        shards.warm(op, BATCH, **params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = [direct_call(shards, op, p) for p in payloads]
+        direct_qps = QUEUE_REQUESTS * BATCH / (time.perf_counter() - t0)
+        for i, want in enumerate(direct):
+            check(same_response(op, out["results"][i], want),
+                  f"{what}: response {i} ≠ the direct call")
+            check(op == "select" or not want[2],
+                  f"{what}: direct request {i} overflowed")
+        rates[mode, layout, mesh] = (out["qps"], direct_qps)
+        print(f"  {what}: {out['qps']:,.1f} q/s queued, {direct_qps:,.1f} "
+              f"direct; {out['dispatches']} dispatches, "
+              f"{out['rows_per_dispatch']:.1f} rows/dispatch, "
+              f"{out['reissues']} re-issues, quarantines "
+              f"{out['quarantines']}, peak {peak:,.0f} MiB (fleet "
+              f"included); {QUEUE_REQUESTS} responses ≡ direct; launches "
+              f"{got}", flush=True)
+        if op in ("knn", "select") and layout == "d1" and mesh == "on":
+            warm_buckets([shards], op, params)
+            res, dt, summary, errors, busy = drive_queue(
+                ServeQueue, [shards], op, payloads, params, QUEUE_CLIENTS,
+                profile=True)
+            check(not errors and all(same_response(op, res[i], direct[i])
+                                     for i in range(QUEUE_REQUESTS)),
+                  f"profiled queued mesh {op}: {len(errors)} failed or a "
+                  f"response differs")
+            print(f"  profiled queued mesh {op}: "
+                  f"{QUEUE_REQUESTS * BATCH / dt:,.1f} q/s, "
+                  f"{summary['batches']} dispatches, "
+                  f"{summary['rows_per_dispatch']:.1f} rows/dispatch, "
+                  f"{summary['reissues']} re-issues; {busy}", flush=True)
+    return launches, rates, fleets["d1", "off"]
+
+
+def phase_chaos(torch, dev, serve, shards, ServeQueue, FaultInjector,
+                FaultPlan):
+    """Phase 26: a ServeQueue of D1 kNN over ``shards.replicate(devices=
+    [dev, dev])`` (two replica fleets on the one card, the 2M points in 9
+    partitions) with ``shards.host_view()`` as the fallback, QUEUE_CLIENTS
+    clients, one request a dispatch so that the plans arm: fault-free, then
+    under each of CHAOS_PLANS.  Each plan: no failed request; every
+    response equal to the fault-free run's (the same neighbours within
+    ties where the host-path fallback served); the pool's failures equal
+    the injected exceptions; a quarantine under ``kill:r1@5``; degraded
+    dispatches when both replicas are dead.  Then ``serve.main([...
+    "--queue", "--chaos", "crash:r0@3"])`` on one replica (the mesh path):
+    no failed request, one injected exception, one retry."""
+    _, ns = queue_args()
+    _, payloads, params = serve._queued_payloads(ns, "knn")
+    reps = shards.replicate(devices=[dev, dev])
+    check(len(reps) == 2 and all(r.mesh_enabled for r in reps)
+          and not shards.mesh_enabled, "replicate: two mesh-path fleets")
+    warm_buckets(reps, "knn", params, top=BATCH)
+    fallback = shards.host_view()
+    clean, dt, summary, errors, _ = drive_queue(
+        ServeQueue, reps, "knn", payloads, params, QUEUE_CLIENTS,
+        max_batch=BATCH, fallback=fallback)
+    check(not errors and summary["failures"] == 0
+          and summary["retries"] == 0 and summary["degraded_dispatches"]
+          == 0, f"fault-free replicas: {len(errors)} failed, {summary}")
+    for i, p in enumerate(payloads[:4]):
+        check(same_response("knn", clean[i], reps[0].knn(p, KNN_K)),
+              f"replica queue: response {i} ≠ the direct replica call")
+    _, dt1, summary1, errors1, _ = drive_queue(
+        ServeQueue, reps[:1], "knn", payloads, params, QUEUE_CLIENTS,
+        max_batch=BATCH, fallback=fallback)
+    check(not errors1 and summary1["failures"] == 0,
+          f"fault-free, one replica: {len(errors1)} failed, {summary1}")
+    print(f"  fault-free, one request a dispatch: 2 replicas "
+          f"{QUEUE_REQUESTS * BATCH / dt:,.1f} q/s, 1 replica "
+          f"{QUEUE_REQUESTS * BATCH / dt1:,.1f}; {summary['batches']} "
+          f"dispatches, re-issues {summary['reissues']}, quarantines "
+          f"{summary['quarantines']}", flush=True)
+    for spec in CHAOS_PLANS:
+        inj = FaultInjector(FaultPlan.from_spec(spec, seed=SEED))
+        res, dt, summary, errors, _ = drive_queue(
+            ServeQueue, reps, "knn", payloads, params, QUEUE_CLIENTS,
+            max_batch=BATCH, fallback=fallback, injector=inj)
+        what = f"chaos {spec}"
+        check(not errors, f"{what}: {len(errors)} failed requests "
+              f"({errors[:1]})")
+        exact = summary["degraded_dispatches"] == 0
+        check(all(same_response("knn", res[i], clean[i], exact)
+                  for i in range(QUEUE_REQUESTS)),
+              f"{what}: a response differs from the fault-free run")
+        check(summary["failures"] == inj.injected["exceptions"],
+              f"{what}: pool failures {summary['failures']} ≠ injected "
+              f"exceptions {inj.injected['exceptions']}")
+        if spec == "kill:r1@5":
+            check(summary["quarantines"] >= 1, f"{what}: no quarantine")
+        if spec == "kill:r0@0,kill:r1@0":
+            check(summary["degraded_dispatches"] > 0,
+                  f"{what}: no degraded dispatch")
+        print(f"  {what}: {QUEUE_REQUESTS * BATCH / dt:,.1f} q/s, 0 failed "
+              f"requests, responses ≡ fault-free; injected "
+              f"{dict(inj.injected)}, dispatches {dict(inj.dispatches)}; "
+              f"pool failures {summary['failures']}, re-issues "
+              f"{summary['reissues']}, retries {summary['retries']}, "
+              f"quarantines {summary['quarantines']}, probes "
+              f"{summary['probes']}, degraded "
+              f"{summary['degraded_dispatches']}, health "
+              f"{summary['health']}", flush=True)
+    del reps
+    argv, _ = queue_args()
+    out = serve.main(["--mode", "knn", "--k", str(KNN_K), "--queue",
+                      "--mesh", "on", "--chaos", "crash:r0@3", *argv])
+    check(out["failed_requests"] == 0 and out["injected_exceptions"] == 1
+          and out["failures"] == 1 and out["retries"] == 1,
+          f"serve --queue --chaos crash:r0@3: {out['failed_requests']} "
+          f"failed, {out['injected_exceptions']} injected, pool failures "
+          f"{out['failures']}, retries {out['retries']}")
+    print(f"  serve --queue --mesh on --chaos crash:r0@3: "
+          f"{out['qps']:,.1f} q/s, 0 failed requests, 1 injected exception "
+          f"→ 1 retry, {out['dispatches']} dispatches", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2343,6 +2651,8 @@ def main() -> None:
     from repro_torch.kernels import rtree_knn_join as kjkern
     from repro_torch.kernels import rtree_select as kern
     from repro_torch.launch import serve
+    from repro_torch.launch.queue import ServeQueue
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
 
     t_start = time.time()
     name = torch.cuda.get_device_name(0)
@@ -2551,6 +2861,24 @@ def main() -> None:
     print(f"  phase 24: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
+    t0 = time.time()
+    print(f"[25] serve --queue: {QUEUE_REQUESTS} requests × {BATCH} rows, "
+          f"{QUEUE_CLIENTS} clients, batches ≤ {QUEUE_MAX_BATCH}, depth "
+          f"{QUEUE_DEPTH}, host and mesh path", flush=True)
+    queue_launches, queue_rates, d1_fleet = phase_queue_serve(
+        torch, dev, mods, serve, SpatialShards, ServeQueue)
+    print(f"  phase 25: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print(f"[26] chaos: two replicas on {name}, plans {CHAOS_PLANS}",
+          flush=True)
+    phase_chaos(torch, dev, serve, d1_fleet, ServeQueue, FaultInjector,
+                FaultPlan)
+    del d1_fleet
+    print(f"  phase 26: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which
     # serve does not drive, from the fused engine cells (phases 4, 7, 10, 13
@@ -2573,14 +2901,21 @@ def main() -> None:
     }
     # and, for the kernels the mesh path runs, its served launches (phase
     # 24, counts reset before each serve run)
+    # and, for the kernels the queued path runs, its launches summed over
+    # the queued serve runs (phase 25, counts reset before each)
     for k in kernels:
         k["launches"] = path_launches[k["name"]][k["name"]]
         check(k["launches"] > 0, f"{k['name']} not launched on its path")
         if k["name"] in mesh_launches:
             k["mesh_launches"] = mesh_launches[k["name"]]
+        if k["name"] in queue_launches:
+            k["queue_launches"] = queue_launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mesh_launches")
+            "mesh_launches", "queue_launches")
+    print("queued q/s against direct q/s: " + ", ".join(
+        f"{m} {lo} mesh {me}: {a:,.1f} / {b:,.1f}"
+        for (m, lo, me), (a, b) in queue_rates.items()), flush=True)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))

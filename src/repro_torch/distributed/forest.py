@@ -188,3 +188,12 @@ def pack_forest(trees: Sequence[RTree], ids: Sequence[np.ndarray],
         tree=stacked, ids_map=torch.from_numpy(ids_map).to(dev),
         mbrs=levels[-1].node_mbr[:, 0, :].cpu().numpy(), n_real=p_real,
         flat=flat_view(stacked))
+
+
+def replicate_forest(packed: PackedForest, devices) -> List[PackedForest]:
+    """Replica fan-out: one host-packed forest placed on each replica's
+    device (``launch/mesh.replica_devices``; the reference's
+    ``replicate_forest`` over replica meshes).  The packing is shared and
+    only the placement differs; a replica on the pack's own device shares
+    its tensors, which every engine only reads."""
+    return [packed.to(d) for d in devices]

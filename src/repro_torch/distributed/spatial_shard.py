@@ -34,6 +34,8 @@ Both paths agree because both reduce to the same total order: candidates
 merge by (distance, global id), select and join rows by sorted global id.
 The reference's mesh shards the forest over a device mesh; on one card the
 forest has one shard (``torch.distributed`` waits for a second card).
+``replicate`` gives the serve queue (launch/queue.py) R mesh-path fleets,
+one a device, over one packing of the partitions.
 """
 from __future__ import annotations
 
@@ -169,6 +171,39 @@ class SpatialShards:
                              layout=self.layout)
         twin._engines = self._engines
         return twin
+
+    @property
+    def device(self) -> torch.device:
+        """Where this fleet's operators run: the forest's device on the
+        mesh path, else the partition trees'."""
+        if self.mesh_enabled:
+            return self._forest.device
+        return self.partitions[0].tree.device
+
+    def replicate(self, replicas: Optional[int] = None,
+                  devices=None) -> List["SpatialShards"]:
+        """Replica fan-out: R mesh-path fleets, one a device, each serving
+        the whole public API over a complete copy of the fleet.  The fleet
+        is packed once (``forest.replicate_forest``); the replicas share
+        ``partitions`` and nothing of the mesh state (forest placement,
+        programs, browse engines).  ``devices`` defaults to
+        ``launch/mesh.replica_devices(replicas)`` on this fleet's device
+        type; an explicit list may name one device twice, which gives two
+        distinct replica engines on it (the reference's ``meshes=`` may
+        name one mesh twice).  ``self`` is left untouched."""
+        if devices is None:
+            from ..launch.mesh import replica_devices
+            devices = replica_devices(replicas, self.device)
+        packed = forest_mod.pack_forest(
+            [p.tree for p in self.partitions],
+            [p.ids for p in self.partitions])
+        reps = []
+        for fst in forest_mod.replicate_forest(packed, devices):
+            rep = SpatialShards(self.partitions, self.fanout,
+                                layout=self.layout)
+            rep._forest = fst
+            reps.append(rep)
+        return reps
 
     def _mesh_program(self, op: str, outer_tree=None, **params):
         """The mesh program of ``op`` over the packed forest, cached per
@@ -500,8 +535,8 @@ class SpatialShards:
                 np.zeros((batch, spec.query_width), np.float32))
         else:
             self._warm_host(spec, batch, k, result_cap)
-        if self.partitions and self.partitions[0].tree.device.type == "cuda":
-            torch.cuda.synchronize(self.partitions[0].tree.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _warm_host(self, spec, batch: int, k: Optional[int],
                    result_cap: int) -> None:

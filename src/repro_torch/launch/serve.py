@@ -37,6 +37,25 @@ when more than one CUDA device is visible, so on one card the host path,
 as the reference decides.  ``--layout`` picks the node layout: ``d1``
 (the default) or the quantized ``d3``, which serves every mode but
 ``join``; ``--mode join --layout d3`` exits "not ported yet" too.
+
+``--queue`` serves the queueable modes (spatial/select, knn, knn-join,
+knn-filtered) through the continuous-batching queue (launch/queue.py):
+``--clients`` closed-loop client threads submit ``--batch-size``-row
+requests that coalesce into power-of-two batches of up to ``--max-batch``
+rows, ``--depth`` dispatches in flight per replica.  ``--replicas R`` on
+the mesh path serves from R fleets on R devices
+(``SpatialShards.replicate``), which the queue round-robins across and the
+straggler pool re-issues between; R needs R visible devices of the fleet's
+type, so one card takes one replica.  ``--chaos <spec>`` injects seeded
+faults into the replicas (runtime/faults.py, e.g. ``kill:r1@5,crash:r0@3``)
+and the run must end with no failed request, the queue degrading to the
+host path when every replica's breaker is open.  ``--dryrun --queue``
+holds every queued response to the direct call of the same fleet.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn --queue \
+        --n 2000000 --k 8 --mesh on --clients 8 --max-batch 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn --queue \
+        --dryrun --device cpu --chaos crash:r0@3
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ import numpy as np
 import torch
 
 from ..core import rtree, str_pack, traversal
+from ..core.counters import Counters
 from ..core.join_vector import D3_JOIN_ITEM
 from ..core.layouts import layout_names
 from ..distributed.spatial_shard import SpatialShards
@@ -144,30 +164,52 @@ def _build_shards(args, rects, sort_key=None):
     return shards
 
 
+def _replica_fleet(args, shards):
+    """The fleets the straggler pool or the serve queue dispatches over:
+    ``--replicas R`` on the mesh path gives R fleets on R devices
+    (``SpatialShards.replicate``), so a re-issue targets a distinct
+    engine.  Off the mesh path, or with R <= 1, the one fleet serves alone
+    and the pool skips the pointless self-re-issue."""
+    r = args.replicas
+    if r > 1 and _use_mesh(args):
+        replicas = shards.replicate(replicas=r)
+        print(f"replica fan-out: {r} fleets on "
+              f"{', '.join(str(e.device) for e in replicas)}")
+        return replicas
+    return [shards]
+
+
 def _serve_select(args, spec):
-    """Distributed range select behind the straggler pool (one fleet, so
-    the pool never re-issues; its deadline and failure stats still
-    apply).  Returns q/s, the total result rows, the overflow flag (any
-    partition's frontier or result cap overflowed in any batch) and the
-    first batch's results (per-query sorted global ids)."""
+    """Distributed range select behind the straggler pool, one pool shard
+    per replica fleet (``--replicas``): round-robin primaries, deadline
+    re-issue to the next replica (with one fleet the pool never re-issues;
+    its deadline and failure stats still apply).  Returns q/s, the total
+    result rows, the overflow flag (any partition's frontier or result cap
+    overflowed in any batch) and the first batch's results (per-query
+    sorted global ids)."""
     shards = _build_shards(args, make_rects(args.n, args.seed))
     qs = make_queries(args.batches, args.batch_size, args.selectivity,
                       args.seed + 1)
-    shards.warm("select", args.batch_size)
+    engines = _replica_fleet(args, shards)
+    for e in engines:
+        e.warm("select", args.batch_size)
 
-    with ShardPool(shards=[shards.range_select],
+    with ShardPool(shards=[e.range_select for e in engines],
                    deadline_s=args.deadline) as pool:
         t0 = time.time()
         total = 0
         first = None
         overflowed = False
         for b in range(args.batches):
-            res = pool.query(0, qs[b])
+            res = pool.query(b % len(engines), qs[b])
             first = res if first is None else first
             total += sum(len(r) for r in res)
-            # one fleet and no spare, so the answer is this fleet's last
-            ctr = shards.last_counters
-            overflowed |= ctr is not None and bool(int(ctr.overflow))
+            # a re-issue may have answered from another replica: any
+            # replica's last batch overflowed (a stale flag was counted
+            # when it was fresh)
+            overflowed |= any(e.last_counters is not None
+                              and bool(int(e.last_counters.overflow))
+                              for e in engines)
         dt = time.time() - t0
     qps = args.batches * args.batch_size / dt
     print(f"served {args.batches} batches × {args.batch_size} queries in "
@@ -357,6 +399,180 @@ def _serve_browse(args, spec):
             "first_batch": first}
 
 
+def _queued_payloads(args, op):
+    """The served dataset, the per-request query arrays and the operator
+    params of the queued runner: the synchronous runners' draws, so request
+    ``i`` is batch ``i`` of the mode's synchronous run.  Returns (rects,
+    payloads, params)."""
+    if op == "select":
+        return (make_rects(args.n, args.seed),
+                list(make_queries(args.batches, args.batch_size,
+                                  args.selectivity, args.seed + 1)), {})
+    if op == "knn":
+        rects, qs = make_knn_inputs(args.n, args.seed, args.batches,
+                                    args.batch_size)
+    elif op == "knn_join":
+        rects, qs = make_knn_join_inputs(args.n, args.seed, args.batches,
+                                         args.batch_size, args.query_eps)
+    elif op == "knn_filtered":
+        rects, qs = make_knn_filtered_inputs(args.n, args.seed, args.batches,
+                                             args.batch_size, args.filter_eps)
+    else:
+        raise ValueError(f"no queued payload builder for {op!r}")
+    return rects, list(qs), {"k": args.k}
+
+
+def _cpu_counters(ctr):
+    """``ctr`` with its tensors on the host, so replicas on several
+    devices can be summed."""
+    return Counters(*[v.cpu() if torch.is_tensor(v) else v
+                      for v in ctr.values()])
+
+
+def _serve_queued(args, spec):
+    """Continuous-batching service: ``--clients`` closed-loop client
+    threads submit their requests through one ServeQueue
+    (launch/queue.py), which coalesces concurrent arrivals into
+    power-of-two batches and serves each with one dispatch, over
+    ``--replicas`` fleets behind the straggler pool, ``--depth`` batches
+    in flight per replica.  Returns q/s, dispatches, rows per dispatch,
+    re-issues, the pool's failures, the queue's retries, dispatch
+    failures, degraded dispatches and quarantines, the failed requests
+    (with ``--chaos`` also the injected faults and the deadline failures),
+    and ``results``: request index → response (select: the per-query id
+    arrays; the distance modes: (ids, dists, overflow))."""
+    import concurrent.futures as cf
+
+    from .queue import ServeQueue
+
+    op = spec.name
+    rects, payloads, qparams = _queued_payloads(args, op)
+    shards = _build_shards(args, rects)
+    engines = _replica_fleet(args, shards)
+    # warm every power-of-two bucket a batch can land in: the coalesced
+    # ones up to --max-batch's, and a lone request's own
+    bk = 1 << (args.batch_size - 1).bit_length()
+    top = max(1 << (args.max_batch - 1).bit_length(), bk)
+    while bk <= top:
+        for e in engines:
+            e.warm(op, bk, **qparams)
+        bk <<= 1
+
+    injector = None
+    if args.chaos:
+        from ..runtime.faults import FaultInjector, FaultPlan
+        injector = FaultInjector(FaultPlan.from_spec(args.chaos,
+                                                     seed=args.seed))
+        print(f"chaos: injecting {injector.plan} (seed {args.seed})")
+
+    n_clients = max(1, min(args.clients, args.batches))
+
+    with ServeQueue(engines, op, max_batch=args.max_batch,
+                    max_delay_s=args.max_delay, depth=args.depth,
+                    deadline_s=args.deadline, injector=injector,
+                    fallback=shards.host_view(), seed=args.seed,
+                    **qparams) as q:
+
+        errors = []
+
+        def client(cid):
+            # closed loop: each client waits for its response before
+            # issuing the next request
+            out = []
+            for i in range(cid, args.batches, n_clients):
+                try:
+                    out.append((i, q.query(payloads[i])))
+                except Exception as exc:     # counted as a failed request
+                    errors.append((i, exc))
+            return out
+
+        t0 = time.time()
+        with cf.ThreadPoolExecutor(n_clients) as ex:
+            parts = list(ex.map(client, range(n_clients)))
+        dt = time.time() - t0
+        results = dict(pair for part in parts for pair in part)
+        # settle the pool: every engine call's outcome recorded before the
+        # counters are read
+        q.close()
+        q.pool.shutdown(wait=True)
+        summary = q.summary
+
+    if errors and not args.chaos:
+        # without injection a request failure is a real bug: keep it loud
+        raise errors[0][1]
+
+    if args.dryrun:
+        # bit-exact parity with direct per-request calls on the base fleet
+        for i, p in enumerate(payloads):
+            if i not in results:
+                continue                     # failed under chaos (asserted)
+            if op == "select":
+                ref = shards.range_select(p)
+                for got_row, ref_row in zip(results[i], ref):
+                    np.testing.assert_array_equal(got_row, ref_row)
+            else:
+                ids, d, _ = results[i]
+                ref_ids, ref_d, _ = getattr(shards, op)(p, args.k)
+                np.testing.assert_array_equal(ids, ref_ids)
+                np.testing.assert_array_equal(d, ref_d)
+
+    qps = args.batches * args.batch_size / dt
+    print(f"queued {args.batches} requests × {args.batch_size} rows from "
+          f"{n_clients} clients over {len(engines)} replica(s) in "
+          f"{dt:.2f}s → {qps:,.0f} q/s; "
+          f"{summary.get('batches', 0)} dispatches, "
+          f"{summary.get('rows_per_dispatch', 0):.0f} rows/dispatch, "
+          f"{summary['reissues']} re-issues, {summary['failures']} failures")
+    out = {"qps": qps, "dispatches": summary.get("batches", 0),
+           "rows_per_dispatch": summary.get("rows_per_dispatch", 0.0),
+           "reissues": summary["reissues"],
+           "failures": summary["failures"],
+           "failed_requests": len(errors),
+           "retries": summary["retries"],
+           "dispatch_failures": summary["dispatch_failures"],
+           "degraded_dispatches": summary["degraded_dispatches"],
+           "quarantines": summary["quarantines"],
+           "results": results}
+    # frontier occupancy across the fleet: each replica's last_counters
+    # carries the live/padded lane tallies of its last batch
+    ctrs = [_cpu_counters(e.last_counters) for e in engines
+            if e.last_counters is not None]
+    if ctrs:
+        total = ctrs[0]
+        for c in ctrs[1:]:
+            total = total + c
+        occ = total.occupancy()
+        esc = int(torch.as_tensor(total.escalations).sum())
+        out["occupancy"] = occ
+        out["escalations"] = esc
+        print(f"frontier occupancy {occ:.1%} "
+              f"(live/(live+padded) lanes over the last batch per replica); "
+              f"{esc} overflow escalation(s)")
+    if args.chaos:
+        print(f"chaos: {injector.injected['exceptions']} injected "
+              f"exceptions, {injector.injected['delays']} injected delays "
+              f"→ {summary['retries']} retries, {summary['quarantines']} "
+              f"quarantine(s), {summary['degraded_dispatches']} degraded "
+              f"dispatches, {summary['deadline_exceeded']} deadline "
+              f"failures; health: {summary['health']}; "
+              f"{out['failed_requests']} failed requests")
+        out.update(
+            injected_exceptions=injector.injected["exceptions"],
+            injected_delays=injector.injected["delays"],
+            deadline_exceeded=summary["deadline_exceeded"])
+        # the robustness contract: chaos must never surface to clients
+        if out["failed_requests"]:
+            raise RuntimeError(f"{out['failed_requests']} requests failed "
+                               f"under chaos: {errors[0][1]!r}")
+        if args.dryrun and not (injector.injected["exceptions"]
+                                + injector.injected["delays"]):
+            # a smoke whose plan never fired proves nothing: the dryrun
+            # caps (batches, max_batch) are sized so its clauses arm
+            raise RuntimeError("chaos dryrun injected nothing: the plan "
+                               "never armed")
+    return out
+
+
 RUNNERS = {
     "select": _serve_select,
     "join": _serve_join,
@@ -399,6 +615,29 @@ def main(argv=None):
                          "level over partition × query) or the host "
                          "fan-out; auto: the mesh path when more than one "
                          "CUDA device is visible")
+    ap.add_argument("--queue", action="store_true",
+                    help="continuous batching: coalesce concurrent client "
+                         "requests into power-of-two batches, one dispatch "
+                         "each (launch/queue.py; spatial/select, knn, "
+                         "knn-join, knn-filtered)")
+    ap.add_argument("--clients", type=int, default=8,
+                    help="closed-loop client threads driving the queue")
+    ap.add_argument("--chaos", default="",
+                    help="seeded fault-injection spec for the queued "
+                         "replicas (runtime/faults.py): comma-separated "
+                         "kill:rI@N, crash:rI@N, slow:rI@N:SECS, "
+                         "flaky:rI:P, spike:rI:P:SECS; the run fails on "
+                         "any client-visible failure")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica fleets, one a device (mesh path only); "
+                         "the straggler pool re-issues across them")
+    ap.add_argument("--max-batch", type=int, default=256,
+                    help="coalescing target in query rows per dispatch")
+    ap.add_argument("--max-delay", type=float, default=0.002,
+                    help="max seconds the queue waits to fill a batch")
+    ap.add_argument("--depth", type=int, default=2,
+                    help="in-flight dispatches per replica (2 = double-"
+                         "buffered)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the fleet lives and the queries run: cuda "
                          "runs the CUDA kernels, cpu their PyTorch twins")
@@ -421,11 +660,18 @@ def main(argv=None):
         args.n = min(args.n, 2000)
         args.partitions = min(args.partitions, 2)
         args.fanout = min(args.fanout, 16)
-        args.batches = min(args.batches, 2)
+        # chaos smokes need enough dispatches for @N clauses to arm and for
+        # the breaker to trip, and coalescing must not fold the whole run
+        # into a handful of dispatches: under chaos one request a dispatch
+        args.batches = min(args.batches,
+                           20 if args.chaos else (4 if args.queue else 2))
         args.batch_size = min(args.batch_size, 8)
         args.join_cap = min(args.join_cap, 1 << 15)
         args.k = min(args.k, 4)
         args.browse_steps = min(args.browse_steps, 2)
+        args.max_batch = min(args.max_batch,
+                             args.batch_size if args.chaos else 32)
+        args.clients = min(args.clients, 4)
         # slow shared smoke boxes: a lapsed deadline would only add
         # spurious re-issue work, never find a bug
         args.deadline = max(args.deadline, 60.0)
@@ -433,6 +679,12 @@ def main(argv=None):
     spec = traversal.get_spec(MODE_TO_SPEC[args.mode])
     missing = set(traversal.spec_names()) - set(RUNNERS)
     assert not missing, f"registered specs without a serve runner: {missing}"
+    if args.queue:
+        from .queue import QUEUEABLE_OPS
+        if spec.name in QUEUEABLE_OPS:
+            return _serve_queued(args, spec)
+        print(f"--queue: {spec.name} does not coalesce (session/query-less "
+              f"operator); serving synchronously")
     return RUNNERS[spec.name](args, spec)
 
 

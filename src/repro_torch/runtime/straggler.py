@@ -17,9 +17,8 @@ waits the primary out.
 
 Health integration (``health=`` — an object with ``record_success``,
 ``record_failure`` and ``usable``): every dispatch outcome is recorded via
-a done-callback, and backup selection skips unusable replicas.  The port's
-serve path passes no tracker yet (the health tracker arrives with the
-serving slice).
+a done-callback, and backup selection skips unusable replicas.  The serve
+queue (launch/queue.py) passes its ``runtime/health.HealthTracker``.
 
 Counters are lock-guarded; ``stats()`` returns a *consistent snapshot*
 taken under the lock, with failures/re-issues broken out per engine label
@@ -175,5 +174,8 @@ class ShardPool:
     def query_many(self, payloads: Sequence[Tuple[int, Any]]) -> List[Any]:
         return [self.query(sid, p) for sid, p in payloads]
 
-    def shutdown(self):
-        self._pool.shutdown(wait=False, cancel_futures=True)
+    def shutdown(self, wait: bool = False):
+        """Stop the workers and cancel calls not yet started; ``wait``
+        also joins the running ones, so that every done-callback (and the
+        stats and health signals it records) has run on return."""
+        self._pool.shutdown(wait=wait, cancel_futures=True)
