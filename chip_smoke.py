@@ -162,7 +162,35 @@ Phases, each of which fails the run loudly:
    fault-free run's, the pool's failures equal to the injected exceptions,
    a quarantine under the first plan, degraded dispatches under the last;
    then ``serve.main([... "--queue", "--chaos", "crash:r0@3"])`` on one
-   replica.
+   replica;
+27. baselines: ``flatten_tree`` of the phase-3 tree on cuda ≡ its CPU
+   copy's; kernels S (``make_select_dfs``) and V
+   (``make_select_dfs_vector``) for the 64 select queries, one launch a
+   query, ≡ their host twins on the CPU copy (res in emit order, rc,
+   every counter) and ``BASELINE_REF``, also with a stack of 8 and 64
+   result slots (overflow), each query's sorted ids ≡ phase 4's engine;
+   the latency model (kernel S on a random one-child chain, device ns a
+   node); ms per query of S, V (device time and a batch of launches /
+   64), the BFS engine unfused and fused (a batch / 64),
+   ``select_recursive_py`` logical and bitwise (4 queries),
+   ``knn_best_first`` (4 points) and ``knn_join_best_first`` (4 rects),
+   k = 8, each ≡ ``BASELINE_REF``; ``join_recursive_py`` with O3 off and
+   on at ``benchmarks/bench_join.py``'s configuration (n = 100,000 a side,
+   half-extent 0.0005, fanout 64, sort_key "lx"; n halved, and printed,
+   while the host join takes more than 60 s) ≡ ``BASELINE_REF``, its
+   pairs ≡ the D0, D1 and D2 engines' on the card, the time of each;
+28. D0 and D2 engines: the levels built on the card byte-equal to the
+   CPU's; select (static, adaptive), the centre partition's
+   join (O3/O4 off, on), kNN, kNN-join and filtered kNN (k in {8, 64},
+   static, adaptive) and browse sessions (4 and 72 steps) on the inputs
+   of phases 4, 7, 10, 13, 20 and 21: ids, counts, overflow and distance
+   bits ≡ the D1 engine's (kNN as sets within ties), every counter but
+   dispatches ≡ ``LAYOUT_REF`` / ``LAYOUT_JOIN_REF``; ms per batch, busy
+   share and peak MiB of D1, D0 and D2;
+29. D0/D2 serve: ``serve.main([... "--layout", "d0" | "d2"])`` at 2M
+   points, spatial, kNN and the join on the host path and kNN with
+   ``--mesh on``: nothing overflows, the first batch ≡ brute force
+   (the join: 256 sampled probes), q/s and joins/s.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -354,6 +382,207 @@ BROWSE_REF = {
                      lost_finite=64, lost_sum=0.00540862853085855),
 }
 ALL_PAIRS_BATCH = 4096
+# the paper's baselines (phase 27): the DFS walks S and V with the default
+# stack and with a forced overflow (stack_cap, result_cap); the latency
+# model's chain walk; the scalar join at benchmarks/bench_join.py's
+# configuration, n halved while its host time passes the budget
+DFS_OVERFLOW = (8, 64)
+CHAIN_NODES, CHAIN_STEPS = 1 << 24, 1 << 17
+SCALAR_JOIN_N, SCALAR_JOIN_EPS, SCALAR_JOIN_BUDGET_S = 100_000, 0.0005, 60.0
+# the served D0/D2 runs of phase 29
+LAYOUT_SERVE_BATCHES = 4
+# the reference's numbers for phases 27-28, as
+# scripts/a9a_reference_numbers.py prints them: the baselines over the
+# first served batches (the DFS walks summed over the 64 queries, the host
+# baselines over the first 4 rows, the scalar join at bench_join's
+# configuration), and the D0/D2 engines (the reference's jnp path) on the
+# inputs of phases 4, 7, 10, 13, 20 and 21, equal in both caps tiers
+# (padded slots per tier).  The ids and distances are D1's; the counters
+# are the layout's own (D2 scores in 2 stages).
+BASELINE_REF = {
+    ('scalar', 1024, 4096):
+        {'rc': 128232, 'nodes_visited': 3056, 'predicates': 766100,
+            'overflow': 0},
+    ('scalar', 8, 64):
+        {'rc': 133302, 'nodes_visited': 3056, 'predicates': 766100,
+            'overflow': 64},
+    ('vector', 1024, 4096):
+        {'rc': 128232, 'nodes_visited': 3056, 'predicates': 782336,
+            'overflow': 0},
+    ('vector', 8, 64):
+        {'rc': 133302, 'nodes_visited': 3056, 'predicates': 782336,
+            'overflow': 64},
+    ('recursive', 'logical'):
+        {'nodes_visited': 195, 'predicates': 42453, 'branches': 42453,
+            'ids_sum': 8051466081, 'found': 8066},
+    ('recursive', 'bitwise'):
+        {'nodes_visited': 195, 'predicates': 48848, 'branches': 12212,
+            'ids_sum': 8051466081, 'found': 8066},
+    ('knn_best_first', 8):
+        {'nodes_visited': 23, 'predicates': 7712, 'vector_ops': 148,
+            'enqueued': 732, 'pruned_inner': 520, 'ids_sum': 27232618,
+            'found': 32, 'd_sum': 2.2431540450895682e-05},
+    ('knn_join_best_first', 8):
+        {'nodes_visited': 32, 'predicates': 10528, 'vector_ops': 192,
+            'enqueued': 1198, 'pruned_inner': 630, 'ids_sum': 9505823,
+            'found': 32, 'd_sum': 0.0},
+    ('join_recursive', False):
+        {'nodes_visited': 13716, 'predicates': 110728068, 'pairs': 39716,
+            'pairs_sum': 3983095359},
+    ('join_recursive', True):
+        {'nodes_visited': 13716, 'predicates': 95764932, 'pruned_outer': 58866,
+            'pairs': 39716, 'pairs_sum': 3983095359},
+}
+LAYOUT_REF = {
+    ('select', 'd0'):
+        {'counters': {'nodes_visited': 3056, 'predicates': 782336,
+            'vector_ops': 12224, 'enqueued': 2992, 'pruned_outer': 0,
+            'pruned_inner': 0, 'masked_waste': 64360}, 'live': [64, 86, 202,
+            2704], 'ids_sum': 127911487263, 'found': 128232,
+            'counts_sum': 128232, 'padded': {'static': [0, 8106, 16182,
+            1045872], 'adaptive': [0, 170, 16182, 1045872]}},
+    ('knn', 'd0', 8):
+        {'counters': {'nodes_visited': 2331, 'predicates': 983552,
+            'vector_ops': 15368, 'enqueued': 2267, 'pruned_outer': 0,
+            'pruned_inner': 86117, 'masked_waste': 8320}, 'live': [64, 576,
+            871, 820], 'ids_sum': 500525860, 'found': 512,
+            'd_sum': 0.0003939492196707306, 'padded': {'static': [0, 7616,
+            7321, 7372], 'adaptive': [0, 0, 1177, 1228]}},
+    ('knn', 'd0', 64):
+        {'counters': {'nodes_visited': 10193, 'predicates': 3990528,
+            'vector_ops': 62352, 'enqueued': 10129, 'pruned_outer': 0,
+            'pruned_inner': 321775, 'masked_waste': 13376}, 'live': [64, 576,
+            4755, 4798], 'ids_sum': 4024399365, 'found': 4096,
+            'd_sum': 0.022336982976781883, 'padded': {'static': [0, 7616, 3437,
+            11586], 'adaptive': [0, 0, 11629, 11586]}},
+    ('knn_join', 'd0', 8):
+        {'counters': {'nodes_visited': 2287, 'predicates': 971008,
+            'vector_ops': 15172, 'enqueued': 2223, 'pruned_outer': 0,
+            'pruned_inner': 85841, 'masked_waste': 8320}, 'live': [64, 576,
+            866, 781], 'ids_sum': 515026219, 'found': 512, 'd_sum': 0.0,
+            'padded': {'static': [0, 7616, 7326, 7411], 'adaptive': [0, 0,
+            1182, 1267]}},
+    ('knn_join', 'd0', 64):
+        {'counters': {'nodes_visited': 10144, 'predicates': 3977728,
+            'vector_ops': 62152, 'enqueued': 10080, 'pruned_outer': 0,
+            'pruned_inner': 321760, 'masked_waste': 13376}, 'live': [64, 576,
+            4754, 4750], 'ids_sum': 4034559553, 'found': 4096,
+            'd_sum': 0.000723181390258329, 'padded': {'static': [0, 7616, 3438,
+            11634], 'adaptive': [0, 0, 11630, 11634]}},
+    ('knn_filtered', 'd0', 8):
+        {'counters': {'nodes_visited': 1982, 'predicates': 804864,
+            'vector_ops': 12576, 'enqueued': 1918, 'pruned_outer': 0,
+            'pruned_inner': 58969, 'masked_waste': 13481}, 'live': [64, 227,
+            871, 820], 'ids_sum': 500525860, 'found': 512,
+            'd_sum': 0.0003939492196707306, 'padded': {'static': [0, 7965,
+            15513, 15564], 'adaptive': [0, 349, 3225, 3276]}},
+    ('knn_filtered', 'd0', 64):
+        {'counters': {'nodes_visited': 10221, 'predicates': 4004864,
+            'vector_ops': 62576, 'enqueued': 10157, 'pruned_outer': 0,
+            'pruned_inner': 266178, 'masked_waste': 70737}, 'live': [64, 227,
+            5132, 4798], 'ids_sum': 4024399365, 'found': 4096,
+            'd_sum': 0.022336982976781883, 'padded': {'static': [0, 7965,
+            11252, 27970], 'adaptive': [0, 349, 27252, 27970]}},
+    ('browse', 'd0', 4):
+        {'counters': {'nodes_visited': 2331, 'predicates': 983552,
+            'vector_ops': 15368, 'enqueued': 2267, 'pruned_outer': 0,
+            'pruned_inner': 86117, 'masked_waste': 8320}, 'live': [64, 576,
+            871, 820], 'padded': [0, 7616, 7321, 7372], 'ids_sum': 1981845840,
+            'found': 2048, 'd_sum': 0.005745814926882531, 'descents': 1,
+            'overflow': 0},
+    ('browse', 'd0', 72):
+        {'counters': {'nodes_visited': 4298, 'predicates': 1683712,
+            'vector_ops': 26308, 'enqueued': 2337, 'pruned_outer': 0,
+            'pruned_inner': 134095, 'masked_waste': 9424}, 'live': [64, 576,
+            1639, 2019], 'padded': [1856, 245184, 244121, 243741],
+            'ids_sum': 36632160694, 'found': 36864, 'd_sum': 1.817284040318924,
+            'descents': 30, 'overflow': 64},
+    ('select', 'd2'):
+        {'counters': {'nodes_visited': 3056, 'predicates': 391168,
+            'vector_ops': 6112, 'enqueued': 2992, 'pruned_outer': 0,
+            'pruned_inner': 0, 'masked_waste': 64360}, 'live': [64, 86, 202,
+            2704], 'ids_sum': 127911487263, 'found': 128232,
+            'counts_sum': 128232, 'padded': {'static': [0, 8106, 16182,
+            1045872], 'adaptive': [0, 170, 16182, 1045872]}},
+    ('knn', 'd2', 8):
+        {'counters': {'nodes_visited': 2331, 'predicates': 491776,
+            'vector_ops': 7684, 'enqueued': 2267, 'pruned_outer': 0,
+            'pruned_inner': 86117, 'masked_waste': 8320}, 'live': [64, 576,
+            871, 820], 'ids_sum': 500525860, 'found': 512,
+            'd_sum': 0.0003939492196707306, 'padded': {'static': [0, 7616,
+            7321, 7372], 'adaptive': [0, 0, 1177, 1228]}},
+    ('knn', 'd2', 64):
+        {'counters': {'nodes_visited': 10193, 'predicates': 1995264,
+            'vector_ops': 31176, 'enqueued': 10129, 'pruned_outer': 0,
+            'pruned_inner': 321775, 'masked_waste': 13376}, 'live': [64, 576,
+            4755, 4798], 'ids_sum': 4024399365, 'found': 4096,
+            'd_sum': 0.022336982976781883, 'padded': {'static': [0, 7616, 3437,
+            11586], 'adaptive': [0, 0, 11629, 11586]}},
+    ('knn_join', 'd2', 8):
+        {'counters': {'nodes_visited': 2287, 'predicates': 485504,
+            'vector_ops': 7586, 'enqueued': 2223, 'pruned_outer': 0,
+            'pruned_inner': 85841, 'masked_waste': 8320}, 'live': [64, 576,
+            866, 781], 'ids_sum': 515026219, 'found': 512, 'd_sum': 0.0,
+            'padded': {'static': [0, 7616, 7326, 7411], 'adaptive': [0, 0,
+            1182, 1267]}},
+    ('knn_join', 'd2', 64):
+        {'counters': {'nodes_visited': 10144, 'predicates': 1988864,
+            'vector_ops': 31076, 'enqueued': 10080, 'pruned_outer': 0,
+            'pruned_inner': 321760, 'masked_waste': 13376}, 'live': [64, 576,
+            4754, 4750], 'ids_sum': 4034559553, 'found': 4096,
+            'd_sum': 0.000723181390258329, 'padded': {'static': [0, 7616, 3438,
+            11634], 'adaptive': [0, 0, 11630, 11634]}},
+    ('knn_filtered', 'd2', 8):
+        {'counters': {'nodes_visited': 1982, 'predicates': 402432,
+            'vector_ops': 6288, 'enqueued': 1918, 'pruned_outer': 0,
+            'pruned_inner': 58969, 'masked_waste': 13481}, 'live': [64, 227,
+            871, 820], 'ids_sum': 500525860, 'found': 512,
+            'd_sum': 0.0003939492196707306, 'padded': {'static': [0, 7965,
+            15513, 15564], 'adaptive': [0, 349, 3225, 3276]}},
+    ('knn_filtered', 'd2', 64):
+        {'counters': {'nodes_visited': 10221, 'predicates': 2002432,
+            'vector_ops': 31288, 'enqueued': 10157, 'pruned_outer': 0,
+            'pruned_inner': 266178, 'masked_waste': 70737}, 'live': [64, 227,
+            5132, 4798], 'ids_sum': 4024399365, 'found': 4096,
+            'd_sum': 0.022336982976781883, 'padded': {'static': [0, 7965,
+            11252, 27970], 'adaptive': [0, 349, 27252, 27970]}},
+    ('browse', 'd2', 4):
+        {'counters': {'nodes_visited': 2331, 'predicates': 491776,
+            'vector_ops': 7684, 'enqueued': 2267, 'pruned_outer': 0,
+            'pruned_inner': 86117, 'masked_waste': 8320}, 'live': [64, 576,
+            871, 820], 'padded': [0, 7616, 7321, 7372], 'ids_sum': 1981845840,
+            'found': 2048, 'd_sum': 0.005745814926882531, 'descents': 1,
+            'overflow': 0},
+    ('browse', 'd2', 72):
+        {'counters': {'nodes_visited': 4298, 'predicates': 841856,
+            'vector_ops': 13154, 'enqueued': 2337, 'pruned_outer': 0,
+            'pruned_inner': 134095, 'masked_waste': 9424}, 'live': [64, 576,
+            1639, 2019], 'padded': [1856, 245184, 244121, 243741],
+            'ids_sum': 36632160694, 'found': 36864, 'd_sum': 1.817284040318924,
+            'descents': 30, 'overflow': 64},
+}
+LAYOUT_JOIN_REF = {
+    ('join', 'd0', False):
+        {'counters': {'nodes_visited': 16312, 'predicates': 133257184,
+            'vector_ops': 32624, 'enqueued': 729069, 'pruned_outer': 0,
+            'pruned_inner': 0, 'masked_waste': 0}, 'live': [1, 110, 8045],
+            'pairs': 720914, 'pairs_sum': 152458661235},
+    ('join', 'd0', True):
+        {'counters': {'nodes_visited': 16312, 'predicates': 33317712,
+            'vector_ops': 32624, 'enqueued': 729069, 'pruned_outer': 170740,
+            'pruned_inner': 14086858, 'masked_waste': 24984868}, 'live': [1,
+            110, 8045], 'pairs': 720914, 'pairs_sum': 152458661235},
+    ('join', 'd2', False):
+        {'counters': {'nodes_visited': 16312, 'predicates': 66628592,
+            'vector_ops': 16312, 'enqueued': 729069, 'pruned_outer': 0,
+            'pruned_inner': 0, 'masked_waste': 0}, 'live': [1, 110, 8045],
+            'pairs': 720914, 'pairs_sum': 152458661235},
+    ('join', 'd2', True):
+        {'counters': {'nodes_visited': 16312, 'predicates': 16658856,
+            'vector_ops': 16312, 'enqueued': 729069, 'pruned_outer': 170740,
+            'pruned_inner': 14086858, 'masked_waste': 24984868}, 'live': [1,
+            110, 8045], 'pairs': 720914, 'pairs_sum': 152458661235},
+}
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -2632,6 +2861,475 @@ def phase_chaos(torch, dev, serve, shards, ServeQueue, FaultInjector,
           f"→ 1 retry, {out['dispatches']} dispatches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the paper's baselines and the D0/D2 layouts (phases 27-29)
+# ---------------------------------------------------------------------------
+
+def point_rects(n: int, seed: int, eps: float) -> np.ndarray:
+    """``benchmarks/common.point_rects``: ``n`` uniform points from
+    ``seed`` widened to rects of half-extent ``eps``."""
+    pts = np.random.default_rng(seed).random((n, 2), dtype=np.float32)
+    return np.concatenate([pts - eps, pts + eps], axis=1).astype(np.float32)
+
+
+def scalar_counters(ctr) -> dict:
+    """A baseline's non-zero counters among those ``BASELINE_REF`` keeps."""
+    keep = ("nodes_visited", "predicates", "vector_ops", "enqueued",
+            "pruned_outer", "pruned_inner", "branches", "overflow")
+    return {k: int(v) for k, v in ctr.asdict().items()
+            if k in keep and int(v)}
+
+
+def add_into(tot: dict, part: dict) -> None:
+    for k, v in part.items():
+        tot[k] = tot.get(k, 0) + v
+
+
+def chain_ms_per_node(torch, dev, dkern) -> float:
+    """Device ms per node of kernel S walking a chain: a flat table of
+    CHAIN_NODES one-child nodes (F = 1, 0.4 GB, far past the 50 MB L2),
+    CHAIN_STEPS of them linked in a random order, the last a leaf.  Each
+    pop waits on the node's count and then its row, both behind the
+    popped id, as in a real walk: the latency model's cost of one visited
+    node."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 27)
+    order = torch.randperm(CHAIN_NODES, generator=g)[:CHAIN_STEPS].to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lo = torch.zeros((CHAIN_NODES, 1), **f32)
+    hi = torch.ones((CHAIN_NODES, 1), **f32)
+    child = torch.full((CHAIN_NODES, 1), -1, **i32)
+    child[order[:-1].long(), 0] = order[1:].to(torch.int32)
+    child[order[-1].long(), 0] = 0                  # the leaf's one rect
+    count = torch.ones((CHAIN_NODES,), **i32)
+    leaf = torch.zeros((CHAIN_NODES,), dtype=torch.bool, device=dev)
+    leaf[order[-1].long()] = True
+    q = torch.tensor([0.0, 0.0, 1.0, 1.0], **f32)
+    rows = (lo, lo, hi, hi, child, count, leaf, q)
+    kw = dict(root=int(order[0]), stack_cap=2, result_cap=1,
+              max_steps=CHAIN_STEPS + 1)
+    _, stats = dkern.select_dfs_scalar_cuda(*rows, **kw)
+    check(stats.tolist() == [1, CHAIN_STEPS, 4 * CHAIN_STEPS, 0],
+          f"the chain walk: stats {stats.tolist()}")
+    # one launch runs ~0.1 s, so CUDA events time the kernel, not the
+    # wrapper's host work
+    ms = cuda_ms(lambda: dkern.select_dfs_scalar_cuda(*rows, **kw), 3)
+    return ms / CHAIN_STEPS
+
+
+def phase_baselines(torch, dev, tree, cpu_tree, queries, points, qrects,
+                    d1_select):
+    """Phase 27: the paper's baselines on the card.  Kernels S and V
+    (``make_select_dfs``, ``make_select_dfs_vector`` over ``flatten_tree``
+    on cuda) for the 64 queries ≡ their twins on a CPU copy (res, rc,
+    every counter) and ``BASELINE_REF``, also with a stack of 8 and 64
+    result slots (overflow), each query's sorted ids ≡ phase 4's engine;
+    ms per query of S, V, the BFS engine (unfused, fused), the host
+    baselines; the scalar join at ``bench_join``'s configuration ≡ the D0,
+    D1 and D2 engines' pairs.  Returns (the kernels' JSON entries, their
+    launches on the main path: the 64 walks of each)."""
+    from repro_torch.core import flat as flatmod
+    from repro_torch.core import (join_scalar, join_vector, knn_join_scalar,
+                                  knn_scalar, rtree, select_scalar,
+                                  select_vector)
+    from repro_torch.kernels import rtree_dfs as dkern
+    fl = flatmod.flatten_tree(tree)
+    fl_cpu = flatmod.flatten_tree(cpu_tree)
+    for f in ("lx", "ly", "hx", "hy", "child", "count", "is_leaf"):
+        a, b = getattr(fl, f), getattr(fl_cpu, f)
+        check(a.is_cuda and a.is_contiguous() and torch.equal(a.cpu(), b),
+              f"flatten_tree on cuda: {f} differs from the CPU copy's")
+    check((fl.root, fl.height) == (fl_cpu.root, fl_cpu.height), "flat root")
+    print(f"  flatten_tree on {dev}: {fl.n_nodes} nodes × F {fl.fanout}, "
+          f"root {fl.root}, height {fl.height} ≡ the CPU copy's", flush=True)
+    qs = [queries[i] for i in range(queries.shape[0])]
+    qs_cpu = [q.cpu() for q in qs]
+    ids_np, counts_np = (t.cpu().numpy() for t in d1_select)
+    makers = {"scalar": select_scalar.make_select_dfs,
+              "vector": select_vector.make_select_dfs_vector}
+    launches, fns = {}, {}
+    for variant, make in makers.items():
+        for stack_cap, result_cap in ((1024, RESULT_CAP), DFS_OVERFLOW):
+            fn = make(fl, result_cap, stack_cap)
+            twin = make(fl_cpu, result_cap, stack_cap, backend="torch")
+            dkern.reset_launch_counts()
+            outs = [fn(q) for q in qs]
+            torch.cuda.synchronize()
+            n = dkern.launch_counts()[f"select_dfs_{variant}"]
+            check(n == len(qs), f"{variant} walk: {n} launches for "
+                  f"{len(qs)} queries")
+            if stack_cap == 1024:
+                launches[variant] = n
+                fns[variant] = fn
+            tot = dict(rc=0, nodes_visited=0, predicates=0, overflow=0)
+            for i, ((res, rc, ctr), q) in enumerate(zip(outs, qs_cpu)):
+                tres, trc, tctr = twin(q)
+                what = f"{variant} walk ({stack_cap}, {result_cap}) query {i}"
+                assert_equal(res, tres.to(dev), f"{what} res")
+                check(int(rc) == int(trc) and ctr.asdict() == tctr.asdict(),
+                      f"{what}: rc {int(rc)} vs {int(trc)}, counters "
+                      f"{ctr.asdict()} vs {tctr.asdict()}")
+                tot["rc"] += int(rc)
+                for k in ("nodes_visited", "predicates", "overflow"):
+                    tot[k] += int(getattr(ctr, k))
+                if stack_cap == 1024:
+                    got = res[:int(rc)].cpu().numpy()
+                    check(np.array_equal(np.sort(got), np.sort(
+                        ids_np[i, :counts_np[i]])), f"{what}: ids differ "
+                          f"from phase 4's engine")
+            want = BASELINE_REF[(variant, stack_cap, result_cap)]
+            check(tot == want, f"{variant} walk ({stack_cap}, "
+                  f"{result_cap}): {tot}, the reference has {want}")
+            print(f"  {variant} ({stack_cap}, {result_cap}): {len(qs)} "
+                  f"queries ≡ twin and reference {tot}", flush=True)
+    out, smi = [], smi_line()
+    per_node = chain_ms_per_node(torch, dev, dkern)
+    print(f"  latency model: {per_node * 1e6:.1f} ns of device time per "
+          f"visited node (kernel S on a {CHAIN_STEPS}-node random chain "
+          f"over {CHAIN_NODES} nodes) on {smi}", flush=True)
+    nodes = BASELINE_REF[("scalar", 1024, RESULT_CAP)]["nodes_visited"]
+    row_bytes = fl.fanout * 20 + 4 + 1       # 4 coords + child, count, leaf
+    n_bytes = (nodes * row_bytes + len(qs) * (RESULT_CAP * 4 + 16 + 16)) \
+        / len(qs)
+    for variant, kernel in (("scalar", "dfs_scalar_kernel"),
+                            ("vector", "dfs_vector_kernel")):
+        fn = fns[variant]
+        twin = makers[variant](fl_cpu, RESULT_CAP, backend="torch")
+        # events first: their warm-up raises the clocks the profiled
+        # window then runs at (one thread's dependent loads feel them)
+        call_ms = cuda_ms(lambda: [fn(q) for q in qs], 3) / len(qs)
+        ms = device_ms(lambda: [fn(q) for q in qs], (kernel, len(qs)),
+                       iters=3)
+        check(ms is not None, f"{variant}: the profiler saw no launch")
+        ms /= len(qs)
+        plain_ms = host_ms(lambda: [twin(q) for q in qs_cpu], 1,
+                           warmup=0) / len(qs)
+        bound_ms, bound_by = bound(n_bytes, 0)
+        latency_ms = nodes / len(qs) * per_node
+        print(f"  {variant} kernel: {ms:.4f} ms of device time per query "
+              f"({call_ms:.4f} ms per query with the wrapper, a batch of "
+              f"{len(qs)} launches / {len(qs)}), twin {plain_ms:.4f} ms; "
+              f"bytes bound {bound_ms:.6f} ms, latency model "
+              f"{latency_ms:.4f} ms ({nodes / len(qs):.1f} nodes a query) "
+              f"on {smi}", flush=True)
+        name = f"select_dfs_{variant}"
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/rtree_dfs.cu",
+            replaces=("select_scalar.make_select_dfs" if variant == "scalar"
+                      else "select_vector.make_select_dfs_vector")
+            + " (XLA while_loop, not Pallas)",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, max_abs_err=0,
+            latency_ms=latency_ms))
+    for fused in (False, True):
+        bfs = select_vector.make_select_bfs(tree, result_cap=RESULT_CAP,
+                                            fused=fused)
+        ms = host_ms(lambda: bfs(queries), 10) / len(qs)
+        print(f"  BFS engine {'fused' if fused else 'unfused'}: {ms:.4f} "
+              f"ms per query (a {len(qs)}-query batch / {len(qs)}) on {smi}",
+              flush=True)
+    for variant in ("logical", "bitwise"):
+        tot, t0 = {}, time.perf_counter()
+        for q in qs_cpu[:4]:
+            ids, ctr = select_scalar.select_recursive_py(cpu_tree, q,
+                                                         variant)
+            add_into(tot, dict(scalar_counters(ctr), ids_sum=int(ids.sum()),
+                               found=len(ids)))
+        ms = (time.perf_counter() - t0) * 1e3 / 4
+        want = BASELINE_REF[("recursive", variant)]
+        check(tot == want, f"select_recursive_py {variant}: {tot}, the "
+              f"reference has {want}")
+        print(f"  select_recursive_py {variant}: {ms:.3f} ms per query "
+              f"(host, 4 queries) ≡ reference", flush=True)
+    pts, qrects = points.cpu().numpy(), qrects.cpu().numpy()
+    knn_fn = knn_scalar.make_knn_best_first(cpu_tree)
+    tot, t0 = {}, time.perf_counter()
+    for p in pts[:4]:
+        ids, d, ctr = knn_fn(p, KNN_K)
+        add_into(tot, dict(scalar_counters(ctr), **id_sums(ids, d)))
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    want = BASELINE_REF[("knn_best_first", KNN_K)]
+    check(tot == want, f"knn_best_first: {tot}, the reference has {want}")
+    print(f"  knn_best_first k={KNN_K}: {ms:.3f} ms per query (host, 4 "
+          f"points) ≡ reference", flush=True)
+    t0 = time.perf_counter()
+    ids, d, ctr = knn_join_scalar.knn_join_best_first(cpu_tree, qrects[:4],
+                                                      KNN_K)
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    got = dict(scalar_counters(ctr), **id_sums(ids, d))
+    want = BASELINE_REF[("knn_join_best_first", KNN_K)]
+    check(got == want, f"knn_join_best_first: {got}, the reference has "
+          f"{want}")
+    print(f"  knn_join_best_first k={KNN_K}: {ms:.3f} ms per rect (host, 4 "
+          f"rects) ≡ reference", flush=True)
+    phase_scalar_join(torch, dev, rtree, join_scalar, join_vector, smi)
+    return out, {f"select_dfs_{v}": n for v, n in launches.items()}
+
+
+def id_sums(ids, d) -> dict:
+    found = ids >= 0
+    return dict(ids_sum=int(ids[found].astype(np.int64).sum()),
+                found=int(found.sum()),
+                d_sum=float(d[found].astype(np.float64).sum()))
+
+
+def phase_scalar_join(torch, dev, rtree, join_scalar, join_vector, smi):
+    """Phase 27's join: ``join_recursive_py`` with O3 off and on at
+    ``benchmarks/bench_join.py``'s configuration (host, CPU trees) ≡
+    ``BASELINE_REF``; its pairs ≡ the D0, D1 and D2 engines' on the card;
+    the time of each.  Halves n (printed) if the host join takes more
+    than SCALAR_JOIN_BUDGET_S."""
+    n = SCALAR_JOIN_N
+    while True:
+        ra, rb = (point_rects(n, s, SCALAR_JOIN_EPS) for s in (0, 1))
+        cpu = [rtree.build_rtree(r, fanout=FANOUT, sort_key="lx",
+                                 device="cpu") for r in (ra, rb)]
+        t0 = time.perf_counter()
+        pairs, ctr = join_scalar.join_recursive_py(*cpu)
+        s_off = time.perf_counter() - t0
+        if s_off <= SCALAR_JOIN_BUDGET_S or n < 1000:
+            break
+        n //= 2
+        print(f"  join_recursive_py took {s_off:.1f} s: n cut to {n}",
+              flush=True)
+    t0 = time.perf_counter()
+    pairs3, ctr3 = join_scalar.join_recursive_py(*cpu, o3=True)
+    s_on = time.perf_counter() - t0
+    check(np.array_equal(pairs, pairs3), "join_recursive_py: O3 changed "
+          "the pairs")
+    for o3, c in ((False, ctr), (True, ctr3)):
+        got = dict(scalar_counters(c), pairs=len(pairs),
+                   pairs_sum=int(pairs.astype(np.int64).sum()))
+        if n == SCALAR_JOIN_N:
+            want = BASELINE_REF[("join_recursive", o3)]
+            check(got == want, f"join_recursive_py o3={o3}: {got}, the "
+                  f"reference has {want}")
+    print(f"  join_recursive_py (n = {n} a side, eps {SCALAR_JOIN_EPS}, "
+          f"fanout {FANOUT}): {len(pairs)} pairs, O3 off {s_off:.2f} s, on "
+          f"{s_on:.2f} s (host)" + (" ≡ reference" if n == SCALAR_JOIN_N
+                                    else " (cut: no reference numbers)"),
+          flush=True)
+    cap = 1 << 16
+    while cap < (n * 4 * SCALAR_JOIN_EPS) ** 2 * 4:       # bench_join's cap
+        cap <<= 1
+    trees = [rtree.build_rtree(r, fanout=FANOUT, sort_key="lx", device=dev)
+             for r in (ra, rb)]
+    for layout in ("d0", "d1", "d2"):
+        fn = join_vector.make_join_bfs(*trees, layout=layout, result_cap=cap)
+        got, cnt, c = fn()
+        check(int(c.overflow) == 0, f"{layout} join overflowed")
+        p = got[:int(cnt)].cpu().numpy().astype(np.int64)
+        p = p[np.lexsort((p[:, 1], p[:, 0]))]
+        check(np.array_equal(p, pairs), f"{layout} join: {len(p)} pairs "
+              f"differ from join_recursive_py's {len(pairs)}")
+        print(f"  {layout} engine join: ≡ join_recursive_py, "
+              f"{host_ms(fn, 3):.3f} ms per join on {smi}", flush=True)
+
+
+def layout_cell_check(got, ref_, caps_mode, what, steps=4) -> None:
+    """A D0/D2 result's counters (all but dispatches) and occupancy
+    against one ``LAYOUT_REF`` / ``LAYOUT_JOIN_REF`` cell."""
+    for key, v in ref_["counters"].items():
+        check(got[key] == v, f"{what}: {key} {got[key]}, the reference "
+              f"has {v}")
+    check(got["lanes_live"][:steps] == ref_["live"],
+          f"{what}: lanes_live {got['lanes_live']}")
+    if "padded" in ref_:
+        padded = ref_["padded"] if caps_mode is None else \
+            ref_["padded"][caps_mode]
+        check(got["lanes_padded"][:steps] == padded,
+              f"{what}: lanes_padded {got['lanes_padded']}")
+    check(got["overflow"] == 0 or "descents" in ref_,
+          f"{what}: overflow {got['overflow']}")
+
+
+def timed_cell(torch, fn, what, per, iters=5) -> str:
+    """ms per call of ``fn``, the device's busy share and the peak device
+    memory of one call, as one line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = host_ms(fn, iters)
+    prof = profile_batches(fn, iters=2, top=2)
+    busy = prof.split(" of ")[0].replace("device busy ", "") \
+        if prof.startswith("device busy") else "not measured"
+    return (f"  {what}: {ms:.3f} ms per {per}, device busy {busy}, peak "
+            f"{peak:.0f} MiB")
+
+
+def phase_layout_engines(torch, tree, queries, points, qrects, fq,
+                         probe_tree, part):
+    """Phase 28: the D0 and D2 levels built on the card ≡ the CPU's, byte
+    for byte; select, the join (centre partition), kNN, kNN-join,
+    filtered kNN and browse on D0 and D2 at the sizes of phases 4, 7, 10,
+    13, 20 and 21: ids, counts, overflow and distance bits ≡ the D1
+    engine's (kNN as sets within ties), every counter but dispatches ≡
+    ``LAYOUT_REF`` / ``LAYOUT_JOIN_REF``; ms per batch, busy share and
+    peak MiB beside D1's."""
+    from repro_torch.core import (join_vector, knn_browse, knn_filtered,
+                                  knn_join_vector, knn_vector, layouts,
+                                  rtree, select_vector)
+    smi = smi_line()
+    # the layouts built on the card ≡ built on the CPU, byte for byte (D0's
+    # pointer column is a NaN pattern in float32)
+    for lay in ("d0", "d2"):
+        conv = layouts.LAYOUTS[lay].converter
+        for li, lvl in enumerate(tree.levels):
+            host = conv(rtree.RTreeLevel(**{f: getattr(lvl, f).cpu()
+                                            for f in rtree.LEVEL_FIELDS}))
+            card = conv(lvl)
+            for f in ("entries",) if lay == "d0" else ("lo", "hi", "ptr"):
+                a, b = getattr(card, f).cpu(), getattr(host, f)
+                check(a.is_contiguous() and torch.equal(
+                    a.view(torch.int32), b.view(torch.int32)),
+                      f"{lay} level {li} {f}: the card's bytes differ")
+    print("  D0 and D2 levels built on the card ≡ the CPU's, byte for byte",
+          flush=True)
+    lines = []
+    for caps_mode in ("static", "adaptive"):
+        fns = {lay: select_vector.make_select_bfs(
+            tree, layout=lay, result_cap=RESULT_CAP, caps_mode=caps_mode)
+            for lay in ("d1", "d0", "d2")}
+        want = fns["d1"](queries)
+        for lay in ("d0", "d2"):
+            ids, counts, ctr = fns[lay](queries)
+            what = f"{lay} select {caps_mode}"
+            assert_equal(ids, want[0], f"{what} ids vs D1")
+            assert_equal(counts, want[1], f"{what} counts vs D1")
+            layout_cell_check(ctr.asdict(), LAYOUT_REF[("select", lay)],
+                              caps_mode, what)
+        if caps_mode == "adaptive":
+            for lay, fn in fns.items():
+                lines.append(timed_cell(torch, lambda: fn(queries),
+                                        f"{lay} select", f"{BATCH}-query "
+                                        f"batch"))
+    print(f"  select: D0, D2 ≡ D1 and LAYOUT_REF (static, adaptive)",
+          flush=True)
+    for o34 in (False, True):
+        fns = {lay: join_vector.make_join_bfs(
+            probe_tree, part.tree, layout=lay, result_cap=JOIN_CAP,
+            o3=o34, o4=o34) for lay in ("d1", "d0", "d2")}
+        want = fns["d1"]()
+        for lay in ("d0", "d2"):
+            pairs, n, ctr = fns[lay]()
+            what = f"{lay} join o3/o4={o34}"
+            assert_equal(pairs, want[0], f"{what} pairs vs D1")
+            ref_ = LAYOUT_JOIN_REF[("join", lay, o34)]
+            p = pairs[:int(n)].cpu().numpy().astype(np.int64)
+            check(int(n) == ref_["pairs"] and int(p.sum()) ==
+                  ref_["pairs_sum"], f"{what}: {int(n)} pairs")
+            layout_cell_check(ctr.asdict(), ref_, None, what, steps=3)
+        if o34:
+            for lay, fn in fns.items():
+                lines.append(timed_cell(torch, fn, f"{lay} join (O3/O4)",
+                                        "join", iters=3))
+    n_pairs = LAYOUT_JOIN_REF[("join", "d0", True)]["pairs"]
+    print(f"  join: D0, D2 ≡ D1 ({n_pairs} pairs) and LAYOUT_JOIN_REF "
+          f"(O3/O4 off, on)", flush=True)
+    ops = (("knn", knn_vector.make_knn_bfs, points),
+           ("knn_join", knn_join_vector.make_knn_join_bfs, qrects),
+           ("knn_filtered", knn_filtered.make_knn_filtered_bfs, fq))
+    for op, make, q in ops:
+        for k in (KNN_K, 64):
+            for caps_mode in ("static", "adaptive"):
+                fns = {lay: make(tree, k, layout=lay, caps_mode=caps_mode)
+                       for lay in ("d1", "d0", "d2")}
+                wi, wd, _ = fns["d1"](q)
+                wi, wd = wi.cpu().numpy(), wd.cpu().numpy()
+                for lay in ("d0", "d2"):
+                    ids, d, ctr = fns[lay](q)
+                    what = f"{lay} {op} k={k} {caps_mode}"
+                    ids, d = ids.cpu().numpy(), d.cpu().numpy()
+                    check(same_neighbours(ids, d, wi, wd),
+                          f"{what}: results differ from D1's")
+                    ref_ = LAYOUT_REF[(op, lay, k)]
+                    layout_cell_check(ctr.asdict(), ref_, caps_mode, what)
+                    check(id_sums(ids, d) == {x: ref_[x] for x in
+                                              ("ids_sum", "found", "d_sum")},
+                          f"{what}: sums {id_sums(ids, d)}")
+                if k == KNN_K and caps_mode == "adaptive":
+                    for lay, fn in fns.items():
+                        lines.append(timed_cell(
+                            torch, lambda: fn(q), f"{lay} {op} k={k}",
+                            f"{BATCH}-query batch"))
+        print(f"  {op}: D0, D2 ≡ D1 and LAYOUT_REF (k 8, 64; static, "
+              f"adaptive)", flush=True)
+    starts = {lay: knn_browse.make_browse_bfs(tree, KNN_K, layout=lay)
+              for lay in ("d1", "d0", "d2")}
+    for steps in (BROWSE_STEPS, BROWSE_DEEP):
+        _, wi, wd = browse_session(starts["d1"], points, steps)
+        for lay in ("d0", "d2"):
+            cur, ids, d = browse_session(starts[lay], points, steps)
+            what = f"{lay} browse {steps} steps"
+            check(same_neighbours(ids, d, wi, wd),
+                  f"{what}: results differ from D1's")
+            ref_ = LAYOUT_REF[("browse", lay, steps)]
+            st = cur.state
+            layout_cell_check(st.ctr.asdict(), ref_, None, what)
+            check(int(st.descents) == ref_["descents"] and
+                  int(st.overflow.sum()) == ref_["overflow"] and
+                  id_sums(ids, d) == {x: ref_[x] for x in
+                                      ("ids_sum", "found", "d_sum")},
+                  f"{what}: descents {int(st.descents)}, sums "
+                  f"{id_sums(ids, d)}")
+    for lay, start in starts.items():
+        lines.append(timed_cell(
+            torch, lambda: browse_session(start, points, BROWSE_STEPS),
+            f"{lay} browse", f"{BROWSE_STEPS}-step session", iters=3))
+    print(f"  browse: D0, D2 ≡ D1 and LAYOUT_REF ({BROWSE_STEPS} and "
+          f"{BROWSE_DEEP} steps)", flush=True)
+    print(f"  on {smi}:", flush=True)
+    for line in lines:
+        print(line, flush=True)
+
+
+def phase_layout_serve(torch, dev, serve):
+    """Phase 29: ``serve --layout d0|d2`` at 2M points for spatial, kNN
+    and the join on the host path and kNN with ``--mesh on``: nothing
+    overflows, the first batch ≡ brute force, q/s."""
+    from repro_torch.core.geometry import brute_force_select
+    smi = smi_line()
+    rects = serve.make_rects(N_RECTS, SEED)
+    qs = serve.make_queries(LAYOUT_SERVE_BATCHES, BATCH, SELECTIVITY,
+                            SEED + 1)[0]
+    knn_in = serve.make_knn_inputs(N_RECTS, SEED, LAYOUT_SERVE_BATCHES,
+                                   BATCH)
+    join_in = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    for lay in ("d0", "d2"):
+        common = ["--layout", lay, "--n", str(N_RECTS), "--batches",
+                  str(LAYOUT_SERVE_BATCHES), "--batch-size", str(BATCH)]
+        out = serve.main(["--mode", "spatial", "--partitions", "8",
+                          "--fanout", str(FANOUT), *common])
+        check(not out["overflow"], f"{lay} spatial serve overflowed")
+        for i, (got, q) in enumerate(zip(out["first_batch"], qs)):
+            check(np.array_equal(got, brute_force_select(rects, q)),
+                  f"{lay} served query {i} differs from brute force")
+        print(f"  {lay} spatial (host path): {out['qps']:,.1f} q/s, first "
+              f"batch ≡ brute force, on {smi}", flush=True)
+        for mesh in ("off", "on"):
+            out = serve.main(["--mode", "knn", "--k", str(KNN_K), "--mesh",
+                              mesh, *common])
+            check(not out["overflow"], f"{lay} knn serve overflowed")
+            ids, d = out["first_batch"]
+            check_knn_brute_force(torch, dev, knn_in[0], knn_in[1][0], ids,
+                                  d, f"{lay} knn serve --mesh {mesh}")
+            print(f"  {lay} knn --mesh {mesh}: {out['qps']:,.1f} q/s, "
+                  f"first batch ≡ brute force, on {smi}", flush=True)
+        out = serve.main(["--mode", "join", "--layout", lay, "--n",
+                          str(N_RECTS), "--join-cap", str(JOIN_CAP),
+                          "--query-eps", str(QUERY_EPS), "--batches", "1"])
+        check(not out["overflow"], f"{lay} join serve overflowed")
+        sample_probes_equal_brute_force(torch, dev, out["last_pairs"],
+                                        join_in[1], join_in[0],
+                                        f"{lay} join serve")
+        print(f"  {lay} join (host path): {out['joins_per_s']:.3f} joins/s, "
+              f"{len(out['last_pairs'])} pairs, 256 sampled probes ≡ brute "
+              f"force, on {smi}", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2879,10 +3577,42 @@ def main() -> None:
     print(f"  phase 26: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
+    t0 = time.time()
+    tree = rtree.build_rtree(data, fanout=FANOUT, device=dev)
+    cpu_tree = rtree.build_rtree(data, fanout=FANOUT, device="cpu")
+    print(f"[27] the paper's baselines on {name}: the phase-3 tree again, "
+          f"the first served batches", flush=True)
+    dfs_kernels, dfs_launches = phase_baselines(
+        torch, dev, tree, cpu_tree, queries, points, qrects, d1_select)
+    kernels += dfs_kernels
+    del cpu_tree
+    print(f"  phase 27: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    rects, probes = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    shards = SpatialShards.build(rects, 8, fanout=FANOUT, sort_key="lx",
+                                 device=dev)
+    probe_tree = rtree.build_rtree(probes, fanout=FANOUT, sort_key="lx",
+                                   device=dev)
+    print("[28] D0 and D2 engines against D1 and the reference", flush=True)
+    phase_layout_engines(torch, tree, queries, points, qrects, fq[0],
+                         probe_tree, shards.partitions[CENTRE])
+    del shards, probe_tree, tree
+    print(f"  phase 28: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print(f"[29] serve --layout d0|d2 at {N_RECTS} points", flush=True)
+    phase_layout_serve(torch, dev, serve)
+    print(f"  phase 29: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which
     # serve does not drive, from the fused engine cells (phases 4, 7, 10, 13
-    # and 18); every count was reset just before its phase
+    # and 18); S and V from the 64 walks of phase 27; every count was reset
+    # just before its phase
     path_launches = {
         "select_level_masks": serve_launches,
         "select_level_fused": eng_launches,
@@ -2898,6 +3628,8 @@ def main() -> None:
         "select_level_fused_d3": d3_eng_launches,
         "knn_level_dists_d3": d3_serve_launches,
         "knn_join_level_dists_d3": d3_serve_launches,
+        "select_dfs_scalar": dfs_launches,
+        "select_dfs_vector": dfs_launches,
     }
     # and, for the kernels the mesh path runs, its served launches (phase
     # 24, counts reset before each serve run)
@@ -2912,7 +3644,7 @@ def main() -> None:
             k["queue_launches"] = queue_launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mesh_launches", "queue_launches")
+            "latency_ms", "mesh_launches", "queue_launches")
     print("queued q/s against direct q/s: " + ", ".join(
         f"{m} {lo} mesh {me}: {a:,.1f} / {b:,.1f}"
         for (m, lo, me), (a, b) in queue_rates.items()), flush=True)

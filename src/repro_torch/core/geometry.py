@@ -5,6 +5,10 @@ predicate, four compares ANDed, written exactly as the four key-excerpt
 comparisons so every path agrees bit-for-bit (closed intervals, as in
 Guttman's R-tree).
 
+``intersects_pairs``, ``mindist_pairs`` and ``mindist_rect_pairs`` are the
+D2 layout's forms on interleaved ``(x, y)`` pairs: two compare stages and
+a pair reduction.
+
 ``mindist`` / ``minmaxdist`` are the kNN distance functions on tensors and
 ``mindist_rect`` / ``minmaxdist_rect`` the kNN-join's, rounded exactly as
 the reference's jitted traces round them (see ``fma32``; the D3 layout's
@@ -50,6 +54,15 @@ def pad_values(dtype) -> tuple:
 def intersects(qlx, qly, qhx, qhy, lx, ly, hx, hy):
     """Rect/rect intersection, broadcast over tensor or array args."""
     return (qlx <= hx) & (qhx >= lx) & (qly <= hy) & (qhy >= ly)
+
+
+def intersects_pairs(q_lo, q_hi, lo, hi):
+    """D2-form predicate on interleaved ``(x, y)`` pairs: ``q_lo``/``q_hi``
+    (..., 2) query corners, ``lo``/``hi`` (..., 2) MBR corners.  Two
+    compares and a pair reduction, the paper's 2-stage D2 evaluation;
+    equal to ``intersects`` on the de-interleaved corners."""
+    m = (q_lo <= hi) & (q_hi >= lo)
+    return m[..., 0] & m[..., 1]
 
 
 def brute_force_select(rects, query):
@@ -114,6 +127,16 @@ def mindist(px, py, lx, ly, hx, hy):
     return fma32(dx, dx, dy * dy)
 
 
+def mindist_pairs(p, lo, hi):
+    """D2-form squared MINDIST on interleaved ``(x, y)`` pairs: ``p``
+    (..., 2) query points, ``lo``/``hi`` (..., 2) MBR corners.  One gap
+    stage over the pair and a pair reduction, rounded as the reference's
+    D2 traces round it, ``fma(dx, dx, dy*dy)`` (``mindist``'s form)."""
+    d = _axis_gap(p, lo, hi)
+    dx, dy = d[..., 0], d[..., 1]
+    return fma32(dx, dx, dy * dy)
+
+
 def _minmax_gaps(px, py, lx, ly, hx, hy):
     """The point MINMAXDIST's four face distances (dmx, dmy: to the nearer
     face on x, y; dMx, dMy: to the farther), clamped finite (exact)."""
@@ -173,6 +196,17 @@ def mindist_rect(qlx, qly, qhx, qhy, lx, ly, hx, hy):
     reference's gather trace (every lane of it)."""
     dx = rect_axis_gap(qlx, qhx, lx, hx)
     dy = rect_axis_gap(qly, qhy, ly, hy)
+    return fma32(dx, dx, dy * dy)
+
+
+def mindist_rect_pairs(q_lo, q_hi, lo, hi):
+    """D2-form squared MINDIST(rect, rect) on interleaved ``(x, y)`` pairs:
+    ``q_lo``/``q_hi`` (..., 2) query corners, ``lo``/``hi`` (..., 2) MBR
+    corners.  One gap stage over the pair and a pair reduction, rounded
+    as ``mindist_rect``, ``fma(dx, dx, dy*dy)``, the reference's D2 trace's
+    form."""
+    d = rect_axis_gap(q_lo, q_hi, lo, hi)
+    dx, dy = d[..., 0], d[..., 1]
     return fma32(dx, dx, dy * dy)
 
 

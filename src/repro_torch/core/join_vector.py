@@ -15,6 +15,10 @@ pair the child predicate is an (F_out × F_in) tile:
                 compress-stores the qualifying pairs in flat order.
 
 Both take the O3/O4/O5 tile-skip bounds of ``ops.join_prune_metadata``.
+D0 and D2 have no kernel (nor in the reference): their levels give the
+tile its children through the layout's own gather (D2 in two compare
+stages, D0 after the de-interleave) and the dense (F_out × F_in) tile
+predicate runs in PyTorch, unfused, on the trees' device.
 Sorted-key optimizations (``sort_key='lx'`` trees): O3 slices trailing
 outer children once ``out.low_x > max(in.high_x)``; O4/O5 shrink the inner
 node to ``flip`` entries per outer child.  They change the counters (the
@@ -34,7 +38,8 @@ from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
 from .join_scalar import elevate
-from .layouts import LevelD1, layout_lanes, tree_layout
+from .layouts import (KERNEL_LAYOUTS, LevelD0, LevelD1, LevelD2, d0_unpack,
+                      layout_lanes, tree_layout)
 from .rtree import RTree
 
 # the ROADMAP item of the D3 spatial join (the reference runs it on its jnp
@@ -49,14 +54,33 @@ LANE_BUDGET = 1 << 28
 
 def _gather_children(layer, ids: torch.Tensor):
     """(P,) node ids → per-child (lx, ly, hx, hy, ptr) each (P, F) +
-    stages.  D1 only."""
-    if not isinstance(layer, LevelD1):
-        raise NotImplementedError(
-            f"join over {type(layer).__name__} is not ported yet (ROADMAP "
-            f"item {D3_JOIN_ITEM}); the join runs on layout d1")
+    stages: 4 on D1 and D0 (after its de-interleave), 2 on D2."""
     safe = ids.clamp(min=0).long()
-    c = layer.coords[safe]
-    return (c[:, 0], c[:, 1], c[:, 2], c[:, 3], layer.ptr[safe]), 4
+    if isinstance(layer, LevelD1):
+        c = layer.coords[safe]
+        return (c[:, 0], c[:, 1], c[:, 2], c[:, 3], layer.ptr[safe]), 4
+    if isinstance(layer, LevelD2):
+        lo, hi = layer.lo[safe], layer.hi[safe]
+        p, f2 = lo.shape
+        lo, hi = lo.reshape(p, f2 // 2, 2), hi.reshape(p, f2 // 2, 2)
+        return (lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1],
+                layer.ptr[safe]), 2
+    if isinstance(layer, LevelD0):
+        return d0_unpack(layer.entries[safe]), 4
+    raise NotImplementedError(
+        f"join over {type(layer).__name__} is not ported yet (ROADMAP "
+        f"item {D3_JOIN_ITEM}); the join runs on layouts d0, d1 and d2")
+
+
+def dense_tile(go, gi):
+    """The dense (P, F_out, F_in) tile predicate of the children of each
+    pair (``_gather_children``' outputs), valid children only."""
+    (olx, oly, ohx, ohy, optr), (ilx, ily, ihx, ihy, iptr) = go, gi
+    m = (olx[:, :, None] <= ihx[:, None, :]) & \
+        (ohx[:, :, None] >= ilx[:, None, :]) & \
+        (oly[:, :, None] <= ihy[:, None, :]) & \
+        (ohy[:, :, None] >= ily[:, None, :])
+    return m & (optr >= 0)[:, :, None] & (iptr >= 0)[:, None, :]
 
 
 def flip_indices_dense(i_lx: torch.Tensor, o_hx: torch.Tensor) -> torch.Tensor:
@@ -128,12 +152,22 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     (pairs (R, result_cap, 2), counts (R,), Counters), each row compacted
     into its own slots.  An unfused level scores at most ``lane_budget``
     pair lanes at once, in blocks of rows; the counters do not change.
+
+    On D0 and D2 (no kernel) 'auto' and 'torch' run the dense tile in
+    PyTorch wherever the trees lie; 'cuda' and ``fused=True`` raise
+    ``ValueError``, as the reference's kernel backends do on them.
     """
-    layout_lanes(layout)                 # d0 / d2 raise naming A9a
-    if layout != "d1":
+    layout_lanes(layout)
+    if layout == "d3":
         raise NotImplementedError(
             f"the spatial join over layout {layout!r} is not ported yet "
-            f"(ROADMAP item {D3_JOIN_ITEM}); the join runs on layout d1")
+            f"(ROADMAP item {D3_JOIN_ITEM}); the join runs on layouts d0, "
+            f"d1 and d2")
+    own_math = layout not in KERNEL_LAYOUTS
+    if own_math and backend == "cuda":
+        raise ValueError("kernel backend requires layout d1")
+    if own_math and fused:
+        raise ValueError("fused join requires a kernel backend (layout d1)")
     sorted_ok = tree_o.sort_key == "lx" and tree_i.sort_key == "lx"
     if (o3 or o4 or o5) and not sorted_ok:
         raise ValueError("O3/O4/O5 require trees built with sort_key='lx'")
@@ -194,14 +228,17 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
         gi, _ = _gather_children(layers_i[li], i_ids)
         optr, iptr = go[4], gi[4]
         pair_valid = (o_ids >= 0) & (i_ids >= 0)
-        o_valid = (optr >= 0) & pair_valid[:, None]
-        i_valid = (iptr >= 0) & pair_valid[:, None]
-        oc, icr, to_, ac, fm = _metadata(layers_o[li], layers_i[li], o_ids,
-                                         i_ids)
-        m = ops.join_pair_masks(o_ids, i_ids, ac, fm, oc, icr, to=to_,
-                                ti=min(128, icr.shape[2]),
-                                backend=backend).to(torch.bool)
-        m = m & o_valid[:, :, None] & i_valid[:, None, :]
+        if own_math:
+            m = dense_tile(go, gi) & pair_valid[:, None, None]
+        else:
+            o_valid = (optr >= 0) & pair_valid[:, None]
+            i_valid = (iptr >= 0) & pair_valid[:, None]
+            oc, icr, to_, ac, fm = _metadata(layers_o[li], layers_i[li],
+                                             o_ids, i_ids)
+            m = ops.join_pair_masks(o_ids, i_ids, ac, fm, oc, icr, to=to_,
+                                    ti=min(128, icr.shape[2]),
+                                    backend=backend).to(torch.bool)
+            m = m & o_valid[:, :, None] & i_valid[:, None, :]
         delta, m = _score_stage_counters(o_ids, i_ids, (go, gi), stages, m)
         p, fo = optr.shape
         fi = iptr.shape[1]

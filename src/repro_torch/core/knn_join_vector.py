@@ -18,9 +18,11 @@ the kernel routing:
                 call (kernel B10).
 
 Both give identical ids, distances and counters (except ``dispatches``).
-On the D3 layout (unfused only) internal levels score the quantized boxes
-through ``kernels/ops.knn_join_level_dists_d3`` (kernel B14) and the leaf
-rows take B8, so D3 results equal D1's.  ``knn_join`` streams a whole
+D0 and D2 score with the layout's own PyTorch math
+(``_rect_dists_for_layer``), as in ``knn_vector``.  On the D3 layout
+(unfused only) internal levels score the quantized boxes through
+``kernels/ops.knn_join_level_dists_d3`` (kernel B14) and the leaf rows
+take B8, so D3 results equal D1's.  ``knn_join`` streams a whole
 outer tree through one engine in fixed-size chunks.  Results are exact
 whenever no frontier overflowed.
 """
@@ -34,19 +36,58 @@ import torch
 from ..kernels import ops
 from . import traversal
 from .counters import Counters, StageModel
+from .geometry import (DIST_PAD, mindist_rect, mindist_rect_pairs,
+                       minmaxdist_rect)
+from .join_vector import _gather_children
 from .knn_vector import (knn_frontier_caps, make_distance_bfs,
                          make_distance_score)
+from .layouts import LevelD2
 from .rtree import RTree
+
+
+def _rect_dists_for_layer(layer, ids: torch.Tensor, qrects: torch.Tensor,
+                          leaf: bool):
+    """Score one D0 or D2 level's frontier children against the query
+    rects in the layout's own PyTorch math: ``knn_vector._dists_for_layer``'s
+    contract.  D2 takes rect MINDIST in its pair form (two stages); D0
+    gathers through the join's ``_gather_children``; MINMAXDIST runs on
+    the de-interleaved corners for both, as the reference's does."""
+    b, c = ids.shape
+    q = [qrects[:, j, None, None] for j in range(4)]
+    if isinstance(layer, LevelD2):
+        safe = ids.clamp(min=0).long()
+        lo, hi = layer.lo[safe], layer.hi[safe]     # (B, C, 2F)
+        f2 = lo.shape[-1]
+        lo = lo.reshape(b, c, f2 // 2, 2)
+        hi = hi.reshape(b, c, f2 // 2, 2)
+        md = mindist_rect_pairs(qrects[:, None, None, 0:2],
+                                qrects[:, None, None, 2:4], lo, hi)
+        lx, ly, hx, hy = lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]
+        ptr, stages = layer.ptr[safe], 2
+    else:
+        (lx, ly, hx, hy, ptr), stages = _gather_children(layer,
+                                                         ids.reshape(-1))
+        lx, ly, hx, hy, ptr = (a.reshape(b, c, -1)
+                               for a in (lx, ly, hx, hy, ptr))
+        md = mindist_rect(*q, lx, ly, hx, hy)
+    valid = (ids >= 0)[:, :, None] & (ptr >= 0)
+    pad = float(DIST_PAD)
+    md = torch.where(valid, md, pad)
+    if leaf:
+        return md, None, ptr, stages
+    mmd = torch.where(valid, minmaxdist_rect(*q, lx, ly, hx, hy), pad)
+    return md, mmd, ptr, stages
 
 
 def make_knn_join_score(tree: RTree, layout: str, backend: str):
     """Build the kNN-join score stage and its engine context for ``tree``:
     ``knn_vector.make_knn_score``'s contract with (B, 4) query rects: D1
     feeds B8; D3 feeds B14 on internal levels and B8 at the leaf; D0 and
-    D2 raise (ROADMAP A9a)."""
+    D2 score with ``_rect_dists_for_layer``."""
     return make_distance_score(tree, layout, backend,
                                ops.knn_join_level_dists,
-                               ops.knn_join_level_dists_d3)
+                               ops.knn_join_level_dists_d3,
+                               _rect_dists_for_layer)
 
 
 def make_knn_join_bfs(tree: RTree, k: int, layout: str = "d1",

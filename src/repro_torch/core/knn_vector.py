@@ -16,11 +16,16 @@ stage, the caps policy and the kernel routing:
                 call (kernel B7): scoring and emission in one kernel.
 
 Both give identical ids, distances and counters (except ``dispatches``).
-On the D3 layout (unfused only, as in the reference) the internal levels
-score the quantized boxes (``kernels/ops.knn_level_dists_d3``, kernel B13:
-a MINDIST lower bound and a slack-corrected MINMAXDIST upper bound, two
-stages) and the leaf rows take B5 on level 0's exact SoA rows, so D3 ids
-and distances equal D1's; only the counters differ.
+D0 and D2 have no kernel (nor in the reference): their levels are scored
+with the layout's own PyTorch math (``_dists_for_layer``: D2's pair-form
+MINDIST in two stages, D0 after the de-interleave), rounded as the
+reference's traces on those layouts round them, which are D1's forms, so
+their ids and distances equal D1's.  On the D3 layout (unfused only, as
+in the reference) the internal levels score the quantized boxes
+(``kernels/ops.knn_level_dists_d3``, kernel B13: a MINDIST lower bound
+and a slack-corrected MINMAXDIST upper bound, two stages) and the leaf
+rows take B5 on level 0's exact SoA rows, so D3 ids and distances equal
+D1's; only the counters differ.
 Distances are squared Euclidean.  Results are exact whenever no frontier
 overflowed (``Counters.overflow``); an overflowed level keeps its best-
 first beam, so any missed neighbour lies beyond the worst kept MINDIST.
@@ -35,8 +40,44 @@ from ..kernels import ops
 from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
-from .layouts import layout_lanes, tree_layout
+from .geometry import DIST_PAD, mindist, mindist_pairs, minmaxdist
+from .layouts import (KERNEL_LAYOUTS, LevelD0, LevelD2, d0_unpack,
+                      layout_lanes, tree_layout)
 from .rtree import RTree
+
+
+def _dists_for_layer(layer, ids: torch.Tensor, points: torch.Tensor,
+                     leaf: bool):
+    """Score one D0 or D2 level's frontier children against the query
+    points in the layout's own PyTorch math: (mindist (B, C, F),
+    minmaxdist (B, C, F) | None at the leaf, child_ids (B, C, F), stages),
+    DIST_PAD on invalid lanes.  D2 takes MINDIST in its pair form (two
+    stages); MINMAXDIST has no pair form and runs on the de-interleaved
+    corners, as the reference's does."""
+    safe = ids.clamp(min=0).long()
+    px = points[:, 0, None, None]
+    py = points[:, 1, None, None]
+    if isinstance(layer, LevelD2):
+        lo, hi = layer.lo[safe], layer.hi[safe]     # (B, C, 2F)
+        b, c, f2 = lo.shape
+        lo = lo.reshape(b, c, f2 // 2, 2)
+        hi = hi.reshape(b, c, f2 // 2, 2)
+        md = mindist_pairs(points[:, None, None, :], lo, hi)
+        lx, ly, hx, hy = lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]
+        ptr, stages = layer.ptr[safe], 2
+    elif isinstance(layer, LevelD0):
+        lx, ly, hx, hy, ptr = d0_unpack(layer.entries[safe])
+        md = mindist(px, py, lx, ly, hx, hy)
+        stages = 4
+    else:
+        raise TypeError(type(layer))
+    valid = (ids >= 0)[:, :, None] & (ptr >= 0)
+    pad = float(DIST_PAD)
+    md = torch.where(valid, md, pad)
+    if leaf:
+        return md, None, ptr, stages
+    mmd = torch.where(valid, minmaxdist(px, py, lx, ly, hx, hy), pad)
+    return md, mmd, ptr, stages
 
 
 def knn_frontier_caps(tree: RTree, k: int, slack: int = 4,
@@ -56,26 +97,35 @@ def make_knn_score(tree: RTree, layout: str, backend: str):
     Returns (ctx, score) with ``score(ctx, li, ids, points, leaf)`` →
     (mindist, minmaxdist | None at the leaf, child_ids, stages), the
     distance engine's contract.  D1: the level-global SoA rows feed B5.
-    D3: internal levels feed B13 the quantized rows, the leaf B5; D0 and
-    D2 raise (ROADMAP A9a).
+    D3: internal levels feed B13 the quantized rows, the leaf B5.  D0 and
+    D2: the layout's own PyTorch math (``_dists_for_layer``).
     """
     return make_distance_score(tree, layout, backend, ops.knn_level_dists,
-                               ops.knn_level_dists_d3)
+                               ops.knn_level_dists_d3, _dists_for_layer)
 
 
 def make_distance_score(tree: RTree, layout: str, backend: str, dists_op,
-                        dists_d3_op):
+                        dists_d3_op, layer_dists):
     """(ctx, score) of a distance operator whose level scores come from
     ``dists_op`` (a ``kernels/ops`` function: B5 for kNN, B8 for the
-    kNN-join) and, on the internal levels of a D3 tree, ``dists_d3_op``
-    (B13, B14)."""
-    layout_lanes(layout)                 # d0 / d2 raise naming A9a
+    kNN-join), on the internal levels of a D3 tree from ``dists_d3_op``
+    (B13, B14), and on D0 and D2, which have no kernel, from
+    ``layer_dists(layer, ids, queries, leaf)`` in PyTorch; there
+    ``backend='cuda'`` raises ``ValueError``, as the reference's kernel
+    backends do."""
+    layout_lanes(layout)
+    own_math = layout not in KERNEL_LAYOUTS
+    if own_math and backend == "cuda":
+        raise ValueError("kernel backend requires layout d1 or d3")
     ops.resolve_backend(backend, tree.rects)
-    # the D3 code rows, quantized on the tree's device (internal levels)
-    layers = tree_layout(tree, "d3") if layout == "d3" else None
+    # the D3 code rows, quantized on the tree's device (internal levels);
+    # the D0 and D2 levels
+    layers = tree_layout(tree, layout) if layout != "d1" else None
 
     def score(ctx, li, ids, queries, leaf):
         levels, layers_ = ctx
+        if own_math:
+            return layer_dists(layers_[li], ids, queries, leaf)
         if layers_ is not None and not leaf:
             lvl3 = layers_[li]
             md, mmd = dists_d3_op(ids, queries, lvl3.qlo, lvl3.qhi,

@@ -1,15 +1,23 @@
 """Physical node layouts and frontier lane rounding.
 
 The canonical ``RTree`` stores level-major SoA arrays (D1-global).  The
-port registers two node-local layouts::
+port registers the reference's four node-local layouts::
 
+  D0  (n_nodes, F, 5)   interleaved entries (lx, ly, hx, hy, ptr)  — AoS
   D1  coords (n_nodes, 4, F) + ptr (n_nodes, F)                    — SoA
+  D2  lo (n_nodes, 2F) interleaved (lx0, ly0, lx1, ly1, ...),
+      hi (n_nodes, 2F) interleaved (hx0, hy0, ...), ptr (n_nodes, F)
   D3  qlo/qhi (n_nodes, F) uint16 — each value packs two 8-bit per-axis
       offset codes ((x << 8) | y) relative to the node's own MBR, plus
       per-node float32 scale/bias/slack (n_nodes, 2) and the int32 ptr.
 
-D0 and D2 are not ported yet (ROADMAP item A9a); asking for them raises
-``NotImplementedError``.
+D0 stores the int32 child pointer bit-cast into its float32 fifth column,
+so the pad pointer -1 is a NaN pattern there: ``d0_unpack`` gathers and
+splits entries as int32 and views the four coordinate columns as float32,
+so no float operation ever touches the pointer's bits.  D2 halves the
+compare stages (2 instead of 4) at half the children per vector.  Neither
+has a kernel, in the reference or here: the operators score them with the
+layout's own PyTorch math.
 
 D3 stores a child MBR in 4 bytes instead of D1's 16.  Dequantization is
 conservative (lo codes floor, hi codes ceil), so a dequantized box
@@ -69,15 +77,65 @@ def round_up_adaptive(n: int, lanes: int = LANES) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class LevelD0:
+    entries: torch.Tensor  # (n_nodes, F, 5): lx, ly, hx, hy, ptr (bit-cast)
+    count: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class LevelD1:
     coords: torch.Tensor  # (n_nodes, 4, F) rows: lx, ly, hx, hy
     ptr: torch.Tensor     # (n_nodes, F) int32
     count: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class LevelD2:
+    lo: torch.Tensor      # (n_nodes, 2F) interleaved (lx, ly) pairs
+    hi: torch.Tensor      # (n_nodes, 2F) interleaved (hx, hy) pairs
+    ptr: torch.Tensor     # (n_nodes, F) int32
+    count: torch.Tensor
+
+
+def level_to_d0(lvl: RTreeLevel) -> LevelD0:
+    """Interleaved entries; a float32 level carries its int32 pointer
+    bit-cast into the fifth column (stacked as int32, so the bits are
+    copied and never converted), any other key dtype its pointer
+    converted, as the reference does."""
+    if lvl.lx.dtype == torch.float32:
+        cols = [c.view(torch.int32) for c in (lvl.lx, lvl.ly, lvl.hx,
+                                              lvl.hy)]
+        entries = torch.stack(cols + [lvl.child], dim=-1).view(torch.float32)
+    else:
+        entries = torch.stack([lvl.lx, lvl.ly, lvl.hx, lvl.hy,
+                               lvl.child.to(lvl.lx.dtype)], dim=-1)
+    return LevelD0(entries=entries, count=lvl.count)
+
+
 def level_to_d1(lvl: RTreeLevel) -> LevelD1:
     coords = torch.stack([lvl.lx, lvl.ly, lvl.hx, lvl.hy], dim=1)
     return LevelD1(coords=coords, ptr=lvl.child, count=lvl.count)
+
+
+def level_to_d2(lvl: RTreeLevel) -> LevelD2:
+    n, f = lvl.lx.shape
+    lo = torch.stack([lvl.lx, lvl.ly], dim=-1).reshape(n, 2 * f)
+    hi = torch.stack([lvl.hx, lvl.hy], dim=-1).reshape(n, 2 * f)
+    return LevelD2(lo=lo, hi=hi, ptr=lvl.child, count=lvl.count)
+
+
+def d0_unpack(entries: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(..., F, 5) entries → (lx, ly, hx, hy, ptr int32), each (..., F).
+    The strided de-interleave is why the paper calls D0 SIMD-hostile.  A
+    float32 table is split as int32 and its coordinates viewed back as
+    float32, so the pointer's bits (-1 is a NaN pattern) pass through no
+    float operation."""
+    if entries.dtype == torch.float32:
+        e = entries.view(torch.int32)
+        return (*(e[..., k].view(torch.float32) for k in range(4)),
+                e[..., 4])
+    return (*(entries[..., k] for k in range(4)),
+            entries[..., 4].to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,12 +304,15 @@ class LayoutSpec:
 
 
 LAYOUTS: Dict[str, LayoutSpec] = {
+    "d0": LayoutSpec("d0", level_to_d0, LANES),
     "d1": LayoutSpec("d1", level_to_d1, LANES),
+    "d2": LayoutSpec("d2", level_to_d2, LANES),
     "d3": LayoutSpec("d3", level_to_d3, 2 * LANES),
 }
 
-# layouts of the reference that the port has not reached yet
-_NOT_PORTED = ("d0", "d2")
+# the layouts whose levels feed the CUDA kernels; the others are scored
+# with their own PyTorch math (the reference has no kernel for them either)
+KERNEL_LAYOUTS = ("d1", "d3")
 
 
 def layout_names() -> Tuple[str, ...]:
@@ -262,10 +323,6 @@ def layout_names() -> Tuple[str, ...]:
 def _layout_spec(layout: str) -> LayoutSpec:
     if layout in LAYOUTS:
         return LAYOUTS[layout]
-    if layout in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layout {layout!r} is not ported yet (ROADMAP item A9a); "
-            f"ported layouts: {', '.join(LAYOUTS)}")
     raise ValueError(f"unknown layout {layout!r}: valid layouts are "
                      f"{', '.join(LAYOUTS)}")
 

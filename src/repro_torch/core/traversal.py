@@ -156,7 +156,7 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
                      caps: Sequence[int], result_cap: int, score,
                      fused_level=None, n_streams: int = 1,
                      device=None, lane_budget: Optional[int] = None,
-                     slot_lanes: int = 1):
+                     slot_lanes: int = 1, count_only: bool = False):
     """Build the level loop for a mask operator.
 
     ``score(ctx, li, frontier, qargs)`` → (mask (B, M) bool, values — an
@@ -173,15 +173,18 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
     ``lane_budget`` an unfused level scores and compacts its rows in
     blocks of at most that many lanes (a frontier slot holds
     ``slot_lanes``), so a wide batch never materializes the whole level's
-    mask; the results and counters do not change.  The loop reads nothing
-    back to the host.
+    mask; the results and counters do not change.  ``count_only``: the
+    leaf's qualifying children are counted and not compacted, its
+    overflow is not flagged, and ``values`` comes back None.  The loop
+    reads nothing back to the host.
     """
     caps = tuple(caps)
     sm = spec.stage_model
 
-    def score_compact(ctx, li, frontier, qargs, cap):
+    def score_compact(ctx, li, frontier, qargs, cap, count):
         """The unfused level in row blocks → (outs, qcnt, overflow, hits,
-        f, stages, delta)."""
+        f, stages, delta); ``count`` counts the hits of each row and
+        compacts nothing (outs None, no overflow)."""
         parts = []
         for r0, r1 in _row_blocks(frontier[0].shape[0],
                                   frontier[0].shape[1] * slot_lanes,
@@ -189,12 +192,17 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
             mask, values, f, stages, delta = score(
                 ctx, li, tuple(a[r0:r1] for a in frontier),
                 tuple(q[r0:r1] for q in qargs))
-            outs, qcnt, o = _scatter_compact(values, mask, cap, -1)
+            if count:
+                qcnt = mask.sum(dim=1, dtype=torch.int32)
+                outs, o = None, torch.zeros_like(qcnt, dtype=torch.bool)
+            else:
+                outs, qcnt, o = _scatter_compact(values, mask, cap, -1)
             parts.append((outs, qcnt, o, mask.sum(dtype=torch.int32), delta))
         if len(parts) == 1:
             outs, qcnt, o, hits, delta = parts[0]
         else:
-            outs = [torch.cat(s) for s in zip(*(p[0] for p in parts))]
+            outs = None if count else \
+                [torch.cat(s) for s in zip(*(p[0] for p in parts))]
             qcnt = torch.cat([p[1] for p in parts])
             o = torch.cat([p[2] for p in parts])
             hits = sum(p[3] for p in parts)
@@ -234,6 +242,7 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
             fcnt = fvalid.sum(dim=1, dtype=torch.int32)
             _occ_record(occ_live, occ_padded, step=height - 1 - li,
                         valid=fvalid, width=frontier[0].shape[1], batch=b)
+            count = leaf and count_only
             if fused_level is not None:
                 outs, qcnt, o, f, stages, delta = fused_level(
                     ctx, li, frontier, qargs, cap)
@@ -241,17 +250,18 @@ def make_mask_engine(spec: OperatorSpec, *, height: int,
                 disp += sm.fused
             else:
                 outs, qcnt, o, hits, f, stages, delta = score_compact(
-                    ctx, li, frontier, qargs, cap)
+                    ctx, li, frontier, qargs, cap, count)
                 disp += sm.leaf if leaf else sm.inner
             if leaf:
                 counts = qcnt
-                res = tuple(outs)
+                res = None if count else tuple(outs)
                 if spec.leaf_enqueue:
                     enq = enq + hits
             else:
                 frontier = tuple(outs)
                 enq = enq + hits
-            ovf = ovf | o
+            if not count:
+                ovf = ovf | o
             _apply_delta(acc, delta, fcnt=fcnt, f=f, stages=stages,
                          hits=hits)
         ctr = Counters(enqueued=enq, overflow=ovf.any().to(torch.int32),

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from . import rtree_dfs as _dfs
 from . import rtree_join as _join
 from . import rtree_knn as _knn
 from . import rtree_knn_join as _knn_join
@@ -68,6 +69,10 @@ _KERNELS = {
                             _knn_join.knn_join_level_fused_cuda),
     ("knn_join", "fused_leaf"): (_ref.knn_join_leaf_fused_ref,
                                  _knn_join.knn_join_leaf_fused_cuda),
+    ("select_dfs", "scalar"): (_ref.select_dfs_scalar_ref,
+                               _dfs.select_dfs_scalar_cuda),
+    ("select_dfs", "vector"): (_ref.select_dfs_vector_ref,
+                               _dfs.select_dfs_vector_cuda),
 }
 
 
@@ -180,6 +185,18 @@ def knn_join_leaf_fused(ids, qrects, lx, ly, hx, hy, child, *, k: int,
     ``knn_leaf_fused``."""
     return kernel_call("knn_join", "fused_leaf", ids, qrects, lx, ly, hx,
                        hy, child, k=k, backend=backend)
+
+
+def select_dfs(variant: str, lx, ly, hx, hy, child, count, is_leaf, q, *,
+               root: int, stack_cap: int, result_cap: int, max_steps: int,
+               backend: str = "auto"):
+    """One query's DFS walk over the flat node table, kernel S
+    (``variant='scalar'``) or V ('vector') → (res (result_cap,) int32 in
+    emit order, stats (4,) int32: rc, nodes, predicates, overflow)."""
+    return kernel_call("select_dfs", variant, lx, ly, hx, hy, child, count,
+                       is_leaf, q, root=root, stack_cap=stack_cap,
+                       result_cap=result_cap, max_steps=max_steps,
+                       backend=backend)
 
 
 def join_pair_masks(o_ids, i_ids, alive_cnt, flip_max, o_coords, i_coords,

@@ -1,5 +1,6 @@
 """Plain PyTorch twins of the select, join, kNN and kNN-join kernels (the
-reference's ``kernels/ref.py`` entries for B1–B14).
+reference's ``kernels/ref.py`` entries for B1–B14), and the plain host
+walks of the DFS baselines' kernels S and V.
 
 Each twin has its kernel's contract exactly — same shapes, dtypes and
 padding — and runs on any device.  The CPU tests hold them against the
@@ -13,6 +14,7 @@ and the slack correction.  So every twin and its kernel agree exactly.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.compaction import compact_pairs, compact_rows
@@ -243,3 +245,77 @@ def knn_join_level_dists_d3_ref(ids, qrects, qlo, qhi, scale, bias, slack,
     q = [qrects[:, j, None, None] for j in range(4)]
     return _d3_dists(ids, slack, ptr, mindist_rect(*q, *boxes),
                      minmaxdist_rect_d3(*q, *boxes))
+
+
+# ---------------------------------------------------------------------------
+# The DFS baselines (kernels S and V): one query's walk over the flat node
+# table, as a host loop with the kernels' state machine
+# ---------------------------------------------------------------------------
+
+def _dfs_walk(lx, ly, hx, hy, child, count, is_leaf, q, *, root: int,
+              stack_cap: int, result_cap: int, max_steps: int,
+              by_count: bool):
+    """The walk of S (``by_count``: a lane is valid while j < count) or V
+    (a lane is valid while its child id is >= 0) → (res, stats) as the
+    kernels return them.  A popped node's qualifying children are pushed
+    or emitted in lane order at sp, sp + 1, ... (rc, rc + 1, ...); a push
+    at or past ``stack_cap`` and an emit at or past ``result_cap`` are
+    dropped while sp and rc keep counting, and a pop reads
+    ``stack[min(sp, stack_cap - 1)]``: the reference's clamped gathers and
+    dropped scatters.  The walk stops after ``max_steps`` pops with
+    overflow set, as the kernels do."""
+    rows = [t.cpu().numpy() for t in (lx, ly, hx, hy, child, count,
+                                      is_leaf)]
+    lx_, ly_, hx_, hy_, child_, count_, leaf_ = rows
+    qlx, qly, qhx, qhy = q.cpu().numpy()
+    lanes = np.arange(lx_.shape[1])
+    stack = np.zeros(stack_cap, np.int32)
+    stack[0] = root
+    res = np.full(result_cap, -1, np.int32)
+    sp, rc, nodes, preds, ovf = 1, 0, 0, 0, False
+    while sp > 0:
+        if nodes == max_steps:
+            ovf = True
+            break
+        sp -= 1
+        nid = stack[min(sp, stack_cap - 1)]
+        ch = child_[nid]
+        valid = lanes < count_[nid] if by_count else ch >= 0
+        hit = valid & (qlx <= hx_[nid]) & (qhx >= lx_[nid]) & \
+            (qly <= hy_[nid]) & (qhy >= ly_[nid])
+        ids = ch[hit]                               # lane order
+        preds += 4 * int(valid.sum())
+        if leaf_[nid]:
+            kept = ids[:max(0, min(len(ids), result_cap - rc))]
+            res[rc:rc + len(kept)] = kept
+            rc += len(ids)
+        else:
+            kept = ids[:max(0, min(len(ids), stack_cap - sp))]
+            stack[sp:sp + len(kept)] = kept
+            sp += len(ids)
+        ovf |= sp > stack_cap or rc > result_cap
+        nodes += 1
+    stats = np.array([rc, nodes, preds if by_count else 0, int(ovf)],
+                     np.int32)
+    return (torch.from_numpy(res).to(lx.device),
+            torch.from_numpy(stats).to(lx.device))
+
+
+def select_dfs_scalar_ref(lx, ly, hx, hy, child, count, is_leaf, q, *,
+                          root: int, stack_cap: int, result_cap: int,
+                          max_steps: int):
+    """Twin of ``select_dfs_scalar_cuda`` (kernel S): the walk that tests
+    the children with j < count; predicates grow by 4 for each."""
+    return _dfs_walk(lx, ly, hx, hy, child, count, is_leaf, q, root=root,
+                     stack_cap=stack_cap, result_cap=result_cap,
+                     max_steps=max_steps, by_count=True)
+
+
+def select_dfs_vector_ref(lx, ly, hx, hy, child, count, is_leaf, q, *,
+                          root: int, stack_cap: int, result_cap: int,
+                          max_steps: int):
+    """Twin of ``select_dfs_vector_cuda`` (kernel V): the walk that tests
+    the lanes whose child id is >= 0; predicates stay 0."""
+    return _dfs_walk(lx, ly, hx, hy, child, count, is_leaf, q, root=root,
+                     stack_cap=stack_cap, result_cap=result_cap,
+                     max_steps=max_steps, by_count=False)

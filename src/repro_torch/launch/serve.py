@@ -34,9 +34,12 @@ distributed cursors over the partitions), ``--mesh off`` through the host
 fan-out (browse from one tree over the whole dataset, as the reference
 serves it off its mesh path); ``auto`` (the default) takes the mesh path
 when more than one CUDA device is visible, so on one card the host path,
-as the reference decides.  ``--layout`` picks the node layout: ``d1``
-(the default) or the quantized ``d3``, which serves every mode but
-``join``; ``--mode join --layout d3`` exits "not ported yet" too.
+as the reference decides.  ``--layout`` picks the node layout, one of
+``layout_names()``: ``d1`` (the default), the paper's ``d0`` (interleaved
+entries) and ``d2`` (interleaved coordinate pairs), which have no kernel
+and serve every mode with their own PyTorch math, or the quantized
+``d3``, which serves every mode but ``join`` (``--mode join --layout d3``
+exits naming the ROADMAP item of the D3 join).
 
 ``--queue`` serves the queueable modes (spatial/select, knn, knn-join,
 knn-filtered) through the continuous-batching queue (launch/queue.py):
@@ -649,10 +652,10 @@ def main(argv=None):
         raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
                          f"item {NOT_PORTED[args.mode]}); ported modes: "
                          f"{', '.join(sorted(MODE_TO_SPEC))}")
-    if args.mode == "join" and args.layout != "d1":
+    if args.mode == "join" and args.layout == "d3":
         raise SystemExit(f"--mode join --layout {args.layout} is not ported "
                          f"yet (ROADMAP item {D3_JOIN_ITEM}); the join "
-                         f"serves layout d1")
+                         f"serves layouts d0, d1 and d2")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available; pass "
                            "--device cpu to serve on the CPU")

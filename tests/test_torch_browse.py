@@ -228,8 +228,8 @@ def test_browse_registered_and_bad_params(inst):
         tkb.make_browse_bfs(ttree, 4, caps=(128,) * 7)
     with pytest.raises(ValueError, match="defer caps"):
         tkb.make_browse_bfs(ttree, 4, defer_caps=(128,))
-    with pytest.raises(NotImplementedError, match="A9a"):
-        tkb.make_browse_bfs(ttree, 4, layout="d0")
+    with pytest.raises(ValueError, match="layout d1 or d3"):
+        tkb.make_browse_bfs(ttree, 4, layout="d0", backend="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         tkb.make_browse_bfs(ttree, 4, backend="cuda")
 

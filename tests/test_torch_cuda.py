@@ -5,7 +5,8 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-B1–B14 are held against their plain PyTorch twins, and the select, join,
+B1–B14 and the DFS baselines' kernels S and V are held against their
+plain twins, and the select, join,
 kNN and kNN-join engines on the card (D1, and D3 for all but the join)
 against the same engines on the CPU; a browse session on the card (B5,
 and B13 on D3) against its twin session on the card, and filtered kNN
@@ -18,10 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (join_vector, knn_browse, knn_filtered,
+from repro_torch.core import (flat, join_vector, knn_browse, knn_filtered,
                               knn_join_vector, knn_vector, layouts, rtree,
-                              select_vector)
+                              select_scalar, select_vector)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rtree_dfs as dkern
 from repro_torch.kernels import rtree_join as jkern
 from repro_torch.kernels import rtree_knn as kkern
 from repro_torch.kernels import rtree_knn_join as kjkern
@@ -863,3 +865,60 @@ def test_cuda_knn_filtered_equals_cpu_engine(a10_inst, layout, fanout):
         _bits_equal(ci, ti)
         _bits_equal(cd, td)
         assert ct.asdict() == tt.asdict()
+
+
+FLAT_ROWS = ("lx", "ly", "hx", "hy", "child", "count", "is_leaf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(1024, 4096), (4, 64), (1, 32)])
+@pytest.mark.parametrize("fanout", [13, 16, 48, 64])
+@pytest.mark.parametrize("variant", ["scalar", "vector"])
+def test_cuda_dfs_kernels_equal_twins(inst, variant, fanout, caps):
+    """S and V ≡ their host twins for every query (res in emit order, rc,
+    nodes, predicates, overflow), F below, at and past a warp's 32 lanes,
+    with a stack that overflows and a one-slot stack whose walk stops at
+    ``dfs_max_steps``; one launch a call."""
+    dev = _need_gpu()
+    stack_cap, result_cap = caps
+    rects, small, big = inst
+    tables = [flat.flatten_tree(rtree.build_rtree(rects, fanout=fanout,
+                                                  device=d))
+              for d in (dev, "cpu")]
+    steps = select_scalar.dfs_max_steps(tables[1])
+    for q in np.concatenate([small, big]):
+        before = dkern.launch_counts()[f"select_dfs_{variant}"]
+        outs = []
+        for t, backend in zip(tables, ("cuda", "torch")):
+            outs.append(ops.select_dfs(
+                variant, *(getattr(t, f) for f in FLAT_ROWS),
+                torch.from_numpy(q).to(t.device), root=t.root,
+                stack_cap=stack_cap, result_cap=result_cap,
+                max_steps=steps, backend=backend))
+        (kres, kstats), (tres, tstats) = outs
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(kres.cpu().numpy(), tres.numpy())
+        np.testing.assert_array_equal(kstats.cpu().numpy(), tstats.numpy())
+        assert dkern.launch_counts()[f"select_dfs_{variant}"] == before + 1
+    if caps == (1, 32) and tables[1].height > 2:
+        # the big queries' last walk re-reads an internal node without end
+        assert int(kstats[1]) == steps and int(kstats[3]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["scalar", "vector"])
+def test_cuda_dfs_engine_equals_cpu_engine(inst, variant):
+    dev = _need_gpu()
+    rects, small, big = inst
+    make = select_scalar.make_select_dfs if variant == "scalar" else \
+        select_vector.make_select_dfs_vector
+    fns = [make(flat.flatten_tree(rtree.build_rtree(rects, fanout=16,
+                                                    device=d)), 256)
+           for d in (dev, "cpu")]
+    for q in np.concatenate([small, big]):
+        before = dkern.launch_counts()[f"select_dfs_{variant}"]
+        (kres, krc, kctr), (tres, trc, tctr) = (f(q) for f in fns)
+        assert dkern.launch_counts()[f"select_dfs_{variant}"] == before + 1
+        np.testing.assert_array_equal(kres.cpu().numpy(), tres.numpy())
+        assert int(krc) == int(trc)
+        assert kctr.asdict() == tctr.asdict()

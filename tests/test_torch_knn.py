@@ -406,15 +406,15 @@ def test_tau_init_and_active_hooks_equal_reference(inst):
 
 @pytest.mark.parametrize("layout", ["d0", "d2", "d3"])
 def test_other_layouts_raise_naming_a9(inst, layout):
-    """D0 and D2 are not ported (A9a); D3 is, but not fused: a fused D3
-    build raises ValueError, as the reference's does."""
+    """No layout but D1 has a fused kernel: a fused D0, D2 or D3 build
+    raises ValueError, as the reference's does; D0 and D2 (ported in A9a)
+    have no kernel at all, so ``backend='cuda'`` raises on them too."""
     _, _, ttree, _ = inst
-    if layout == "d3":
-        with pytest.raises(ValueError, match="layout d1"):
-            tknn.make_knn_bfs(ttree, 8, layout=layout, fused=True)
-        return
-    with pytest.raises(NotImplementedError, match="A9"):
-        tknn.make_knn_bfs(ttree, 8, layout=layout)
+    with pytest.raises(ValueError, match="layout d1"):
+        tknn.make_knn_bfs(ttree, 8, layout=layout, fused=True)
+    if layout != "d3":
+        with pytest.raises(ValueError, match="layout d1 or d3"):
+            tknn.make_knn_bfs(ttree, 8, layout=layout, backend="cuda")
 
 
 def test_generic_knn_build_equals_wrapper(inst):

@@ -238,8 +238,8 @@ def test_kernel_backend_and_fused_raise(inst):
         tkf.make_knn_filtered_bfs(ttree, 4, fused=True)
     with pytest.raises(ValueError, match="k must be positive"):
         tkf.make_knn_filtered_bfs(ttree, 0)
-    with pytest.raises(NotImplementedError, match="A9a"):
-        tkf.make_knn_filtered_bfs(ttree, 4, layout="d0")
+    with pytest.raises(ValueError, match="no kernel backend"):
+        tkf.make_knn_filtered_bfs(ttree, 4, layout="d0", backend="cuda")
     qs = _windowed(pts, 0.2)
     a = tkf.make_knn_filtered_bfs(ttree, 8, backend="torch")(qs)
     b = ttraversal.build("knn_filtered", ttree, k=8)(qs)
