@@ -190,7 +190,33 @@ Phases, each of which fails the run loudly:
 29. D0/D2 serve: ``serve.main([... "--layout", "d0" | "d2"])`` at 2M
    points, spatial, kNN and the join on the host path and kNN with
    ``--mesh on``: nothing overflows, the first batch ≡ brute force
-   (the join: 256 sampled probes), q/s and joins/s.
+   (the join: 256 sampled probes), q/s and joins/s;
+30. D3 join engine: ``make_join_bfs(layout="d3", result_cap=1048576)`` of
+   phase 6's centre partition and its 200,000 probes (PyTorch math: the
+   tile over the dequantized boxes, the exact rects at the leaf; no
+   kernel in either package) in {O3/O4 off, on} × {static, adaptive}: the
+   sorted pairs ≡ D1's, overflow and every counter but dispatches ≡
+   ``D3_JOIN_REF`` (``scripts/a9b_reference_numbers.py``), live pairs a
+   level beside D1's, 256 sampled probes ≡ brute force; ms per join, busy
+   share and peak MiB beside D1's; ``backend="cuda"`` and ``fused=True``
+   raise ValueError;
+31. D3 join serve: ``serve.main(["--mode", "join", "--layout", "d3",
+   ...])`` at 2M points with ``--mesh off`` and ``on`` (one card's mesh):
+   nothing overflows, 256 sampled probes ≡ brute force; joins/s and the
+   host merge's share;
+32. LM: tinyllama-1.1b at its published widths, weights from the seed.
+   (a) bfloat16, ``generate`` over 64 prompts of 32 tokens, 16 new tokens
+   (``serve --mode lm``'s traffic): tok/s and peak MiB; its tokens ≡
+   prefill + decode's; every logit finite and within ``LM_BF16_TOL``
+   (relative) of a teacher-forced full forward at each new position;
+   prefill ms; a decode step's host ms, device ms (torch.profiler) and
+   device items beside its bytes bound (weights and KV cache read once
+   at the H100 SXM's 3.35 TB/s, and the card's measured copy rate); (b)
+   float32 with TF32 off, 2 prompts of 24 tokens and 8 new: the card's
+   logits ≡ the same weights' on the CPU within 1e-4 (relative) at every
+   step, and the greedy tokens equal;
+33. ``serve.main(["--mode", "lm"])`` on cuda: tok/s; its tokens ≡ the
+   same command's with ``--device cpu``.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -583,6 +609,36 @@ LAYOUT_JOIN_REF = {
             'pruned_inner': 14086858, 'masked_waste': 24984868}, 'live': [1,
             110, 8045], 'pairs': 720914, 'pairs_sum': 152458661235},
 }
+# the reference's numbers for phase 6's centre partition joined on D3 (the
+# JAX package's jnp path: scripts/a9b_reference_numbers.py), equal in both
+# caps tiers; its sorted pairs equal D1's
+D3_JOIN_REF = {
+    ('join', 'd3', False):
+        {'counters': {'nodes_visited': 17676, 'predicates': 143499504,
+            'vector_ops': 35130, 'enqueued': 729751, 'pruned_outer': 0,
+            'pruned_inner': 0, 'masked_waste': 0}, 'live': [1, 110, 8727],
+            'padded': [0, 914, 56809], 'pairs': 720914,
+            'pairs_sum': 152458661235},
+    ('join', 'd3', True):
+        {'counters': {'nodes_visited': 17676, 'predicates': 35200252,
+            'vector_ops': 35130, 'enqueued': 729751, 'pruned_outer': 179475,
+            'pruned_inner': 15750994, 'masked_waste': 27233867}, 'live': [1,
+            110, 8727], 'padded': [0, 914, 56809], 'pairs': 720914,
+            'pairs_sum': 152458661235},
+}
+# phase 31: joins a served D3 run (each ~3 s, most of it the host merge)
+D3_SERVE_BATCHES = 2
+# phases 32-33: the LM at tinyllama-1.1b's published widths, with the
+# traffic of ``serve --mode lm`` (64 prompts of 32 tokens, 16 new tokens)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "tinyllama-1.1b", 64, 32, 16
+# the float32 cell held to the CPU: 2 prompts of 24 tokens, 8 new tokens,
+# to the reference's own relative bound (tests/test_models.py)
+LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW, LM_F32_TOL = 2, 24, 8, 1e-4
+# bfloat16: greedy decode's logits against a teacher-forced full forward
+# at each new position, relative (max |diff| / max |forward|); measured
+# 1.580e-02-2.282e-02 on an H100 80GB HBM3 at 700 W by this script's
+# phase 32 (PERF.md § 6), so the bound is about twice the largest
+LM_BF16_TOL = 5e-2
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -3330,6 +3386,284 @@ def phase_layout_serve(torch, dev, serve):
               f"force, on {smi}", flush=True)
 
 
+def sorted_pairs(pairs, n) -> np.ndarray:
+    """A join's first ``n`` (K, 2) pairs as int64 on the host, sorted."""
+    p = pairs[:int(n)].cpu().numpy().astype(np.int64)
+    return p[np.lexsort((p[:, 1], p[:, 0]))]
+
+
+def phase_d3_join_engine(torch, probe_tree, part, probes, join_vector):
+    """Phase 30: the D3 join of the centre partition (PyTorch tile over
+    the dequantized boxes, the exact rects at the leaf; no kernel in
+    either package) in {O3/O4 off, on} × {static, adaptive}: the sorted
+    pairs ≡ D1's, overflow and every counter but dispatches ≡
+    ``D3_JOIN_REF``; 256 sampled probes ≡ brute force; live pairs a level,
+    ms per join, busy share and peak MiB beside D1's; the kernel backend
+    and the fused build raise."""
+    smi = smi_line()
+    lines = []
+    for o34 in (False, True):
+        kw = dict(result_cap=JOIN_CAP, o3=o34, o4=o34)
+        d1_fn = join_vector.make_join_bfs(probe_tree, part.tree, **kw)
+        p1, n1, c1 = d1_fn()
+        want = sorted_pairs(p1, n1)
+        ref_ = D3_JOIN_REF[("join", "d3", o34)]
+        for caps_mode in ("static", "adaptive"):
+            what = f"d3 join o3/o4={'on' if o34 else 'off'} {caps_mode}"
+            fn = join_vector.make_join_bfs(probe_tree, part.tree,
+                                           layout="d3", caps_mode=caps_mode,
+                                           **kw)
+            pairs, n, ctr = fn()
+            check(pairs.device.type == "cuda", f"{what}: pairs on "
+                  f"{pairs.device}")
+            got = sorted_pairs(pairs, n)
+            check(np.array_equal(got, want), f"{what}: {len(got)} pairs "
+                  f"differ from D1's {len(want)}")
+            check(int(n) == ref_["pairs"] and int(got.sum()) ==
+                  ref_["pairs_sum"], f"{what}: {int(n)} pairs, the "
+                  f"reference has {ref_['pairs']}")
+            layout_cell_check(ctr.asdict(), ref_, None, what, steps=3)
+        print(f"  o3/o4={'on' if o34 else 'off'}: D3 ≡ D1 ({int(n)} pairs) "
+              f"and D3_JOIN_REF (static, adaptive); live pairs a level D3 "
+              f"{ctr.asdict()['lanes_live'][:3]}, D1 "
+              f"{c1.asdict()['lanes_live'][:3]}", flush=True)
+        if o34:
+            lines.append(timed_cell(torch, d1_fn, "d1 join (O3/O4)", "join",
+                                    iters=3))
+            lines.append(timed_cell(torch, fn, "d3 join (O3/O4)", "join",
+                                    iters=3))
+    sample_probes_equal_brute_force(
+        torch, part.tree.device, sorted_pairs(pairs, n), probes,
+        part.tree.rects.cpu().numpy(), "d3 join engine")
+    print("  256 sampled probes ≡ brute force over the partition's rects",
+          flush=True)
+    for bad in (dict(backend="cuda"), dict(fused=True)):
+        try:
+            join_vector.make_join_bfs(probe_tree, part.tree, layout="d3",
+                                      **bad)
+        except ValueError:
+            continue
+        fail(f"d3 join with {bad} did not raise ValueError")
+    print("  backend='cuda' and fused=True raise ValueError (no D3 join "
+          f"kernel); on {smi}:", flush=True)
+    for line in lines:
+        print(line, flush=True)
+
+
+def phase_d3_join_serve(torch, dev, serve):
+    """Phase 31: ``serve --mode join --layout d3`` at 2M points on the
+    host path and the mesh path (one card's mesh): nothing overflows, 256
+    sampled probes ≡ brute force; joins/s and the host merge's share."""
+    smi = smi_line()
+    rects, probes = serve.make_join_inputs(N_RECTS, SEED, QUERY_EPS)
+    for mesh in ("off", "on"):
+        out = serve.main(["--mode", "join", "--layout", "d3", "--mesh", mesh,
+                          "--n", str(N_RECTS), "--join-cap", str(JOIN_CAP),
+                          "--query-eps", str(QUERY_EPS), "--batches",
+                          str(D3_SERVE_BATCHES)])
+        check(not out["overflow"], f"d3 join serve --mesh {mesh} overflowed")
+        sample_probes_equal_brute_force(torch, dev, out["last_pairs"],
+                                        probes, rects,
+                                        f"d3 join serve --mesh {mesh}")
+        share = out["merge_s"] * out["joins_per_s"] / D3_SERVE_BATCHES
+        print(f"  d3 join --mesh {mesh}: {out['joins_per_s']:.3f} joins/s, "
+              f"{len(out['last_pairs'])} pairs, host merge {share:.1%}, 256 "
+              f"sampled probes ≡ brute force, on {smi}", flush=True)
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want|, in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def lm_batch(torch, cfg, batch: int, prompt: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (batch, prompt), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def lm_steps(torch, model, params, batch, n_new, feed=None):
+    """Prefill and ``n_new - 1`` decode steps → (tokens (B, n_new), logits
+    (B, n_new, V) float32): each step's argmax, fed back (greedy) or, with
+    ``feed`` (B, n_new), those tokens (teacher forcing)."""
+    s = batch["tokens"].shape[1]
+    cache, last, pos = model.prefill(params, batch, max_len=s + n_new)
+    logits, toks = [last], [last.argmax(dim=-1).to(torch.int32)]
+    for i in range(n_new - 1):
+        tok = toks[-1] if feed is None else feed[:, i]
+        lg, cache = model.decode(params, cache, tok, pos + i)
+        logits.append(lg)
+        toks.append(lg.argmax(dim=-1).to(torch.int32))
+    return torch.stack(toks, dim=1), torch.stack(logits, dim=1)
+
+
+def device_step(torch, fn, iters: int = 10):
+    """(device ms, device items, busy share) per call of ``fn``: every
+    device item torch.profiler records over ``iters`` calls, against the
+    host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(us, "the profiler saw no device item")
+    return sum(us) / iters / 1e3, len(us) / iters, sum(us) / wall_us
+
+
+def copy_rate(torch, dev, n_bytes: int = 1 << 30) -> float:
+    """Bytes/s of a device-to-device copy of ``n_bytes`` (read + write),
+    CUDA events: the card's own memory rate as PyTorch reaches it."""
+    a = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), 10)
+    return 2 * n_bytes / (ms / 1e3)
+
+
+def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol):
+    """Phase 32(a): the LM at ``cfg``'s widths in bfloat16 on the card:
+    weights from the seed, ``generate`` (tok/s, peak MiB), its tokens ≡
+    prefill + decode's, every logit finite and within ``tol`` (relative)
+    of a teacher-forced full forward at each new position; prefill ms;
+    a decode step's device ms beside its bytes bound (weights and KV
+    cache read once), its device items and the busy share."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.serve.serve_step import generate
+    smi = smi_line()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"  {cfg.name} {cfg.dtype}: {transformer.param_count(params):,} "
+          f"parameters ({w_bytes / 1e9:.3f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    batch = lm_batch(torch, cfg, batch_size, prompt, SEED, dev)
+    generate(model, params, batch, n_new)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = generate(model, params, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(out.device.type == "cuda" and out.shape == (batch_size, n_new),
+          f"generate: {tuple(out.shape)} on {out.device}")
+    toks, logits = lm_steps(torch, model, params, batch, n_new)
+    check(torch.equal(toks, out), "generate's tokens differ from prefill "
+          "+ decode's")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    full = {"tokens": torch.cat([batch["tokens"], out[:, :-1]], dim=1)}
+    with torch.no_grad():
+        x, _ = model._embed_batch(params, full)
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=dev).expand(x.shape[0], -1)
+        h, _, _ = transformer.forward(cfg, params, x, pos)
+        ref = model.logits(params, h[:, prompt - 1:]).float()
+    errs = [rel_err(torch, logits[:, i], ref[:, i]) for i in range(n_new)]
+    same = float((toks == ref.argmax(dim=-1)).float().mean())
+    print(f"  decode logits against the teacher-forced forward: relative "
+          f"error {min(errs):.3e}-{max(errs):.3e} over {n_new} positions "
+          f"(bound {tol}); argmax agreement {same:.4f}", flush=True)
+    check(max(errs) <= tol, f"bfloat16 decode logits differ "
+          f"from the teacher-forced forward by {max(errs):.3e} > {tol}")
+    prefill_ms = host_ms(lambda: model.prefill(
+        params, batch, max_len=prompt + n_new), 5)
+    cache, _, p0 = model.prefill(params, batch, max_len=prompt + n_new)
+    last = p0 + n_new - 2
+
+    def step():
+        return model.decode(params, cache, out[:, -2], last)
+
+    dev_ms, items, busy = device_step(torch, step)
+    step_ms = host_ms(step, 20)
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    read = w_bytes - params.embed.numel() * params.embed.element_size() \
+        + batch_size * cfg.d_model * params.embed.element_size()
+    written = batch_size * cfg.vocab * 4
+    bound_ms = (read + kv_bytes + written) / HBM_BYTES_PER_S * 1e3
+    rate = copy_rate(torch, dev)
+    print(f"  on {smi}: {batch_size} seqs × {n_new} new tokens in "
+          f"{gen_s:.3f} s → {batch_size * n_new / gen_s:,.0f} tok/s, peak "
+          f"{peak:,.0f} MiB; prefill ({batch_size} × {prompt}) "
+          f"{prefill_ms:.3f} ms; a decode step {step_ms:.3f} ms (host "
+          f"clock), {dev_ms:.3f} ms of device time in {items:.0f} device "
+          f"items, busy {busy:.1%} under the profiler; bytes bound "
+          f"{bound_ms:.3f} ms ({(read + kv_bytes) / 1e9:.3f} GB of weights "
+          f"and KV cache read, {written / 1e6:.1f} MB of logits written, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the H100 SXM data sheet; a "
+          f"device copy here moves {rate / 1e12:.2f} TB/s)", flush=True)
+    return dict(tok_s=batch_size * n_new / gen_s, prefill_ms=prefill_ms,
+                step_ms=step_ms, dev_ms=dev_ms, bound_ms=bound_ms, busy=busy,
+                peak=peak, err=max(errs))
+
+
+def phase_lm_f32(torch, dev, cfg, batch_size, prompt, n_new, tol):
+    """Phase 32(b): the same widths in float32 on the card against the
+    same weights on the CPU, TF32 off: greedy tokens equal, and every
+    step's logits (the CPU fed the card's tokens) within ``tol``."""
+    import dataclasses
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on for float32 products")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg)
+    params = model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 1), device=dev)
+    host = transformer.Transformer(cfg, "cpu")
+    host.load_state_dict(params.state_dict())
+    batch = lm_batch(torch, cfg, batch_size, prompt, SEED + 1, dev)
+    t0 = time.perf_counter()
+    toks, logits = lm_steps(torch, model, params, batch, n_new)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    htoks, hlogits = lm_steps(torch, model, host,
+                              {"tokens": batch["tokens"].cpu()}, n_new,
+                              feed=toks.cpu())
+    host_s = time.perf_counter() - t0
+    errs = [rel_err(torch, logits[:, i], hlogits[:, i])
+            for i in range(n_new)]
+    print(f"  float32 {cfg.name} ({batch_size} × {prompt}, {n_new} new): "
+          f"card against CPU, relative error {min(errs):.3e}-"
+          f"{max(errs):.3e} (bound {tol}); card {card_s:.2f} s, CPU "
+          f"{host_s:.2f} s", flush=True)
+    check(max(errs) <= tol, f"float32 logits: card and CPU differ by "
+          f"{max(errs):.3e} > {tol}")
+    check(torch.equal(htoks, toks.cpu()), "float32 greedy tokens: the CPU "
+          "and the card differ")
+    print("  greedy tokens equal (the CPU's argmax at every step fed the "
+          "card's tokens)", flush=True)
+
+
+def phase_lm_serve(serve):
+    """Phase 33: ``serve --mode lm`` on cuda (the default): tok/s; its
+    tokens ≡ the same command's on the CPU."""
+    smi = smi_line()
+    out = serve.main(["--mode", "lm"])
+    ref_ = serve.main(["--mode", "lm", "--device", "cpu"])
+    check(out["tokens"].shape == (64, 16) and
+          np.array_equal(out["tokens"], ref_["tokens"]),
+          "serve --mode lm: the card's tokens differ from the CPU's")
+    print(f"  serve --mode lm: {out['tok_per_s']:,.0f} tok/s on {smi} "
+          f"(CPU {ref_['tok_per_s']:,.0f}); tokens ≡ the CPU's", flush=True)
+    return out["tok_per_s"]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3598,7 +3932,7 @@ def main() -> None:
     print("[28] D0 and D2 engines against D1 and the reference", flush=True)
     phase_layout_engines(torch, tree, queries, points, qrects, fq[0],
                          probe_tree, shards.partitions[CENTRE])
-    del shards, probe_tree, tree
+    del tree
     print(f"  phase 28: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
@@ -3606,6 +3940,44 @@ def main() -> None:
     print(f"[29] serve --layout d0|d2 at {N_RECTS} points", flush=True)
     phase_layout_serve(torch, dev, serve)
     print(f"  phase 29: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print(f"[30] D3 join engine: the centre partition and {len(probes)} "
+          f"probes, result_cap {JOIN_CAP}", flush=True)
+    phase_d3_join_engine(torch, probe_tree, shards.partitions[CENTRE],
+                         probes, join_vector)
+    del shards, probe_tree
+    print(f"  phase 30: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print(f"[31] serve --mode join --layout d3 at {N_RECTS} points, mesh "
+          f"off and on", flush=True)
+    phase_d3_join_serve(torch, dev, serve)
+    print(f"  phase 31: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    from repro_torch.configs import registry
+    lm_cfg = registry.get(LM_ARCH)
+    t0 = time.time()
+    print(f"[32] {LM_ARCH} at its published widths ({lm_cfg.n_layers} "
+          f"layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
+          f"{lm_cfg.n_kv} KV heads, d_ff {lm_cfg.d_ff}, vocab "
+          f"{lm_cfg.vocab}), weights from seed {SEED}", flush=True)
+    phase_lm_bf16(torch, dev, lm_cfg, LM_BATCH, LM_PROMPT, LM_NEW,
+                  LM_BF16_TOL)
+    torch.cuda.empty_cache()
+    phase_lm_f32(torch, dev, lm_cfg, LM_F32_BATCH, LM_F32_PROMPT,
+                 LM_F32_NEW, LM_F32_TOL)
+    torch.cuda.empty_cache()
+    print(f"  phase 32: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print("[33] serve --mode lm on cuda", flush=True)
+    phase_lm_serve(serve)
+    print(f"  phase 33: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths

@@ -15,10 +15,12 @@ pair the child predicate is an (F_out × F_in) tile:
                 compress-stores the qualifying pairs in flat order.
 
 Both take the O3/O4/O5 tile-skip bounds of ``ops.join_prune_metadata``.
-D0 and D2 have no kernel (nor in the reference): their levels give the
-tile its children through the layout's own gather (D2 in two compare
-stages, D0 after the de-interleave) and the dense (F_out × F_in) tile
-predicate runs in PyTorch, unfused, on the trees' device.
+D0, D2 and D3 have no kernel (nor in the reference): their levels give
+the tile its children through the layout's own gather (D2 and D3 in two
+compare stages, D0 after the de-interleave, D3 as the conservative
+dequantized boxes, re-checked at the leaf against the exact data rects)
+and the dense (F_out × F_in) tile predicate runs in PyTorch, unfused, on
+the trees' device.
 Sorted-key optimizations (``sort_key='lx'`` trees): O3 slices trailing
 outer children once ``out.low_x > max(in.high_x)``; O4/O5 shrink the inner
 node to ``flip`` entries per outer child.  They change the counters (the
@@ -38,13 +40,10 @@ from . import caps as caps_policy
 from . import traversal
 from .counters import StageModel
 from .join_scalar import elevate
-from .layouts import (KERNEL_LAYOUTS, LevelD0, LevelD1, LevelD2, d0_unpack,
-                      layout_lanes, tree_layout)
+from .layouts import (LevelD0, LevelD1, LevelD2, LevelD3, d0_unpack,
+                      d3_dequantize, d3_levels_int32, layout_lanes,
+                      tree_layout)
 from .rtree import RTree
-
-# the ROADMAP item of the D3 spatial join (the reference runs it on its jnp
-# path only, with no kernel)
-D3_JOIN_ITEM = "A9b"
 
 # pair lanes an unfused level scores at once: one 2M-point partition's leaf
 # step (65,536 pairs × 64 × 64), whose int32 mask and compaction fit the
@@ -54,7 +53,7 @@ LANE_BUDGET = 1 << 28
 
 def _gather_children(layer, ids: torch.Tensor):
     """(P,) node ids → per-child (lx, ly, hx, hy, ptr) each (P, F) +
-    stages: 4 on D1 and D0 (after its de-interleave), 2 on D2."""
+    stages: 4 on D1 and D0 (after its de-interleave), 2 on D2 and D3."""
     safe = ids.clamp(min=0).long()
     if isinstance(layer, LevelD1):
         c = layer.coords[safe]
@@ -67,9 +66,34 @@ def _gather_children(layer, ids: torch.Tensor):
                 layer.ptr[safe]), 2
     if isinstance(layer, LevelD0):
         return d0_unpack(layer.entries[safe]), 4
-    raise NotImplementedError(
-        f"join over {type(layer).__name__} is not ported yet (ROADMAP "
-        f"item {D3_JOIN_ITEM}); the join runs on layouts d0, d1 and d2")
+    if isinstance(layer, LevelD3):
+        # conservative dequantization of codes already widened to int32
+        # (``join_levels``): the enlarged boxes can only over-approximate
+        # the tile predicate, and the leaf re-checks the exact rects
+        # (``_exact_leaf_children``)
+        lx, ly, hx, hy = d3_dequantize(layer.qlo[safe], layer.qhi[safe],
+                                       layer.scale[safe], layer.bias[safe])
+        return (lx, ly, hx, hy, layer.ptr[safe]), 2
+    raise TypeError(type(layer))
+
+
+def join_levels(tree: RTree, layout: str):
+    """``tree``'s levels in ``layout`` as the join gathers them: D3's codes
+    widened to int32 once."""
+    return d3_levels_int32(tree) if layout == "d3" else \
+        tree_layout(tree, layout)
+
+
+def _exact_leaf_children(g, rects: torch.Tensor, first=0):
+    """Replace dequantized leaf-child boxes with the exact rect geometry
+    gathered through ptr (what D1's leaf arrays hold).  A padding lane
+    (ptr -1) reads the tree's first rect, ``first``: 0, or (P, 1) row
+    indices, each pair's partition's first rect in a packed forest (the
+    rect the reference's per-partition gather reads).  Padding lanes are
+    never live, but O3's bound and O4/O5's flip counts read them."""
+    ptr = g[4]
+    r = rects[torch.where(ptr >= 0, ptr, first).long()]
+    return (r[..., 0], r[..., 1], r[..., 2], r[..., 3], ptr)
 
 
 def dense_tile(go, gi):
@@ -134,7 +158,8 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
                   o5: Optional[str] = None, backend: str = "auto",
                   fused: bool = False, caps_mode: str = "adaptive",
                   caps_tree: Optional[RTree] = None,
-                  lane_budget: Optional[int] = LANE_BUDGET):
+                  lane_budget: Optional[int] = LANE_BUDGET,
+                  inner_partition: Optional[Tuple[int, int]] = None):
     """Build the pair-frontier join: () → (pairs (R, 2) int32, n, Counters).
 
     ``o5``: None | 'dense' | 'gather' — how flip indices are computed (both
@@ -146,6 +171,10 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     ``Counters.dispatches`` is unchanged.  ``caps_mode`` as in
     ``make_select_bfs``; ``caps_tree`` (default ``tree_i``) stands in for
     the inner tree in the adaptive caps (the mesh path's padded partition).
+    ``inner_partition``: (leaf nodes, rects) of each partition when
+    ``tree_i`` is a flat forest of equal partitions (the mesh path), so
+    that D3's exact leaf step reads a padding lane's own partition's first
+    rect, as the reference's per-partition gather does; None for one tree.
 
     ``fn(roots=(outer_roots, inner_roots))`` runs one pair frontier a row
     from those root pairs (each (R,)), the mesh path's partitions: →
@@ -153,17 +182,14 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     into its own slots.  An unfused level scores at most ``lane_budget``
     pair lanes at once, in blocks of rows; the counters do not change.
 
-    On D0 and D2 (no kernel) 'auto' and 'torch' run the dense tile in
+    On D0, D2 and D3 (no kernel) 'auto' and 'torch' run the dense tile in
     PyTorch wherever the trees lie; 'cuda' and ``fused=True`` raise
-    ``ValueError``, as the reference's kernel backends do on them.
+    ``ValueError``, as the reference's kernel backends do on them.  D3's
+    leaf step scores the exact rects of both trees (4 stages), its other
+    steps the dequantized boxes (2 stages).
     """
     layout_lanes(layout)
-    if layout == "d3":
-        raise NotImplementedError(
-            f"the spatial join over layout {layout!r} is not ported yet "
-            f"(ROADMAP item {D3_JOIN_ITEM}); the join runs on layouts d0, "
-            f"d1 and d2")
-    own_math = layout not in KERNEL_LAYOUTS
+    own_math = layout != "d1"
     if own_math and backend == "cuda":
         raise ValueError("kernel backend requires layout d1")
     if own_math and fused:
@@ -174,7 +200,11 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
     ops.resolve_backend(backend, tree_o.rects)
     h = max(tree_o.height, tree_i.height)
     to, ti = elevate(tree_o, h), elevate(tree_i, h)
-    ctx = (tree_layout(to, layout), tree_layout(ti, layout))
+    exact = None
+    if layout == "d3":
+        part, n_rects = inner_partition or (0, 0)
+        exact = (to.rects, ti.rects, part, n_rects)
+    ctx = (join_levels(to, layout), join_levels(ti, layout), exact)
     o45 = bool(o4 or o5)
 
     def _score_stage_counters(o_ids, i_ids, gathered, stages, m):
@@ -221,11 +251,18 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
         return oc, icr, to_, ac, fm
 
     def score(ctx_, li, frontier, qargs):
-        layers_o, layers_i = ctx_
+        layers_o, layers_i, exact_ = ctx_
         # every row's pair frontier as one flat (P,) pair list
         o_ids, i_ids = frontier[0].reshape(-1), frontier[1].reshape(-1)
         go, stages = _gather_children(layers_o[li], o_ids)
         gi, _ = _gather_children(layers_i[li], i_ids)
+        if exact_ is not None and li == 0:
+            rects_o, rects_i, part, n_rects = exact_
+            first = 0 if not part else \
+                (i_ids.clamp(min=0)[:, None] // part) * n_rects
+            go = _exact_leaf_children(go, rects_o)
+            gi = _exact_leaf_children(gi, rects_i, first)
+            stages = 4
         optr, iptr = go[4], gi[4]
         pair_valid = (o_ids >= 0) & (i_ids >= 0)
         if own_math:
@@ -250,7 +287,7 @@ def make_join_bfs(tree_o: RTree, tree_i: RTree, layout: str = "d1",
                 fo, stages, delta)
 
     def fused_level(ctx_, li, frontier, qargs, cap):
-        layers_o, layers_i = ctx_
+        layers_o, layers_i, _ = ctx_
         if frontier[0].shape[0] != 1:
             raise NotImplementedError(
                 "the fused join (B4) runs one pair frontier; rows of pair "

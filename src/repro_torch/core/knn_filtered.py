@@ -37,8 +37,8 @@ from .geometry import (DIST_PAD, intersects, mindist, minmaxdist,
                        minmaxdist_d3)
 from .join_vector import _gather_children
 from .knn_vector import make_distance_bfs
-from .layouts import (d3_dequantize, d3_slacked_upper, level_to_d1,
-                      tree_layout)
+from .layouts import (d3_dequantize, d3_levels_int32, d3_slacked_upper,
+                      level_to_d1, tree_layout)
 from .rtree import RTree
 
 
@@ -62,11 +62,8 @@ def make_knn_filtered_score(tree: RTree, layout: str, backend: str):
         raise ValueError(f"knn_filtered has no kernel backend (got "
                          f"{backend!r}): its window masks are PyTorch ops")
     if layout == "d3":
-        # codes widened to int32 once: uint16 has no CUDA indexing
-        layers = tuple(
-            (lvl.qlo.to(torch.int32), lvl.qhi.to(torch.int32), lvl.scale,
-             lvl.bias, lvl.slack, lvl.ptr)
-            for lvl in tree_layout(tree, "d3"))
+        layers = tuple((lvl.qlo, lvl.qhi, lvl.scale, lvl.bias, lvl.slack,
+                        lvl.ptr) for lvl in d3_levels_int32(tree))
         leaf_rows = level_to_d1(tree.levels[0])     # the exact rects
     else:
         layers = tree_layout(tree, layout)

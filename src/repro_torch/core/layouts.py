@@ -32,7 +32,8 @@ byte, and runs on the tree's device.
 Codes are ``torch.uint16``, so ``.numpy()`` gives the reference's bytes.
 PyTorch's CPU kernels lack shifts, masks and compares on uint16 and its
 CUDA kernels lack indexing, so every unpacking and gather widens the codes
-to int32 first; only the CUDA kernels read them as they are.
+to int32 first (``d3_levels_int32``); only the CUDA kernels read them as
+they are.
 
 The lane width stays the reference's: 128, and 256 for D3 (a D3 node row
 streams 4-byte boxes).  The frontier caps decide overflow and escalation,
@@ -336,3 +337,12 @@ def tree_layout(tree: RTree, layout: str):
     """Materialize every level of ``tree`` in the requested physical layout."""
     fn = _layout_spec(layout).converter
     return tuple(fn(lvl) for lvl in tree.levels)
+
+
+def d3_levels_int32(tree: RTree) -> Tuple[LevelD3, ...]:
+    """``tree``'s D3 levels with the codes widened to int32 once, for the
+    PyTorch paths that gather and shift them (CUDA cannot index uint16;
+    the CPU cannot shift it)."""
+    return tuple(dataclasses.replace(lvl, qlo=lvl.qlo.to(torch.int32),
+                                     qhi=lvl.qhi.to(torch.int32))
+                 for lvl in tree_layout(tree, "d3"))

@@ -556,7 +556,11 @@ def make_mesh_engine(name: str, forest, *, outer_tree=None, **params):
     dev = forest.device
     trees = (forest.flat,) if outer_tree is None else \
         (outer_tree, forest.flat)
-    fn = spec.builder(*trees, caps_tree=forest.partition_tree, **params)
+    pt = forest.partition_tree
+    if spec.kind == "mask" and spec.query_width is None:
+        # the join: each padding lane reads its own partition's rects
+        params["inner_partition"] = (pt.levels[0].n_nodes, pt.rects.shape[0])
+    fn = spec.builder(*trees, caps_tree=pt, **params)
     ids_flat = forest.ids_flat
     parts = torch.arange(p_total, dtype=torch.int32, device=dev)
 

@@ -26,8 +26,10 @@ distributed over the fleet on its mesh path).
 Runs on ``cuda`` (the CUDA kernels) unless ``--device cpu`` is given (the
 plain PyTorch twins); asking for ``cuda`` on a machine without CUDA
 raises.  ``--mode spatial`` (the default), its alias ``select``, ``join``,
-``knn``, ``knn-join``, ``knn-filtered`` and ``browse`` are ported; ``lm``
-exits with a "not ported yet" message naming its ROADMAP item.
+``knn``, ``knn-join``, ``knn-filtered`` and ``browse`` serve the spatial
+fleet; ``--mode lm`` serves the LM decode path (the reduced tinyllama-1.1b
+from ``--seed``: ``--batch-size`` prompts of 32 tokens, 16 new tokens
+each, greedy) and prints tok/s.
 ``--mesh on`` serves the fleet through its single-program path (a packed
 forest, one launch a level over partition × query; browse sessions are
 distributed cursors over the partitions), ``--mesh off`` through the host
@@ -38,8 +40,8 @@ as the reference decides.  ``--layout`` picks the node layout, one of
 ``layout_names()``: ``d1`` (the default), the paper's ``d0`` (interleaved
 entries) and ``d2`` (interleaved coordinate pairs), which have no kernel
 and serve every mode with their own PyTorch math, or the quantized
-``d3``, which serves every mode but ``join`` (``--mode join --layout d3``
-exits naming the ROADMAP item of the D3 join).
+``d3`` (its join, like the reference's, runs the dense tile in PyTorch
+over the dequantized boxes and re-checks the leaf's exact rects).
 
 ``--queue`` serves the queueable modes (spatial/select, knn, knn-join,
 knn-filtered) through the continuous-batching queue (launch/queue.py):
@@ -70,7 +72,6 @@ import torch
 
 from ..core import rtree, str_pack, traversal
 from ..core.counters import Counters
-from ..core.join_vector import D3_JOIN_ITEM
 from ..core.layouts import layout_names
 from ..distributed.spatial_shard import SpatialShards
 from ..runtime.straggler import ShardPool
@@ -86,8 +87,6 @@ MODE_TO_SPEC = {
     "browse": "browse",
 }
 
-# modes of the reference that later slices port
-NOT_PORTED = {"lm": "A14"}
 
 
 def make_rects(n: int, seed: int) -> np.ndarray:
@@ -576,6 +575,34 @@ def _serve_queued(args, spec):
     return out
 
 
+def _serve_lm(args):
+    """The LM decode service: the reduced tinyllama-1.1b with weights from
+    ``--seed`` (drawn on the CPU, so every device serves the same model),
+    ``--batch-size`` prompts of 32 tokens drawn from the same seed, 16 new
+    tokens each (greedy) on ``--device``.  Returns tok/s and the generated
+    tokens (B, 16)."""
+    from ..configs import registry
+    from ..models.model import Model
+    from ..serve.serve_step import generate
+
+    dev = torch.device(args.device)
+    cfg = registry.reduced_config(registry.get("tinyllama-1.1b"))
+    model = Model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(args.seed),
+                               device=dev)
+    rng = np.random.default_rng(args.seed)
+    toks = rng.integers(0, cfg.vocab, (args.batch_size, 32), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    t0 = time.time()
+    out = generate(model, params, batch, n_new=16).cpu().numpy()
+    dt = time.time() - t0
+    tps = args.batch_size * 16 / dt
+    print(f"LM decode service: {args.batch_size} seqs × 16 new tokens in "
+          f"{dt:.2f}s → {tps:,.0f} tok/s on {args.device}; sample: "
+          f"{out[0][:8]}")
+    return {"tok_per_s": tps, "tokens": out}
+
+
 RUNNERS = {
     "select": _serve_select,
     "join": _serve_join,
@@ -589,7 +616,7 @@ RUNNERS = {
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="spatial",
-                    choices=sorted(MODE_TO_SPEC) + sorted(NOT_PORTED))
+                    choices=sorted(MODE_TO_SPEC) + ["lm"])
     ap.add_argument("--n", type=int, default=200_000)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--fanout", type=int, default=64)
@@ -648,14 +675,6 @@ def main(argv=None):
                     help="tiny sizes: the smoke that runs serve end to end")
     args = ap.parse_args(argv)
 
-    if args.mode in NOT_PORTED:
-        raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
-                         f"item {NOT_PORTED[args.mode]}); ported modes: "
-                         f"{', '.join(sorted(MODE_TO_SPEC))}")
-    if args.mode == "join" and args.layout == "d3":
-        raise SystemExit(f"--mode join --layout {args.layout} is not ported "
-                         f"yet (ROADMAP item {D3_JOIN_ITEM}); the join "
-                         f"serves layouts d0, d1 and d2")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available; pass "
                            "--device cpu to serve on the CPU")
@@ -679,6 +698,8 @@ def main(argv=None):
         # spurious re-issue work, never find a bug
         args.deadline = max(args.deadline, 60.0)
 
+    if args.mode == "lm":
+        return _serve_lm(args)
     spec = traversal.get_spec(MODE_TO_SPEC[args.mode])
     missing = set(traversal.spec_names()) - set(RUNNERS)
     assert not missing, f"registered specs without a serve runner: {missing}"

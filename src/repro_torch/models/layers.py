@@ -1,0 +1,160 @@
+"""Core transformer layers of the port, forward only: RMSNorm, RoPE,
+chunked flash attention (prefill), decode attention over a KV cache (full
+or sliding-window ring buffer), SwiGLU MLP.
+
+The reference's ``models/layers.py`` in PyTorch ops, with its arithmetic:
+scores and the online-softmax state in float32, ``p`` cast to v's dtype
+before the PV product, the q-chunk × kv-chunk blocks of ``_pick_chunk``
+and the blocks that the causal mask or the window rule out skipped (here
+a Python ``continue``; the reference's ``lax.cond``).  No library
+attention: the products are ``torch.einsum`` over the same blocks.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in float32 with ``(1 + w)`` as the scale, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def _rope_angles(positions: torch.Tensor, dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) → (sin, cos) each (..., dim/2), float32."""
+    freq = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=positions.device) / dim *
+                     math.log(theta))
+    ang = positions.float()[..., None] * freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with positions (..., S): rotate the interleaved
+    pairs (x[..., 0::2], x[..., 1::2])."""
+    sin, cos = _rope_angles(positions, x.shape[-1], theta)
+    sin, cos = sin[..., None, :], cos[..., None, :]    # (..., S, 1, D/2)
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _pick_chunk(s: int, target: int = 512) -> int:
+    return max(math.gcd(s, target), 1)
+
+
+def _block_mask(qc, kc, q_lo, k_lo, causal, window, device):
+    qpos = q_lo + torch.arange(qc, device=device)[:, None]
+    kpos = k_lo + torch.arange(kc, device=device)[None, :]
+    mask = torch.ones((qc, kc), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
+def _chunk_needed(q_lo, k_lo, qc, kc, causal, window) -> bool:
+    needed = True
+    if causal:
+        needed = needed and k_lo <= q_lo + qc - 1
+    if window > 0:
+        needed = needed and k_lo + kc - 1 > q_lo - window
+    return needed
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    chunk: Optional[int] = None) -> torch.Tensor:
+    """Blockwise online-softmax attention, forward.  q: (B, Sq, H, D); k,
+    v: (B, Sk, K, D) (GQA: H a multiple of K).  ``q_offset``: absolute
+    position of q[0] relative to k[0].  ``window`` > 0: position i attends
+    to (i-window, i].  The peak live tensor is one (B, K, rep, qc, kc)
+    block of float32 scores."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    qc = chunk or _pick_chunk(sq)
+    kc = chunk or _pick_chunk(sk)
+    if sq % qc or sk % kc:
+        raise ValueError(f"chunks {qc}, {kc} do not divide {sq}, {sk}")
+    rep = h // kh
+    nq, nk = sq // qc, sk // kc
+    scale = 1.0 / math.sqrt(d)
+    qr = q.reshape(b, nq, qc, kh, rep, d)
+    kr = k.reshape(b, nk, kc, kh, d)
+    vr = v.reshape(b, nk, kc, kh, d)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for iq in range(nq):
+        q_blk = (qr[:, iq] * scale).float()            # (B, qc, K, rep, D)
+        q_lo = iq * qc + q_offset
+        m = torch.full((b, kh, rep, qc), NEG_INF, **f32)
+        l = torch.zeros((b, kh, rep, qc), **f32)
+        acc = torch.zeros((b, kh, rep, qc, d), **f32)
+        for jk in range(nk):
+            k_lo = jk * kc
+            if not _chunk_needed(q_lo, k_lo, qc, kc, causal, window):
+                continue
+            s = torch.einsum("bqkrd,bskd->bkrqs", q_blk, kr[:, jk].float())
+            mask = _block_mask(qc, kc, q_lo, k_lo, causal, window, q.device)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkrqs,bskd->bkrqd", p.to(v.dtype).float(),
+                              vr[:, jk].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / l.clamp(min=1e-30)[..., None]     # (B, K, rep, qc, D)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, d)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token attention over a cache.  q: (B, 1, H, D); caches: (B,
+    S_cache, K, D); ``pos`` is the absolute position of the new token,
+    already written.  With ``window`` > 0 the cache is a ring buffer (slot
+    t % S_cache holds token t) and the slots of the last S_cache tokens are
+    valid; otherwise slots [0, pos]."""
+    b, _, h, d = q.shape
+    _, sc, kh, _ = k_cache.shape
+    rep = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qr = (q.reshape(b, kh, rep, d) * scale).float()
+    s = torch.einsum("bkrd,bskd->bkrs", qr, k_cache.float())
+    slot = torch.arange(sc, device=q.device)
+    if window > 0:
+        tok_age = torch.remainder(pos - slot, sc)       # 0 = current token
+        valid = tok_age < min(pos + 1, sc)
+    else:
+        valid = slot <= pos
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkrs,bskd->bkrd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP; every product in x's dtype."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

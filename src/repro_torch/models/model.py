@@ -1,0 +1,79 @@
+"""Model facade of the port: embedding, the decoder stack, the head,
+prefill and decode (the reference's ``models/model.py``, serving side;
+``loss_fn`` is training, ROADMAP item A14c).
+
+Batch contract: ``{"tokens": (B, S) integer}`` and, for the frontend
+families, ``"frontend": (B, P, d)`` precomputed embeddings that precede
+the tokens.  ``params`` is the ``transformer.Transformer`` module of
+``init_params`` or ``transformer.params_from_jax``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import frontends, transformer
+from .layers import rms_norm
+
+
+class Model:
+    def __init__(self, cfg):
+        transformer.check_family(cfg)
+        self.cfg = cfg
+
+    # -- params ------------------------------------------------------------
+    def init_params(self, generator: torch.Generator, device="cuda"):
+        return transformer.init(self.cfg, generator, device)
+
+    # -- embedding / head ----------------------------------------------------
+    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params.embed[tokens.long()]
+
+    def _embed_batch(self, params, batch) -> Tuple[torch.Tensor, int]:
+        """→ (embeds (B, S_total, d), start of the token region)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        if cfg.frontend == "none":
+            return x, 0
+        pre = frontends.apply_frontend(cfg, params, batch["frontend"])
+        return torch.cat([pre, x], dim=1), cfg.frontend_tokens
+
+    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        """(B, S, d) → (B, S, V) in ``cfg.dtype`` (callers cast to
+        float32, as the reference does)."""
+        h = rms_norm(hidden, params.final_norm)
+        if self.cfg.tie_embeddings:
+            return h @ params.embed.t()
+        return h @ params.lm_head
+
+    # -- serving -----------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, params, batch, *, max_len: Optional[int] = None):
+        """Forward + cache build → (cache, last_logits (B, V) float32,
+        next_pos).  ``max_len``: the tokens the cache must hold (prefill +
+        generated); by default the prefill's length."""
+        from ..serve import kv_cache
+        cfg = self.cfg
+        x, _ = self._embed_batch(params, batch)
+        s = x.shape[1]
+        h, _, cache = transformer.forward(cfg, params, x, _positions(x),
+                                          want_cache=True)
+        if max_len is not None and max_len > s:
+            cache = kv_cache.pad_cache(cfg, cache, max_len)
+        last = self.logits(params, h[:, -1:])[:, 0]
+        return cache, last.float(), s
+
+    @torch.no_grad()
+    def decode(self, params, cache, token: torch.Tensor, pos: int):
+        """One decode step.  token: (B,) integer; ``pos``: the position
+        being written.  → (logits (B, V) float32, cache updated in
+        place)."""
+        x = self._embed_tokens(params, token[:, None])
+        h, cache = transformer.decode_step(self.cfg, params, x, cache, pos)
+        return self.logits(params, h)[:, 0].float(), cache
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)

@@ -533,17 +533,6 @@ def test_serve_d3_dryrun_cpu_equals_d1(mode):
             np.testing.assert_array_equal(a, b)
 
 
-def test_serve_join_d3_exits_naming_a9():
-    with pytest.raises(SystemExit, match="A9"):
-        serve.main(["--mode", "join", "--layout", "d3", "--dryrun",
-                    "--device", "cpu"])
-    tree = trtree.build_rtree(uniform_rects(np.random.default_rng(1), 300),
-                              fanout=16, sort_key="lx", device="cpu")
-    from repro_torch.core import join_vector
-    with pytest.raises(NotImplementedError, match="A9"):
-        join_vector.make_join_bfs(tree, tree, layout="d3")
-
-
 def test_cuda_backend_on_cpu_tensors_raises_for_d3(inst):
     """All four D3 stages, through ``ops`` and through the wrappers, raise
     on CPU tensors when the kernels are asked for; 'auto' takes the twins

@@ -5,7 +5,7 @@ The reference runs its mesh programs on a 1-device CPU mesh
 (``jax.make_mesh((1,), ("model",))``); the port runs its packed forest on
 the CPU.  At the reference's oracle sizes (n = 4,000, fanout 16, 4
 partitions, batch 6, k = 8), for select, join, kNN, kNN-join and filtered
-kNN on D1 and (but the join) D3: the port's mesh program equals the
+kNN on D1 and D3: the port's mesh program equals the
 reference's (ids, counts, distance bits, overflow, every ``Counters`` field
 but ``dispatches``), equals the port's host path, and does not change
 under a partition permutation.  Also: O(levels) dispatches at 2 and 4
@@ -98,8 +98,7 @@ def _assert_same_public(op, a, b, ctx):
 
 
 CELLS = [(op, layout) for layout in ("d1", "d3")
-         for op in ("select", "join", "knn", "knn_join", "knn_filtered")
-         if not (op == "join" and layout == "d3")]
+         for op in ("select", "join", "knn", "knn_join", "knn_filtered")]
 
 
 @pytest.mark.parametrize("op,layout", CELLS)
@@ -272,10 +271,13 @@ def test_mesh_join_row_blocks_change_nothing():
     _assert_same(c1, c0, "counts")
     assert int(c0.sum()) > 0
     _assert_counters(k1, k0, "row blocks")
-    # the D3 join is A9b's, on the mesh path as on the host path
+    # the D3 mesh join (dequantized boxes, the exact rects at the leaf)
+    # answers the D1 mesh join's pairs
     d3 = _port_fleet(inst["rects"], PARTS, "d3")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        d3.join(inst["probe"], result_cap=inst["cap"])
+    got = d3.join(inst["probe"], result_cap=inst["cap"])
+    want = tsh.join(inst["probe"], result_cap=inst["cap"])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] is False
 
 
 # ---------------------------------------------------------------------------

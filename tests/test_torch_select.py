@@ -244,12 +244,6 @@ def test_serve_dryrun_cpu():
         np.testing.assert_array_equal(got, brute_force_select(rects, q))
 
 
-def test_serve_unported_mode_exits():
-    with pytest.raises(SystemExit, match="not ported yet.*A14"):
-        serve.main(["--mode", "lm", "--device", "cpu"])
-    assert serve.NOT_PORTED == {"lm": "A14"}
-
-
 # ---------------------------------------------------------------------------
 # no fallback: a CUDA request never quietly becomes the CPU twin
 # ---------------------------------------------------------------------------
