@@ -216,7 +216,25 @@ Phases, each of which fails the run loudly:
    logits ≡ the same weights' on the CPU within 1e-4 (relative) at every
    step, and the greedy tokens equal;
 33. ``serve.main(["--mode", "lm"])`` on cuda: tok/s; its tokens ≡ the
-   same command's with ``--device cpu``.
+   same command's with ``--device cpu``;
+34.-37. LM: phase 32 for the other families at their published widths:
+   falcon-mamba-7b (Mamba1, 64 layers), zamba2-7b (Mamba2, 81 layers, the
+   shared attention block 13 times), grok-1-314b (MoE, 4 of its 64 layers)
+   and llama4-maverick-400b-a17b (dense and MoE interleaved, 2 of its 48
+   layers); (a) in bfloat16 with phase 32's traffic, the bytes bound
+   counting SSM states read and written; MoE: the published capacity's
+   prefill drops by layer and its prefill ms beside the dropless copy's,
+   the teacher-forced check on the dropless copy with the routing flips
+   counted (each MoE layer's ``moe`` reports its routing to a forward
+   hook), and the bound also for the routed experts' weights only; (b)
+   float32 at the reduced config, card against CPU; (c) float32 with TF32
+   off at full width and the depth that fits (the SSM cells whole, grok-1
+   3 layers, llama4 2), 8 prompts: decode within ``LM_F32_TOL`` of the
+   teacher-forced forward at every position, a quarter of the sequences
+   free of routing flips at least; (d) the SSM cells in bfloat16 at
+   tinyllama's 22 layers, seeds 0 and 3, phase 32's traffic: within
+   ``LM_BF16_TOL`` (their bound at full depth, ``LM_SSM_BF16_TOL``, is
+   wider: bfloat16 over 64 and 81 layers).
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -639,6 +657,32 @@ LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW, LM_F32_TOL = 2, 24, 8, 1e-4
 # 1.580e-02-2.282e-02 on an H100 80GB HBM3 at 700 W by this script's
 # phase 32 (PERF.md § 6), so the bound is about twice the largest
 LM_BF16_TOL = 5e-2
+# phases 34-37: the MoE, SSM and hybrid families at their published widths
+# with phase 32's traffic: (arch, depth, bfloat16 bound, float32 depth).
+# The MoE models are cut in depth to the layers given (633 GB and 789 GB
+# of bfloat16 weights whole), their teacher-forced forward run 16
+# sequences at a time (llama4's dropless one-hot tensors over 64 × 47
+# tokens would not fit beside its weights).  The SSM cells' bound is about
+# twice the largest error measured on an H100 80GB HBM3 at 700 W by these
+# phases (7.484e-02 over falcon-mamba's 64 layers, 6.250e-02 over
+# zamba2's 81; PERF.md § 6): bfloat16's rounding over their depth, since
+# the same widths and depth in float32 hold decode to the forward within
+# LM_F32_TOL (c), and the same widths at tinyllama's 22 layers in
+# bfloat16 within LM_BF16_TOL for two seeds (d; 3.381e-02-3.674e-02 there)
+LM_SSM_BF16_TOL = 0.15
+LM_FAMILY_CELLS = (("falcon-mamba-7b", None, LM_SSM_BF16_TOL, None),
+                   ("zamba2-7b", None, LM_SSM_BF16_TOL, None),
+                   ("grok-1-314b", 4, LM_BF16_TOL, 3),
+                   ("llama4-maverick-400b-a17b", 2, LM_BF16_TOL, 2))
+LM_MOE_TF_CHUNK = 16
+# (c): float32 at the cell's widths and at the depth whose float32 weights
+# fit on the card (the SSM cells whole, grok-1 3 layers in 61 GiB, llama4
+# its 2 in 69 GiB), 8 prompts, the forward 2 sequences at a time; a
+# quarter of the sequences must stay free of routing flips at every
+# position
+LM_F32_DEPTH_BATCH, LM_F32_TF_CHUNK = 8, 2
+# (d): the SSM cells in bfloat16 at tinyllama-1.1b's depth, two seeds
+LM_WITNESS_DEPTH, LM_WITNESS_SEEDS = 22, (SEED, SEED + 3)
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -3499,6 +3543,112 @@ def lm_steps(torch, model, params, batch, n_new, feed=None):
     return torch.stack(toks, dim=1), torch.stack(logits, dim=1)
 
 
+def teacher_forced(torch, model, params, tokens, prompt, chunk):
+    """The full forward's logits (B, S - prompt + 1, V) float32 at the
+    positions from ``prompt - 1`` on, ``chunk`` sequences at a time (each
+    sequence's logits depend on it alone: the MoE runs dropless here)."""
+    from repro_torch.models import transformer
+    out = []
+    with torch.no_grad():
+        for b0 in range(0, tokens.shape[0], chunk):
+            x, _ = model._embed_batch(params,
+                                      {"tokens": tokens[b0:b0 + chunk]})
+            pos = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=x.device).expand(x.shape[0], -1)
+            h, _, _ = transformer.forward(model.cfg, params, x, pos)
+            out.append(model.logits(params, h[:, prompt - 1:]).float())
+    return torch.cat(out)
+
+
+def moe_routes(torch, params):
+    """Forward hooks on each MoE layer's ``moe``: the experts ``moe_ffn``
+    routed each token to → ({layer: [(T, k) sorted expert ids, a call
+    each]}, remove)."""
+    from repro_torch.models.transformer import MoEBlock
+    routes = {}
+    hooks = [blk.moe.register_forward_hook(
+        lambda m, a, out, li=li: routes.setdefault(li, []).append(
+            out[1].gate_idx.sort(dim=-1).values))
+        for li, blk in enumerate(params.blocks) if isinstance(blk, MoEBlock)]
+
+    def remove():
+        for h in hooks:
+            h.remove()
+
+    return routes, remove
+
+
+def teacher_forced_check(torch, model, params, batch, n_new, tol, chunk,
+                         min_keep, what):
+    """Greedy decode's logits against a teacher-forced full forward over
+    the same tokens (``chunk`` sequences at a time) at each new position:
+    every logit finite, the relative error within ``tol``.  MoE: a token
+    whose experts differ between decode and forward in some layer is a
+    routing flip, and a position is held only in the sequences that have
+    not flipped at it or before it (a flipped token's K and V reach the
+    later positions); at least ``min_keep`` sequences must stay at every
+    position.  → the largest error held."""
+    b, prompt = batch["tokens"].shape
+    k = model.cfg.top_k
+    routes, remove = moe_routes(torch, params)
+    toks, logits = lm_steps(torch, model, params, batch, n_new)
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    dec = {li: torch.cat([r.reshape(b, -1, k) for r in rs], dim=1)
+           for li, rs in routes.items()}
+    routes.clear()
+    full = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
+    ref = teacher_forced(torch, model, params, full, prompt, chunk)
+    remove()
+    keep, flips = torch.ones_like(toks, dtype=torch.bool), ""
+    if dec:
+        s = full.shape[1]
+        flip = torch.stack([(dec[li] != torch.cat(
+            [r.reshape(-1, s, k) for r in rs])).any(dim=-1)
+            for li, rs in routes.items()])               # (layers, B, S)
+        after = flip.any(dim=0).cumsum(dim=1) > 0
+        keep = ~after[:, prompt - 1:]
+        every = max(rel_err(torch, logits[:, i], ref[:, i])
+                    for i in range(n_new))
+        flips = (f"; routing flips (a token whose experts differ between "
+                 f"decode and forward, summed over {len(dec)} MoE layers) "
+                 f"{int(flip.sum())} of {flip.numel()}, in "
+                 f"{int(after.any(dim=1).sum())} of {b} sequences; every "
+                 f"position: {every:.3e}; the bound holds the "
+                 f"{int(keep.sum())} of {keep.numel()} positions before "
+                 f"their sequence's first flip, at least "
+                 f"{int(keep.sum(dim=0).min())} of {b} sequences a position")
+    kept = int(keep.sum(dim=0).min())
+    check(kept >= min_keep, f"{what}: routing flips leave {kept} of {b} "
+          f"sequences at a new position (at least {min_keep})")
+    errs = [rel_err(torch, logits[keep[:, i], i], ref[keep[:, i], i])
+            for i in range(n_new)]
+    same = float((toks == ref.argmax(dim=-1)).float().mean())
+    print(f"  {what}: decode logits against the teacher-forced forward, "
+          f"relative error {min(errs):.3e}-{max(errs):.3e} over {n_new} "
+          f"positions (bound {tol}); argmax agreement {same:.4f}{flips}",
+          flush=True)
+    check(max(errs) <= tol, f"{what}: decode logits differ from the "
+          f"teacher-forced forward by {max(errs):.3e} > {tol}")
+    return max(errs)
+
+
+def cache_traffic(cache):
+    """(bytes read, bytes written) by a decode step of ``cache``: KV caches
+    read whole (one slot written: not counted); SSM states read and
+    written whole."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    if isinstance(cache, dict):
+        kv = nbytes(cache["k"]) + nbytes(cache["v"])
+        states = [t for key in ("mamba", "tail") if cache.get(key) is not None
+                  for t in cache[key]]
+    else:
+        kv, states = 0, list(cache)
+    st = sum(nbytes(t) for t in states)
+    return kv + st, st
+
+
 def device_step(torch, fn, iters: int = 10):
     """(device ms, device items, busy share) per call of ``fn``: every
     device item torch.profiler records over ``iters`` calls, against the
@@ -3528,13 +3678,25 @@ def copy_rate(torch, dev, n_bytes: int = 1 << 30) -> float:
     return 2 * n_bytes / (ms / 1e3)
 
 
-def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol):
-    """Phase 32(a): the LM at ``cfg``'s widths in bfloat16 on the card:
-    weights from the seed, ``generate`` (tok/s, peak MiB), its tokens ≡
-    prefill + decode's, every logit finite and within ``tol`` (relative)
-    of a teacher-forced full forward at each new position; prefill ms;
-    a decode step's device ms beside its bytes bound (weights and KV
-    cache read once), its device items and the busy share."""
+def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol,
+                  tf_chunk=None):
+    """Phase 32(a), and 34-37(a): the LM at ``cfg``'s widths in bfloat16
+    on the card: weights from the seed, ``generate`` (tok/s, peak MiB), its
+    tokens ≡ prefill + decode's, every logit finite and within ``tol``
+    (relative) of a teacher-forced full forward at each new position (run
+    ``tf_chunk`` sequences at a time); prefill ms; a decode step's device
+    ms beside its bytes bound (weights read once, KV caches read, SSM
+    states read and written), its device items and the busy share.
+
+    MoE: ``generate`` runs the published capacity, whose prefill drops
+    pairs (its dropped share printed by layer); decode is dropless, so the
+    teacher-forced check runs on a dropless copy of the config, with the
+    tokens whose routed experts differ between decode and forward counted
+    (flips: bf16 near-ties of the router) and the bound held at the
+    positions before their sequence's first flip; the bytes bound is
+    printed for every expert's weights (what the dropless one-hot einsum
+    reads) and for the routed experts' only."""
+    import dataclasses
     from repro_torch.models import transformer
     from repro_torch.models.model import Model
     from repro_torch.serve.serve_step import generate
@@ -3563,22 +3725,34 @@ def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol):
     check(torch.equal(toks, out), "generate's tokens differ from prefill "
           "+ decode's")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    full = {"tokens": torch.cat([batch["tokens"], out[:, :-1]], dim=1)}
-    with torch.no_grad():
-        x, _ = model._embed_batch(params, full)
-        pos = torch.arange(x.shape[1], dtype=torch.int32,
-                           device=dev).expand(x.shape[0], -1)
-        h, _, _ = transformer.forward(cfg, params, x, pos)
-        ref = model.logits(params, h[:, prompt - 1:]).float()
-    errs = [rel_err(torch, logits[:, i], ref[:, i]) for i in range(n_new)]
-    same = float((toks == ref.argmax(dim=-1)).float().mean())
-    print(f"  decode logits against the teacher-forced forward: relative "
-          f"error {min(errs):.3e}-{max(errs):.3e} over {n_new} positions "
-          f"(bound {tol}); argmax agreement {same:.4f}", flush=True)
-    check(max(errs) <= tol, f"bfloat16 decode logits differ "
-          f"from the teacher-forced forward by {max(errs):.3e} > {tol}")
+    del logits
+    moe = cfg.family == "moe"
+    check_model = model
+    if moe:
+        seen = []
+        hooks = [blk.register_forward_hook(
+            lambda m, a, o: seen.append(float(o[3].dropped_frac)))
+            for blk in params.blocks if isinstance(blk, transformer.MoEBlock)]
+        model.prefill(params, batch, max_len=prompt + n_new)
+        for hk in hooks:
+            hk.remove()
+        print(f"  published capacity {cfg.moe_capacity}: the prefill drops "
+              f"{', '.join(f'{d:.4f}' for d in seen)} of its (token, "
+              f"choice) pairs by MoE layer; the teacher-forced check runs a "
+              f"dropless copy (moe_capacity {float(cfg.n_experts)})",
+              flush=True)
+        check_model = Model(dataclasses.replace(
+            cfg, moe_capacity=float(cfg.n_experts)))
+    err = teacher_forced_check(torch, check_model, params, batch, n_new, tol,
+                               tf_chunk or batch_size, 1,
+                               f"{cfg.dtype} {cfg.n_layers} layers")
     prefill_ms = host_ms(lambda: model.prefill(
         params, batch, max_len=prompt + n_new), 5)
+    dropless = ""
+    if moe:
+        dropless = host_ms(lambda: check_model.prefill(
+            params, batch, max_len=prompt + n_new), 5)
+        dropless = f" (the dropless copy's {dropless:.3f} ms)"
     cache, _, p0 = model.prefill(params, batch, max_len=prompt + n_new)
     last = p0 + n_new - 2
 
@@ -3587,25 +3761,66 @@ def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol):
 
     dev_ms, items, busy = device_step(torch, step)
     step_ms = host_ms(step, 20)
-    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    c_read, c_written = cache_traffic(cache)
     read = w_bytes - params.embed.numel() * params.embed.element_size() \
         + batch_size * cfg.d_model * params.embed.element_size()
-    written = batch_size * cfg.vocab * 4
-    bound_ms = (read + kv_bytes + written) / HBM_BYTES_PER_S * 1e3
+    written = batch_size * cfg.vocab * 4 + c_written
+    bound_ms = (read + c_read + written) / HBM_BYTES_PER_S * 1e3
+    routed = ""
+    if moe:
+        routes, remove = moe_routes(torch, params)
+        step()
+        remove()
+        experts = [int(r[0].unique().numel()) for r in routes.values()]
+        blk = next(b for b in params.blocks
+                   if isinstance(b, transformer.MoEBlock))
+        per_expert = 3 * cfg.d_model * cfg.d_ff * blk.w_gate.element_size()
+        unrouted = sum(cfg.n_experts - n for n in experts) * per_expert
+        routed_ms = (read - unrouted + c_read + written) / \
+            HBM_BYTES_PER_S * 1e3
+        routed = (f"; the routed experts' only ({experts} of "
+                  f"{cfg.n_experts} by MoE layer): {routed_ms:.3f} ms")
     rate = copy_rate(torch, dev)
     print(f"  on {smi}: {batch_size} seqs × {n_new} new tokens in "
           f"{gen_s:.3f} s → {batch_size * n_new / gen_s:,.0f} tok/s, peak "
           f"{peak:,.0f} MiB; prefill ({batch_size} × {prompt}) "
-          f"{prefill_ms:.3f} ms; a decode step {step_ms:.3f} ms (host "
-          f"clock), {dev_ms:.3f} ms of device time in {items:.0f} device "
-          f"items, busy {busy:.1%} under the profiler; bytes bound "
-          f"{bound_ms:.3f} ms ({(read + kv_bytes) / 1e9:.3f} GB of weights "
-          f"and KV cache read, {written / 1e6:.1f} MB of logits written, at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the H100 SXM data sheet; a "
-          f"device copy here moves {rate / 1e12:.2f} TB/s)", flush=True)
+          f"{prefill_ms:.3f} ms{dropless}; a decode step {step_ms:.3f} ms "
+          f"(host clock), {dev_ms:.3f} ms of device time in {items:.0f} "
+          f"device items, busy {busy:.1%} under the profiler; bytes bound "
+          f"{bound_ms:.3f} ms ({(read + c_read) / 1e9:.3f} GB of weights "
+          f"and caches read, {written / 1e6:.1f} MB of logits and states "
+          f"written, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, the H100 SXM "
+          f"data sheet; a device copy here moves {rate / 1e12:.2f} TB/s)"
+          f"{routed}", flush=True)
     return dict(tok_s=batch_size * n_new / gen_s, prefill_ms=prefill_ms,
                 step_ms=step_ms, dev_ms=dev_ms, bound_ms=bound_ms, busy=busy,
-                peak=peak, err=max(errs))
+                peak=peak, err=err)
+
+
+def tf32_off(torch) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on for float32 products")
+
+
+def phase_lm_tf(torch, dev, cfg, batch_size, seed, tol, chunk, min_keep):
+    """Phases 34-37(c) and (d): weights and ``batch_size`` prompts from
+    ``seed`` at ``cfg``'s widths, depth and dtype (float32: TF32 off), and
+    the teacher-forced check alone: with (a) it tells bfloat16's rounding
+    over the depth from a fault of the decode path."""
+    from repro_torch.models.model import Model
+    if cfg.dtype == "float32":
+        tf32_off(torch)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    batch = lm_batch(torch, cfg, batch_size, LM_PROMPT, seed, dev)
+    return teacher_forced_check(
+        torch, model, params, batch, LM_NEW, tol, chunk, min_keep,
+        f"{cfg.dtype} {cfg.n_layers} layers, {batch_size} × {LM_PROMPT}, "
+        f"seed {seed}")
 
 
 def phase_lm_f32(torch, dev, cfg, batch_size, prompt, n_new, tol):
@@ -3615,11 +3830,7 @@ def phase_lm_f32(torch, dev, cfg, batch_size, prompt, n_new, tol):
     import dataclasses
     from repro_torch.models import transformer
     from repro_torch.models.model import Model
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    check(not torch.backends.cuda.matmul.allow_tf32 and
-          torch.get_float32_matmul_precision() == "highest",
-          "TF32 is on for float32 products")
+    tf32_off(torch)
     cfg = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg)
     params = model.init_params(
@@ -3648,6 +3859,28 @@ def phase_lm_f32(torch, dev, cfg, batch_size, prompt, n_new, tol):
           "and the card differ")
     print("  greedy tokens equal (the CPU's argmax at every step fed the "
           "card's tokens)", flush=True)
+
+
+def lm_widths(cfg, layers_of: int) -> str:
+    """The widths phases 34-37 print for ``cfg`` (``layers_of``: the
+    published depth)."""
+    depth = f"{cfg.n_layers} of {layers_of} layers" \
+        if cfg.n_layers < layers_of else f"{cfg.n_layers} layers"
+    if cfg.family == "ssm":
+        return (f"{depth}, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+                f"state {cfg.ssm_state}, conv {cfg.conv_width}, vocab "
+                f"{cfg.vocab}")
+    if cfg.family == "hybrid":
+        units, tail = divmod(cfg.n_layers, cfg.attn_every)
+        return (f"{depth} of Mamba2 in {units} units of {cfg.attn_every} "
+                f"and a tail of {tail}, d_model {cfg.d_model}, "
+                f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}; the shared block {cfg.n_heads} heads, "
+                f"d_ff {cfg.d_ff}, {units} applications; vocab {cfg.vocab}")
+    return (f"{depth}, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+            f"{cfg.n_kv} KV heads, {cfg.n_experts} experts of d_ff "
+            f"{cfg.d_ff}, top-{cfg.top_k}, MoE every {cfg.moe_every}, vocab "
+            f"{cfg.vocab}")
 
 
 def phase_lm_serve(serve):
@@ -3979,6 +4212,38 @@ def main() -> None:
     phase_lm_serve(serve)
     print(f"  phase 33: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
+
+    import dataclasses
+    for n, (arch, depth, tol, f32_depth) in enumerate(LM_FAMILY_CELLS,
+                                                      start=34):
+        full = registry.get(arch)
+        cfg = dataclasses.replace(full, n_layers=depth or full.n_layers)
+        t0 = time.time()
+        print(f"[{n}] {arch} at its published widths "
+              f"({lm_widths(cfg, full.n_layers)}), weights from seed {SEED}",
+              flush=True)
+        phase_lm_bf16(torch, dev, cfg, LM_BATCH, LM_PROMPT, LM_NEW, tol,
+                      tf_chunk=LM_MOE_TF_CHUNK
+                      if cfg.family == "moe" else None)
+        torch.cuda.empty_cache()
+        phase_lm_f32(torch, dev, registry.reduced_config(full),
+                     LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW, LM_F32_TOL)
+        torch.cuda.empty_cache()
+        moe = cfg.family == "moe"
+        phase_lm_tf(torch, dev, dataclasses.replace(
+            cfg, dtype="float32", n_layers=f32_depth or cfg.n_layers,
+            moe_capacity=float(cfg.n_experts) if moe else cfg.moe_capacity),
+            LM_F32_DEPTH_BATCH, SEED + 2, LM_F32_TOL, LM_F32_TF_CHUNK,
+            LM_F32_DEPTH_BATCH // 4)
+        torch.cuda.empty_cache()
+        if not moe:
+            for seed in LM_WITNESS_SEEDS:
+                phase_lm_tf(torch, dev, dataclasses.replace(
+                    cfg, n_layers=LM_WITNESS_DEPTH), LM_BATCH, seed,
+                    LM_BF16_TOL, LM_BATCH, 1)
+                torch.cuda.empty_cache()
+        print(f"  phase {n}: {time.time() - t0:.1f} s on {name} ({smi})",
+              flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which

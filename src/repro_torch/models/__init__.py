@@ -1,2 +1,3 @@
-"""The LM stack of the port (serving of the attention families): layers,
-frontend stubs, the decoder stack and the model facade."""
+"""The LM stack of the port (serving of every family: attention, MoE, SSM,
+hybrid): layers, the SSM mixers, the MoE FFN, frontend stubs, the decoder
+stack and the model facade."""

@@ -1,6 +1,7 @@
 """Core transformer layers of the port, forward only: RMSNorm, RoPE,
 chunked flash attention (prefill), decode attention over a KV cache (full
-or sliding-window ring buffer), SwiGLU MLP.
+or sliding-window ring buffer), SwiGLU MLP, and the SSMs' depthwise causal
+conv.
 
 The reference's ``models/layers.py`` in PyTorch ops, with its arithmetic:
 scores and the online-softmax state in float32, ``p`` cast to v's dtype
@@ -15,7 +16,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -154,7 +154,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x · sigmoid(x) in the reference's form, x · 1/(1 + exp(-x)), each op
+    rounded to x's dtype: in bfloat16 it equals ``jax.nn.silu`` bit for
+    bit on the CPU, where ``F.silu`` (one rounding) differs in ~40% of
+    outputs."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP; every product in x's dtype."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over the sequence.  x: (B, S, C); w: (W, C);
+    b: (C,).  ``state`` (B, W-1, C), the inputs before x, is prepended
+    (decode), else zeros.  → (y (B, S, C), new state: the last W-1
+    inputs).  The shifted products are summed from 0 in x's dtype and the
+    bias added last, as the reference sums them."""
+    width, s = w.shape[0], x.shape[1]
+    pad = x.new_zeros((x.shape[0], width - 1) + x.shape[2:]) \
+        if state is None else state
+    xp = torch.cat([pad, x], dim=1)                     # (B, S+W-1, C)
+    y = sum(xp[:, i:i + s] * w[i] for i in range(width))
+    return y + b, xp[:, s:].contiguous()

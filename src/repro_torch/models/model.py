@@ -1,6 +1,7 @@
 """Model facade of the port: embedding, the decoder stack, the head,
-prefill and decode (the reference's ``models/model.py``, serving side;
-``loss_fn`` is training, ROADMAP item A14c).
+prefill and decode for every family of the registry (the reference's
+``models/model.py``, serving side; ``loss_fn`` is training, ROADMAP item
+A14c).
 
 Batch contract: ``{"tokens": (B, S) integer}`` and, for the frontend
 families, ``"frontend": (B, P, d)`` precomputed embeddings that precede

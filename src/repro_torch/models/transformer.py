@@ -1,17 +1,26 @@
-"""Decoder stack of the port for the attention families (dense, audio,
-vlm): the reference's ``models/transformer.py`` with an ``nn.Module`` per
-block in an ``nn.ModuleList`` where the reference stacks the layers'
-parameters under one ``lax.scan``.
+"""Decoder stack of the port over the registry's families: the
+reference's ``models/transformer.py`` with an ``nn.Module`` a layer in a
+flat ``nn.ModuleList``, in layer order, where the reference stacks the
+layers' parameters under ``lax.scan``s over layers or units:
+
+  dense / audio / vlm  — ``Block`` (attention + SwiGLU) × n_layers
+  moe, moe_every = 1   — ``MoEBlock`` (attention + MoE FFN) × n_layers
+  moe, moe_every = 2   — (``Block``, ``MoEBlock``) × n_layers/2 (llama4)
+  ssm                  — ``Mamba1Layer`` × n_layers (falcon-mamba)
+  hybrid               — ``Mamba2Layer`` × n_layers (zamba2): after each
+                         unit of ``attn_every`` of them the ONE shared
+                         ``Block`` (``shared_attn``), then the
+                         n_layers % attn_every tail layers
 
 Parameters keep the reference's orientation (``x @ w``, (in, out)), so a
 reference parameter tree maps onto the modules one array for one
-parameter (``params_from_jax``).  The MoE, SSM and hybrid families are
-ROADMAP item A14b; training (remat, the flash backward) is A14c.
+parameter (``params_from_jax``).  Training (remat, the flash backward) is
+ROADMAP item A14c.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,20 +28,22 @@ from torch import nn
 
 from .layers import (apply_rope, decode_attention, flash_attention, rms_norm,
                      swiglu)
+from .moe import MoEFFN
+from .ssm import Mamba1State, Mamba2State, mamba1_forward, mamba2_forward
 
-# families whose every layer is attention + MLP over a KV cache
-KV_FAMILIES = ("dense", "audio", "vlm")
-# the ROADMAP item of the families this module does not run
-OTHER_FAMILIES_ITEM = "A14b"
+FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
-    """Raise unless the port runs ``cfg``'s family."""
-    if cfg.family not in KV_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            f"item {OTHER_FAMILIES_ITEM}: MoE, SSM and hybrid serving); the "
-            f"port runs {', '.join(KV_FAMILIES)}")
+    """Raise unless ``cfg``'s family and its layer pattern are known."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+    if cfg.family == "moe" and not (
+            cfg.moe_every == 1 or (cfg.moe_every == 2 and
+                                   cfg.n_layers % 2 == 0)):
+        raise ValueError(f"{cfg.name}: moe_every {cfg.moe_every} over "
+                         f"{cfg.n_layers} layers (the reference stacks 1, "
+                         f"or 2 over an even count)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -43,19 +54,47 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One pre-norm attention + SwiGLU block."""
+# a parameter's start, as the reference's ``init`` draws it: N(0, 1/fan_in)
+# for an int, that constant for a float, log(1..N) along the last axis for
+# LOG_ARANGE (Mamba1's A)
+LOG_ARANGE = "log_arange"
+
+
+class Layer(nn.Module):
+    """A layer whose parameters ``spec(cfg)`` lists: name → (shape, start,
+    float32?); a parameter that is not float32 has the config's dtype."""
+
+    @staticmethod
+    def spec(cfg) -> Dict[str, Tuple[tuple, object, bool]]:
+        raise NotImplementedError
 
     def __init__(self, cfg, dtype: torch.dtype, device):
         super().__init__()
+        for name, (shape, _, f32) in self.spec(cfg).items():
+            setattr(self, name, _frozen(torch.zeros(
+                shape, dtype=torch.float32 if f32 else dtype, device=device)))
+
+
+def _attn_spec(cfg):
+    d, qd, kvd = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+    return dict(ln1=((d,), 0.0, False), ln2=((d,), 0.0, False),
+                wq=((d, qd), d, False), wk=((d, kvd), d, False),
+                wv=((d, kvd), d, False), wo=((qd, d), qd, False))
+
+
+class Block(Layer):
+    """One pre-norm attention + SwiGLU block."""
+
+    @staticmethod
+    def spec(cfg):
         d, f = cfg.d_model, cfg.d_ff
-        qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
-        shapes = dict(ln1=(d,), ln2=(d,), wq=(d, qd), wk=(d, kvd),
-                      wv=(d, kvd), wo=(qd, d), w_gate=(d, f), w_up=(d, f),
-                      w_down=(f, d))
-        for name, shape in shapes.items():
-            setattr(self, name, _frozen(torch.zeros(shape, dtype=dtype,
-                                                    device=device)))
+        return dict(_attn_spec(cfg), w_gate=((d, f), d, False),
+                    w_up=((d, f), d, False), w_down=((f, d), f, False))
+
+    def ffn(self, h, cfg, capacity):
+        """The channel mixer on the normed stream → (out, MoEMetrics or
+        None)."""
+        return swiglu(h, self.w_gate, self.w_up, self.w_down), None
 
     def attention(self, x, positions, cfg):
         """→ (out (B, S, d), k (B, S, K, hd), v)."""
@@ -70,11 +109,12 @@ class Block(nn.Module):
         return o.reshape(b, s, h * hd) @ self.wo, k, v
 
     def forward(self, x, positions, cfg):
+        """→ (x, k, v, MoEMetrics or None); the MoE FFN at the config's
+        capacity (prefill)."""
         a, k, v = self.attention(rms_norm(x, self.ln1), positions, cfg)
         x = x + a
-        x = x + swiglu(rms_norm(x, self.ln2), self.w_gate, self.w_up,
-                       self.w_down)
-        return x, k, v
+        y, metrics = self.ffn(rms_norm(x, self.ln2), cfg, cfg.moe_capacity)
+        return x + y, k, v, metrics
 
     def attend_decode(self, x, cache_k, cache_v, pos: int, cfg):
         """x: (B, 1, d); cache_k/v: (B, Sc, K, hd), written in place at the
@@ -101,19 +141,110 @@ class Block(nn.Module):
         return o.reshape(b, 1, h * hd) @ self.wo
 
     def decode(self, x, cache_k, cache_v, pos: int, cfg):
+        """The MoE FFN dropless (decode)."""
         x = x + self.attend_decode(rms_norm(x, self.ln1), cache_k, cache_v,
                                    pos, cfg)
-        return x + swiglu(rms_norm(x, self.ln2), self.w_gate, self.w_up,
-                          self.w_down)
+        y, _ = self.ffn(rms_norm(x, self.ln2), cfg, None)
+        return x + y
+
+
+class MoEBlock(Block):
+    """Attention + the MoE FFN: a float32 router and E SwiGLU experts."""
+
+    @staticmethod
+    def spec(cfg):
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        return dict(_attn_spec(cfg), router=((d, e), d, True),
+                    w_gate=((e, d, f), d, False),
+                    w_up=((e, d, f), d, False),
+                    w_down=((e, f, d), f, False))
+
+    def __init__(self, cfg, dtype: torch.dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.moe = MoEFFN()
+
+    def ffn(self, h, cfg, capacity):
+        b, s, d = h.shape
+        y, metrics = self.moe(h.reshape(b * s, d), self.router, self.w_gate,
+                              self.w_up, self.w_down, top_k=cfg.top_k,
+                              capacity_factor=capacity,
+                              n_groups=cfg.moe_groups)
+        return y.reshape(b, s, d), metrics
+
+
+class Mamba1Layer(Layer):
+    """A pre-norm Mamba1 mixer with its residual (falcon-mamba)."""
+
+    @staticmethod
+    def spec(cfg):
+        d, di, n, r, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.dt_rank, cfg.conv_width)
+        return dict(ln=((d,), 0.0, False),
+                    in_proj=((d, 2 * di), d, False),
+                    conv_w=((w, di), w, False), conv_b=((di,), 0.0, False),
+                    x_proj=((di, r + 2 * n), di, False),
+                    dt_proj=((r, di), r, False),
+                    dt_bias=((di,), -4.6, False),        # softplus⁻¹(0.01)
+                    a_log=((di, n), LOG_ARANGE, True),
+                    d_skip=((di,), 1.0, False),
+                    out_proj=((di, d), di, False))
+
+    def forward(self, x, cfg, state: Optional[Mamba1State] = None,
+                chunk: int = 256):
+        """→ (x, Mamba1State); decode: ``state`` and ``chunk=1``."""
+        y, state = mamba1_forward(self, rms_norm(x, self.ln),
+                                  d_inner=cfg.d_inner, n_state=cfg.ssm_state,
+                                  dt_rank=cfg.dt_rank, state=state,
+                                  chunk=chunk)
+        return x + y, state
+
+
+class Mamba2Layer(Layer):
+    """A pre-norm Mamba2 (SSD) mixer with its residual (zamba2)."""
+
+    @staticmethod
+    def spec(cfg):
+        d, di, n, h, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.ssm_heads, cfg.conv_width)
+        return dict(ln=((d,), 0.0, False),
+                    in_proj=((d, 2 * di + 2 * n + h), d, False),
+                    conv_w=((w, di + 2 * n), w, False),
+                    conv_b=((di + 2 * n,), 0.0, False),
+                    dt_bias=((h,), -4.6, False),
+                    a_log=((h,), 0.0, True),
+                    d_skip=((h,), 1.0, False),
+                    norm_w=((di,), 0.0, False),
+                    out_proj=((di, d), di, False))
+
+    def forward(self, x, cfg, state: Optional[Mamba2State] = None,
+                chunk: int = 128):
+        y, state = mamba2_forward(self, rms_norm(x, self.ln),
+                                  d_inner=cfg.d_inner, n_state=cfg.ssm_state,
+                                  n_heads=cfg.ssm_heads,
+                                  head_dim=cfg.ssm_head_dim, state=state,
+                                  chunk=chunk)
+        return x + y, state
+
+
+def layer_classes(cfg) -> List[type]:
+    """The class of each layer, in layer order."""
+    check_family(cfg)
+    if cfg.family == "ssm":
+        return [Mamba1Layer] * cfg.n_layers
+    if cfg.family == "hybrid":
+        return [Mamba2Layer] * cfg.n_layers
+    if cfg.family == "moe":
+        return [Block, MoEBlock] * (cfg.n_layers // 2) \
+            if cfg.moe_every == 2 else [MoEBlock] * cfg.n_layers
+    return [Block] * cfg.n_layers
 
 
 class Transformer(nn.Module):
-    """Embedding, blocks, final norm, LM head (absent when tied) and the
-    frontend's norm (audio, vlm)."""
+    """Embedding, layers, final norm, LM head (absent when tied), the
+    frontend's norm (audio, vlm) and the hybrid's shared block."""
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
-        check_family(cfg)
         dt = torch_dtype(cfg.dtype)
         d = cfg.d_model
         self.embed = _frozen(torch.zeros((cfg.vocab, d), dtype=dt,
@@ -123,44 +254,96 @@ class Transformer(nn.Module):
             torch.zeros((d, cfg.vocab), dtype=dt, device=device))
         self.frontend_norm = None if cfg.frontend == "none" else _frozen(
             torch.zeros((d,), dtype=dt, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, dt, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(cls(cfg, dt, device)
+                                    for cls in layer_classes(cfg))
+        self.shared_attn = Block(cfg, dt, device) \
+            if cfg.family == "hybrid" else None
+
+    def layers(self) -> List[Layer]:
+        """Every layer module: the stack, then the shared block."""
+        return list(self.blocks) + ([self.shared_attn]
+                                    if self.shared_attn is not None else [])
 
 
-# weights drawn from N(0, 1/fan_in); norms start at zero (scale 1 + w)
-_FAN_IN = dict(wq="d", wk="d", wv="d", wo="qd", w_gate="d", w_up="d",
-               w_down="f")
+def _draw(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """N(0, 1/fan_in) in float32 on the generator's device into ``p``; a
+    3-D (expert) tensor one slice of its leading axis at a time, so the
+    float32 draw never holds a whole (E, d, f) tensor."""
+    if p.dim() == 3:
+        for sl in p:
+            _draw(sl, fan_in, generator)
+        return
+    w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    p.copy_(w.mul_(1.0 / math.sqrt(fan_in)))
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Transformer:
-    """Random weights from ``generator`` on ``device``: each matrix
-    N(0, 1/fan_in) drawn in float32 on the generator's device and cast to
-    ``cfg.dtype``, the norms zero, as the reference's ``init`` (whose
-    draws, from JAX's generator, differ).  A CPU generator gives every
-    device the same model."""
+    """Random weights from ``generator`` on ``device`` with the reference's
+    starts (``init``): each matrix N(0, 1/fan_in) drawn in float32 on the
+    generator's device and cast to its dtype, norms and biases zero, the
+    SSMs' constants.  The reference's draws, from JAX's generator, differ.
+    A CPU generator gives every device the same model."""
     net = Transformer(cfg, device)
-    fan = dict(d=cfg.d_model, qd=cfg.n_heads * cfg.hd, f=cfg.d_ff)
-
-    def fill(p: nn.Parameter, fan_in: int) -> None:
-        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        p.copy_(w * (1.0 / math.sqrt(fan_in)))
-
     with torch.no_grad():
-        fill(net.embed, cfg.d_model)
+        _draw(net.embed, cfg.d_model, generator)
         if net.lm_head is not None:
-            fill(net.lm_head, cfg.d_model)
-        for blk in net.blocks:
-            for name, key in _FAN_IN.items():
-                fill(getattr(blk, name), fan[key])
+            _draw(net.lm_head, cfg.d_model, generator)
+        for layer in net.layers():
+            for name, (_, start, _) in layer.spec(cfg).items():
+                p = getattr(layer, name)
+                if start == LOG_ARANGE:
+                    p.copy_(torch.log(torch.arange(
+                        1, p.shape[-1] + 1, dtype=torch.float32)).expand(
+                        p.shape))
+                elif isinstance(start, int):
+                    _draw(p, start, generator)
+                else:
+                    p.fill_(start)
     return net
+
+
+def _ref_layers(cfg, params: Mapping) -> List[Dict[str, object]]:
+    """The reference tree's arrays of each layer, in layer order, by the
+    port's parameter names (the shared block last)."""
+    def flat(tree, idx):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                out.update(flat(val, idx))
+            else:
+                out[key] = val[idx] if idx is not None else val
+        return out
+
+    blocks, fam = params["blocks"], cfg.family
+    if fam == "moe" and cfg.moe_every == 2:
+        out = []
+        for u in range(cfg.n_layers // 2):
+            out.append(flat({"ln1": blocks["ln1"], "ln2": blocks["ln2"],
+                             "attn": blocks["attn1"], "mlp": blocks["mlp"]},
+                            u))
+            out.append(flat({"ln1": blocks["ln3"], "ln2": blocks["ln4"],
+                             "attn": blocks["attn2"], "moe": blocks["moe"]},
+                            u))
+        return out
+    if fam == "hybrid":
+        period = cfg.attn_every
+        out = [flat(blocks, (u, j))
+               for u in range(cfg.n_layers // period)
+               for j in range(period)]
+        if "tail" in params:
+            out += [flat(params["tail"], r)
+                    for r in range(cfg.n_layers % period)]
+        return out + [flat(params["shared_attn"], None)]
+    return [flat(blocks, li) for li in range(cfg.n_layers)]
 
 
 def params_from_jax(cfg, params: Mapping, device="cuda") -> Transformer:
     """The reference's parameter tree (``transformer.init``'s, leaves as
-    numpy arrays) as the port's modules: the stacked layer axis unstacked
-    into blocks; ``lm_head`` absent when the embeddings are tied;
-    ``frontend_norm`` where the config has a frontend."""
+    numpy arrays) as the port's modules: the stacked layer (or unit) axes
+    unstacked into layers; ``lm_head`` absent when the embeddings are
+    tied; ``frontend_norm`` where the config has a frontend; the hybrid's
+    shared block.  Every leaf of the tree lands in one parameter."""
     net = Transformer(cfg, device)
 
     def put(p: nn.Parameter, a) -> None:
@@ -181,31 +364,81 @@ def params_from_jax(cfg, params: Mapping, device="cuda") -> Transformer:
             put(net.lm_head, params["lm_head"])
         if net.frontend_norm is not None:
             put(net.frontend_norm, params["frontend_norm"])
-        blocks = params["blocks"]
-        for li, blk in enumerate(net.blocks):
-            put(blk.ln1, blocks["ln1"][li])
-            put(blk.ln2, blocks["ln2"][li])
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(blk, name), blocks["attn"][name][li])
-            for name in ("w_gate", "w_up", "w_down"):
-                put(getattr(blk, name), blocks["mlp"][name][li])
+        layers = net.layers()
+        arrays = _ref_layers(cfg, params)
+        if len(arrays) != len(layers):
+            raise ValueError(f"{len(arrays)} layers in the tree for "
+                             f"{len(layers)}")
+        for layer, arrs in zip(layers, arrays):
+            names = {name for name, _ in layer.named_parameters()}
+            if set(arrs) != names:
+                raise ValueError(f"tree names {sorted(arrs)} for the "
+                                 f"parameters {sorted(names)}")
+            for name, a in arrs.items():
+                put(getattr(layer, name), a)
     return net
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _stack_states(states, cls, lead: Tuple[int, ...]):
+    """Per-layer states → one state stacked along ``lead`` axes."""
+    return cls(*(torch.stack(parts).reshape(lead + parts[0].shape)
+                 for parts in zip(*states)))
 
 
 def forward(cfg, params: Transformer, embeds: torch.Tensor,
             positions: torch.Tensor, *, want_cache: bool = False):
-    """Run the blocks on (B, S, d) embeddings → (hidden (B, S, d), aux
-    loss (0 here: no MoE), cache or None).  The cache is ``{"k", "v"}``,
-    each stacked (L, B, S, K, hd) (SWA: the last ``window`` positions at
-    their ring slots), as ``decode_step`` consumes it."""
+    """Run the layers on (B, S, d) embeddings → (hidden (B, S, d), the MoE
+    layers' summed aux loss (float32; 0 without MoE), cache or None).
+
+    The cache is what ``decode_step`` consumes: attention families
+    ``{"k", "v"}``, each stacked (L, B, S, K, hd) (SWA: the last
+    ``window`` positions at their ring slots); ssm a ``Mamba1State``
+    stacked (L, ...); hybrid ``{"mamba": Mamba2State (U, attn_every,
+    ...), "tail": Mamba2State (R, ...) or None, "k", "v": (U, B, S, K,
+    hd)}``, one KV cache for each application of the shared block."""
     x = embeds
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    fam = cfg.family
+    if fam == "ssm":
+        states = []
+        for layer in params.blocks:
+            x, st = layer(x, cfg)
+            states.append(st)
+        cache = _stack_states(states, Mamba1State, (cfg.n_layers,)) \
+            if want_cache else None
+        return x, aux, cache
+    if fam == "hybrid":
+        period = cfg.attn_every
+        units, tail = divmod(cfg.n_layers, period)
+        states, ks, vs = [], [], []
+        for li, layer in enumerate(params.blocks):
+            x, st = layer(x, cfg)
+            states.append(st)
+            if li < units * period and li % period == period - 1:
+                x, k, v, _ = params.shared_attn(x, positions, cfg)
+                ks.append(k)
+                vs.append(v)
+        cache = None
+        if want_cache:
+            cache = _kv_cache_from_layers(ks, vs, cfg)
+            cache["mamba"] = _stack_states(states[:units * period],
+                                           Mamba2State, (units, period))
+            cache["tail"] = _stack_states(states[units * period:],
+                                          Mamba2State, (tail,)) \
+                if tail else None
+        return x, aux, cache
     ks, vs = [], []
     for blk in params.blocks:
-        x, k, v = blk(x, positions, cfg)
+        x, k, v, metrics = blk(x, positions, cfg)
+        if metrics is not None:
+            aux = aux + metrics.aux_loss
         if want_cache:
             ks.append(k)
             vs.append(v)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = _kv_cache_from_layers(ks, vs, cfg) if want_cache else None
     return x, aux, cache
 
@@ -229,13 +462,50 @@ def _kv_cache_from_layers(ks, vs, cfg) -> Dict[str, torch.Tensor]:
             "v": _clip_window(torch.stack(vs), cfg)}
 
 
+# ---------------------------------------------------------------------------
+# Single-token decode
+# ---------------------------------------------------------------------------
+
+def _decode_mamba(layer, x, cfg, state):
+    """One token through ``layer``, its state (views into the cache)
+    updated in place."""
+    x, new = layer(x, cfg, state, chunk=1)
+    for old, upd in zip(state, new):
+        old.copy_(upd)
+    return x
+
+
 def decode_step(cfg, params: Transformer, embeds: torch.Tensor, cache,
                 pos: int):
     """One-token decode.  embeds: (B, 1, d); ``cache`` from ``forward`` (or
-    ``serve.kv_cache.init_cache``), updated in place at ``pos`` (the
-    reference returns a new one).  → (hidden (B, 1, d), cache)."""
+    ``serve.kv_cache.init_cache``), updated in place (the reference
+    returns a new one): the KV caches at ``pos``, the SSM states whole.
+    MoE FFNs run dropless.  → (hidden (B, 1, d), cache)."""
     pos = int(pos)
     x = embeds
+    fam = cfg.family
+    if fam == "ssm":
+        for li, layer in enumerate(params.blocks):
+            x = _decode_mamba(layer, x, cfg, Mamba1State(cache.conv[li],
+                                                         cache.ssm[li]))
+        return x, cache
+    if fam == "hybrid":
+        period = cfg.attn_every
+        units = cfg.n_layers // period
+        mamba, tail = cache["mamba"], cache["tail"]
+        for li, layer in enumerate(params.blocks):
+            u, j = divmod(li, period)
+            if u < units:
+                x = _decode_mamba(layer, x, cfg, Mamba2State(
+                    mamba.conv[u, j], mamba.ssm[u, j]))
+                if j == period - 1:
+                    x = params.shared_attn.decode(x, cache["k"][u],
+                                                  cache["v"][u], pos, cfg)
+            else:
+                r = li - units * period
+                x = _decode_mamba(layer, x, cfg, Mamba2State(
+                    tail.conv[r], tail.ssm[r]))
+        return x, cache
     for li, blk in enumerate(params.blocks):
         x = blk.decode(x, cache["k"][li], cache["v"][li], pos, cfg)
     return x, cache

@@ -1,13 +1,13 @@
-"""KV caches of the port's LM serving: ring buffers bounded at ``window``
-for the SWA archs, as ``transformer.decode_step`` consumes them.  The
-SSM and hybrid states are ROADMAP item A14b; ``cache_specs`` (the dry
-run's shapes without allocation) A14d."""
+"""Decode caches of the port's LM serving, as ``transformer.decode_step``
+consumes them: KV ring buffers (bounded at ``window`` for the SWA archs),
+Mamba1 states (ssm), and the hybrid's Mamba2 states beside one KV cache
+for each application of its shared block.  ``cache_specs`` (the dry run's
+shapes without allocation) is ROADMAP item A14d."""
 from __future__ import annotations
-
-from typing import Dict
 
 import torch
 
+from ..models.ssm import Mamba1State, Mamba2State
 from ..models.transformer import check_family, torch_dtype
 
 
@@ -22,10 +22,13 @@ def _kv_shape(cfg, n: int, batch: int, sc: int):
     return (n, batch, sc, cfg.n_kv, cfg.hd)
 
 
-def pad_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int):
+def pad_cache(cfg, cache, max_len: int):
     """Grow a prefill-built cache so decode can append up to ``max_len``
-    tokens in all: full-attention caches are zero-padded along the
-    sequence; SWA ring buffers, bounded at ``window``, pass through."""
+    tokens in all: full-attention KV caches (the hybrid's too) are
+    zero-padded along the sequence; SWA ring buffers, bounded at
+    ``window``, and SSM states, O(1) in the sequence, pass through."""
+    if not (isinstance(cache, dict) and "k" in cache):
+        return cache
     target = cache_seq_len(cfg, max_len)
 
     def grow(kv):
@@ -40,10 +43,37 @@ def pad_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int):
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
-    """Zero cache for decoding up to ``seq_len`` tokens: {"k", "v"}, each
-    (L, B, S_cache, K, hd)."""
+    """Zero cache for decoding up to ``seq_len`` tokens, the reference's
+    shapes: {"k", "v"} (L, B, S_cache, K, hd); ssm a ``Mamba1State`` (conv
+    (L, B, W-1, d_inner), ssm (L, B, d_inner, N) float32); hybrid
+    {"mamba": Mamba2State (U, attn_every, B, ...), "tail": Mamba2State
+    (R, B, ...) or None, "k", "v" (U, B, S_cache, K, hd)}."""
     check_family(cfg)
     dt = dtype or torch_dtype(cfg.dtype)
-    shape = _kv_shape(cfg, cfg.n_layers, batch, cache_seq_len(cfg, seq_len))
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def zeros(shape, d=dt):
+        return torch.zeros(shape, dtype=d, device=device)
+
+    sc = cache_seq_len(cfg, seq_len)
+    w = cfg.conv_width - 1
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        return Mamba1State(conv=zeros((L, batch, w, cfg.d_inner)),
+                           ssm=zeros((L, batch, cfg.d_inner, cfg.ssm_state),
+                                     torch.float32))
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        units, tail = divmod(cfg.n_layers, period)
+        di_c = cfg.d_inner + 2 * cfg.ssm_state
+        ssm = (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+
+        def states(lead):
+            return Mamba2State(conv=zeros(lead + (batch, w, di_c)),
+                               ssm=zeros(lead + ssm, torch.float32))
+
+        return {"mamba": states((units, period)),
+                "tail": states((tail,)) if tail else None,
+                "k": zeros(_kv_shape(cfg, units, batch, sc)),
+                "v": zeros(_kv_shape(cfg, units, batch, sc))}
+    shape = _kv_shape(cfg, cfg.n_layers, batch, sc)
+    return {"k": zeros(shape), "v": zeros(shape)}

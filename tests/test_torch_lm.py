@@ -11,9 +11,10 @@ same weights (the reference's ``init`` carried over by
 max |ref|): 1e-5 for the layers, 1e-4 for logits (the reference's own
 bound, ``tests/test_models.py``); greedy tokens are equal.  The bfloat16
 forms are held at the layer level, with bounds measured on their inputs.
-Also: all ten configs and their parameter counts, the families the port
-does not run (A14b), the frontend and KV cache helpers, and ``serve
---mode lm --device cpu``.
+Also: all ten configs and their parameter counts, an unknown layer
+pattern, the frontend and KV cache helpers, and ``serve --mode lm
+--device cpu``.  The MoE, SSM and hybrid families: ``test_torch_moe`` and
+``test_torch_ssm``.
 """
 import dataclasses
 import inspect
@@ -27,6 +28,11 @@ import pytest
 import torch
 
 import repro.models.transformer as JT
+from lm_parity import LAYER_TOL, LOGIT_TOL
+from lm_parity import bf16 as _bf16
+from lm_parity import bit_share as _bit_share
+from lm_parity import pair
+from lm_parity import rel as _rel
 from repro.configs import base as jbase
 from repro.configs import registry as jreg
 from repro.models import frontends as jfront
@@ -45,16 +51,7 @@ from repro_torch.serve.serve_step import generate
 
 ATTN_ARCHS = ("tinyllama-1.1b", "internlm2-20b", "h2o-danube-1.8b",
               "h2o-danube-3-4b", "musicgen-large", "paligemma-3b")
-OTHER_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b",
-               "falcon-mamba-7b", "zamba2-7b")
-LAYER_TOL, LOGIT_TOL = 1e-5, 1e-4
 B, PROMPT, NEW = 2, 40, 8        # 40 + 8 > the reduced window of 32
-
-
-def _rel(got, want) -> float:
-    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-30))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,29 +71,10 @@ def built():
 
 
 def _pair(built, arch):
-    """(ref config, port config, ref model, port model, ref params, port
-    params, ref jitted prefill, ref jitted decode, inputs) for ``arch``'s
-    reduced config, built once per arch."""
-    if arch in built:
-        return built[arch]
-    jcfg = jreg.reduced_config(jreg.get(arch))
-    tcfg = treg.reduced_config(treg.get(arch))
-    jm, tm = JModel(jcfg), TModel(tcfg)
-    jp = jm.init_params(jax.random.PRNGKey(0))
-    tp = TT.params_from_jax(tcfg, jax.tree_util.tree_map(np.asarray, jp),
-                            device="cpu")
-    rng = np.random.default_rng(7)
-    toks = rng.integers(0, jcfg.vocab, (B, PROMPT)).astype(np.int32)
-    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
-    if jcfg.frontend != "none":
-        fe = rng.standard_normal((B, jcfg.frontend_tokens, jcfg.d_model),
-                                 dtype=np.float32)
-        jb["frontend"], tb["frontend"] = jnp.asarray(fe), torch.from_numpy(fe)
-    total = PROMPT + (jcfg.frontend_tokens if jcfg.frontend != "none" else 0)
-    prefill = jax.jit(lambda p, b: jm.prefill(p, b, max_len=total + NEW))
-    decode = jax.jit(lambda p, c, t, pos: jm.decode(p, c, t, pos))
-    built[arch] = (jcfg, tcfg, jm, tm, jp, tp, prefill, decode,
-                   (jb, tb, total))
+    """``lm_parity.pair`` for ``arch``'s reduced config, built once per
+    arch."""
+    if arch not in built:
+        built[arch] = pair(arch, B, PROMPT, NEW)
     return built[arch]
 
 
@@ -140,16 +118,6 @@ def test_layers_equal_reference(arch):
                                         jnp.asarray(vc), jnp.int32(p),
                                         window=cfg.window)
         assert _rel(got, want) < LAYER_TOL, p
-
-
-def _bf16(a) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
-
-
-def _bit_share(got, want) -> float:
-    """Share of ``got``'s elements bit-equal to ``want``'s."""
-    want = np.asarray(jnp.asarray(want, jnp.float32))
-    return float((got.float().numpy() == want).mean())
 
 
 def _bf16_pairs(arch):
@@ -352,14 +320,19 @@ def test_configs_equal_reference():
     assert 1.0e9 < cfg.param_count() < 1.2e9
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_other_families_raise_naming_a14b(arch):
-    cfg = treg.reduced_config(treg.get(arch))
-    assert cfg.family in ("moe", "ssm", "hybrid")
-    with pytest.raises(NotImplementedError, match="A14b"):
+@pytest.mark.parametrize("change", (dict(family="rnn"), dict(moe_every=3)))
+def test_unknown_layer_pattern_raises(change):
+    """Every family of the registry runs (``test_torch_ssm``,
+    ``test_torch_moe``); a family the reference does not know, or an MoE
+    interleave its ``init`` does not stack, raises ValueError."""
+    cfg = dataclasses.replace(
+        treg.reduced_config(treg.get("grok-1-314b")), **change)
+    with pytest.raises(ValueError):
         TModel(cfg)
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(ValueError):
         tkv.init_cache(cfg, 2, 16, device="cpu")
+    with pytest.raises(ValueError):
+        TT.Transformer(cfg, device="meta")
 
 
 def test_init_and_kv_cache_helpers():
