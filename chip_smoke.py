@@ -234,7 +234,37 @@ Phases, each of which fails the run loudly:
    free of routing flips at least; (d) the SSM cells in bfloat16 at
    tinyllama's 22 layers, seeds 0 and 3, phase 32's traffic: within
    ``LM_BF16_TOL`` (their bound at full depth, ``LM_SSM_BF16_TOL``, is
-   wider: bfloat16 over 64 and 81 layers).
+   wider: bfloat16 over 64 and 81 layers);
+38. training: tinyllama-1.1b at its published widths in bfloat16 (AdamW,
+   its state float32, no master weights; remat on) at the repo's training
+   sequence length (``train_4k``: 4,096 tokens), 4 sequences a step (the
+   global batch of 256 cut to fit one card and the run), ``TRAIN_STEPS``
+   steps of ``SyntheticLM`` batches: every loss and grad norm finite, the
+   mean loss of the last 5 steps below that of the first 5; tok/s, a
+   step's host ms, device ms (torch.profiler) and busy share, peak MiB,
+   and 6·N·T plus the attention FLOPs as a share of the H100's bf16 dense
+   peak (printed, no claim);
+39. the flash backward at phase 38's shapes (float32 inputs, TF32 off):
+   out, dq, dk, dv against autograd through a dense float32 softmax
+   attention, one sequence at a time, within ``FLASH_F32_TOL``
+   (relative); the backward's ms (CUDA events) in float32, and the
+   forward's and backward's in bfloat16 (what phase 38 runs), beside the
+   dense reference's;
+40. float32 train steps on the card against the same steps on the CPU:
+   the reduced configs of all eight layer patterns (dense, dense with a
+   window, audio, vlm, MoE every layer, MoE every 2, Mamba1, the hybrid),
+   the same weights and ``SyntheticLM`` batches, TF32 off: the first
+   batch's loss and every leaf's grad within ``TRAIN_F32_TOL`` (relative;
+   norm-relative per leaf), then AdamW (eps ``TRAIN_ADAM_EPS``) and
+   Adafactor over 2 microbatches: each step's loss within it, and every
+   leaf's params after the steps (norm-relative);
+41. restarts: in a subprocess with ``CUBLAS_WORKSPACE_CONFIG`` set and
+   deterministic algorithms on, ``run_with_restarts`` on the card
+   (reduced tinyllama in bfloat16, 12 steps, checkpoints every 4,
+   failures before steps 6 and 9) ≡ an uninterrupted run bit for bit
+   (params, optimizer state); then ``launch.train`` on cuda (its
+   default) with ``--ckpt-dir``, and again with ``--resume``, which starts
+   from the latest committed step.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -683,6 +713,34 @@ LM_MOE_TF_CHUNK = 16
 LM_F32_DEPTH_BATCH, LM_F32_TF_CHUNK = 8, 2
 # (d): the SSM cells in bfloat16 at tinyllama-1.1b's depth, two seeds
 LM_WITNESS_DEPTH, LM_WITNESS_SEEDS = 22, (SEED, SEED + 3)
+# phases 38-41: training.  Phase 38: tinyllama-1.1b at its published
+# widths, bfloat16, remat on, at the repo's training sequence length
+# (configs/base.py SHAPES "train_4k", 4,096 tokens) with train_4k's global
+# batch of 256 sequences cut to 4 (16,384 tokens a step): one card's 80 GB
+# and the run's time force it; TRAIN_STEPS steps of ~3.9 s on an H100
+# keep the whole run inside its 1,200 s; AdamW at the reference's
+# defaults but for a warmup of 5 steps
+TRAIN_ARCH, TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS = \
+    "tinyllama-1.1b", "train_4k", 4, 12
+TRAIN_WARMUP = 5
+# the H100 SXM's dense bfloat16 peak (data sheet), for phase 38's share
+BF16_PEAK_FLOPS = 989e12
+# phase 39: the flash backward against a dense float32 softmax attention,
+# relative (max |diff| / max |dense|); phase 40: float32, card against
+# CPU, each step's loss, each leaf's grad and params, norm-relative: the
+# float32 bound of tests/test_torch_train*.  Phase 40's AdamW takes eps
+# TRAIN_ADAM_EPS: at the default 1e-8 its first steps turn float32 noise
+# in a grad near zero into ±lr of either sign (on an H100 80GB HBM3 at
+# 700 W, after 2 steps: zamba2's reduced config 3.1e-4 norm-relative in a
+# leaf, grok-1's 1.5e-3 of its elements more than 1e-5 apart, every grad
+# within 1.7e-6); a larger eps keeps the update continuous there
+FLASH_F32_TOL, TRAIN_F32_TOL, TRAIN_ADAM_EPS = 1e-4, 1e-4, 1e-3
+TRAIN_PATTERN_ARCHS = ("tinyllama-1.1b", "h2o-danube-1.8b", "musicgen-large",
+                       "paligemma-3b", "grok-1-314b",
+                       "llama4-maverick-400b-a17b", "falcon-mamba-7b",
+                       "zamba2-7b")
+# phase 41: failures injected before these steps of a 12-step run
+RESTART_FAIL_AT = (6, 9)
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -3649,15 +3707,17 @@ def cache_traffic(cache):
     return kv + st, st
 
 
-def device_step(torch, fn, iters: int = 10):
+def device_step(torch, fn, iters: int = 10, host_ops: bool = True):
     """(device ms, device items, busy share) per call of ``fn``: every
     device item torch.profiler records over ``iters`` calls, against the
-    host-clock window."""
+    host-clock window.  ``host_ops=False`` records the device alone: a
+    training step's ~300,000 host ops take the profiler tens of seconds
+    to list."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -3895,6 +3955,308 @@ def phase_lm_serve(serve):
     print(f"  serve --mode lm: {out['tok_per_s']:,.0f} tok/s on {smi} "
           f"(CPU {ref_['tok_per_s']:,.0f}); tokens ≡ the CPU's", flush=True)
     return out["tok_per_s"]
+
+
+def train_batch(torch, pipe, step: int, dev):
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def phase_train(torch, dev, cfg, batch_size, seq, steps):
+    """Phase 38: ``steps`` train steps of ``cfg`` (bfloat16, AdamW, remat)
+    on the card from the seed's weights: finite losses and grad norms,
+    the last 5 steps' mean loss below the first 5's; tok/s, host ms a
+    step, device ms and busy share (the last two steps under
+    torch.profiler), peak MiB and the FLOP share."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.train import data, optimizer, train_step
+    smi = smi_line()
+    model = Model(cfg)
+    oc = optimizer.OptConfig(warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, _ = train_step.init_train_state(
+        model, oc, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n_params = transformer.param_count(params)
+    step_fn = train_step.make_train_step(model, oc)
+    pipe = data.SyntheticLM(cfg.vocab, seq, batch_size, seed=SEED)
+    state = {"step": 0, "params": params, "opt": opt_state}
+    losses, norms, secs = [], [], []
+
+    def one_step():
+        b = train_batch(torch, pipe, state["step"], dev)
+        state["params"], state["opt"], _, m = step_fn(
+            state["params"], state["opt"], None, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        state["step"] += 1
+
+    for _ in range(steps - 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    dev_ms, items, busy = device_step(torch, one_step, iters=1,
+                                      host_ops=False)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses}, {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"the loss did not fall: first 5 steps {first:.4f},"
+          f" last 5 {last:.4f}")
+    step_s = float(np.median(secs[2:]))
+    tokens = batch_size * seq
+    flops = (6 * n_params + 12 * cfg.n_layers * cfg.n_heads * cfg.hd *
+             seq) * tokens
+    print(f"  {n_params:,} parameters, {batch_size} × {seq} tokens a step; "
+          f"loss {losses[0]:.4f} → {losses[-1]:.4f} (first 5 steps' mean "
+          f"{first:.4f}, last 5 {last:.4f}), grad norm {norms[0]:.3f} → "
+          f"{norms[-1]:.3f}", flush=True)
+    print(f"  on {smi}: {tokens / step_s:,.0f} tok/s; a step "
+          f"{step_s * 1e3:,.1f} ms host clock (median of steps 3-"
+          f"{steps - 2}; first "
+          f"{secs[0] * 1e3:,.1f} ms), {dev_ms:,.1f} ms of device time in "
+          f"{items:,.0f} device items, busy {busy:.1%} under the profiler; "
+          f"peak {peak:,.0f} MiB; 6·N·T + 12·L·H·hd·S·T = "
+          f"{flops / 1e12:.1f} TFLOP a step, "
+          f"{flops / step_s / BF16_PEAK_FLOPS:.1%} of the "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak", flush=True)
+    del state, params, opt_state
+    return dict(tok_s=tokens / step_s, step_ms=step_s * 1e3, dev_ms=dev_ms,
+                busy=busy, peak=peak)
+
+
+def dense_attention(torch, q, k, v):
+    """Causal softmax attention over whole (S × S) scores, float32: the
+    plain form the flash blocks compute."""
+    rep = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    n = q.shape[1]
+    causal = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def phase_flash_bwd(torch, dev, cfg, batch_size, seq, tol):
+    """Phase 39: the flash forward and backward at phase 38's shapes in
+    float32 (TF32 off) against autograd through ``dense_attention``, one
+    sequence at a time; ms (CUDA events) of the backward (float32;
+    bfloat16 forward and backward) and of the dense reference's."""
+    from repro_torch.models.layers import flash_attention
+    tf32_off(torch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shapes = [(batch_size, seq, n, cfg.hd)
+              for n in (cfg.n_heads, cfg.n_kv, cfg.n_kv, cfg.n_heads)]
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev) for sh in shapes)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = flash_attention(q, k, v, window=cfg.window)
+    got = (out,) + torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    diff, peak = [0.0] * 4, [0.0] * 4
+    for b in range(batch_size):
+        qb, kb, vb = (t[b:b + 1].detach().requires_grad_() for t in (q, k, v))
+        ref_out = dense_attention(torch, qb, kb, vb)
+        want = (ref_out,) + torch.autograd.grad(ref_out, (qb, kb, vb),
+                                                do[b:b + 1])
+        with torch.no_grad():
+            for i, (a, w) in enumerate(zip(got, want)):
+                diff[i] = max(diff[i], float((a[b:b + 1] - w).abs().max()))
+                peak[i] = max(peak[i], float(w.abs().max()))
+        del ref_out, want
+    errs = [d / p for d, p in zip(diff, peak)]
+    names = ("out", "dq", "dk", "dv")
+    print("  float32 flash against dense autograd, relative: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(names, errs)) + f" (bound {tol})",
+        flush=True)
+    check(max(errs) <= tol, f"flash backward: {dict(zip(names, errs))}")
+    bwd32 = cuda_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), do, retain_graph=True), 3)
+    qb, kb, vb = (t[:1].detach().requires_grad_() for t in (q, k, v))
+    ref_out = dense_attention(torch, qb, kb, vb)
+    dense_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref_out, (qb, kb, vb), do[:1], retain_graph=True), 3)
+    del out, got, ref_out
+    q16, k16, v16 = (t.detach().bfloat16().requires_grad_()
+                     for t in (q, k, v))
+    out16 = flash_attention(q16, k16, v16, window=cfg.window)
+    do16 = do.bfloat16()
+    fwd16 = cuda_ms(lambda: flash_attention(
+        q16, k16, v16, window=cfg.window), 3)
+    bwd16 = cuda_ms(lambda: torch.autograd.grad(
+        out16, (q16, k16, v16), do16, retain_graph=True), 3)
+    print(f"  ms (CUDA events) at {batch_size} × {seq}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv} KV heads of {cfg.hd}, one layer: flash backward "
+          f"{bwd32:.1f} (float32), bfloat16 forward {fwd16:.1f} and backward"
+          f" {bwd16:.1f}; dense float32 autograd backward {dense_ms:.1f} for "
+          f"one of the {batch_size} sequences, on {smi_line()}", flush=True)
+    return dict(err=max(errs), bwd32_ms=bwd32, fwd16_ms=fwd16,
+                bwd16_ms=bwd16, dense_ms=dense_ms)
+
+
+def leaf_errors(torch, a_leaves, b_leaves, values=None) -> float:
+    """The largest per-leaf ||a - b|| / ||b|| of two ``leaf_map``s'
+    parameters, or of ``values`` (a pair of per-leaf tensor lists)."""
+    from repro_torch.models import transformer
+    a_vals, b_vals = values or ([la.params for la in a_leaves],
+                                [lb.params for lb in b_leaves])
+    worst = 0.0
+    for la, lb, va, vb in zip(a_leaves, b_leaves, a_vals, b_vals):
+        a = transformer.stack(la, va).detach().double().cpu()
+        b = transformer.stack(lb, vb).detach().double()
+        worst = max(worst, float((a - b).norm() /
+                                 b.norm().clamp(min=1e-300)))
+    return worst
+
+
+def phase_train_f32(torch, dev, archs, tol, steps=2):
+    """Phase 40: each reduced config in float32 on the card and on the CPU
+    from the same weights and batches, TF32 off: the first batch's loss
+    and grads, then ``steps`` steps of AdamW and of Adafactor over 2
+    microbatches."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.train import data, optimizer, train_step
+    tf32_off(torch)
+    for arch in archs:
+        cfg = registry.reduced_config(registry.get(arch))
+        model = Model(cfg)
+        p0 = cfg.frontend_tokens if cfg.frontend != "none" else 0
+        pipe = data.SyntheticLM(cfg.vocab, 32, 4, seed=SEED,
+                                frontend_tokens=p0, d_model=cfg.d_model)
+        t0, line, grads = time.time(), [], []
+        for where in (dev, "cpu"):
+            params = model.init_params(torch.Generator().manual_seed(SEED),
+                                       device=where)
+            leaves = transformer.leaf_map(cfg, params)
+            loss, _ = model.loss_fn(params, train_batch(torch, pipe, 0,
+                                                        where))
+            flat = iter(torch.autograd.grad(
+                loss, [p for leaf in leaves for p in leaf.params]))
+            grads.append((float(loss.detach()), leaves,
+                          [[next(flat) for _ in leaf.params]
+                           for leaf in leaves]))
+        (card_loss, card_leaves, card_g), (host_loss, host_leaves,
+                                           host_g) = grads
+        loss_err = abs(card_loss - host_loss) / abs(host_loss)
+        grad_err = leaf_errors(torch, card_leaves, host_leaves,
+                               (card_g, host_g))
+        check(loss_err <= tol and grad_err <= tol,
+              f"{arch}: card against CPU, loss {loss_err:.3e}, grads "
+              f"{grad_err:.3e} (bound {tol})")
+        line.append(f"loss {loss_err:.2e}, grads {grad_err:.2e}")
+        for kind in ("adamw", "adafactor"):
+            oc = optimizer.OptConfig(kind=kind, lr=1e-2, warmup_steps=1,
+                                     total_steps=10, eps=TRAIN_ADAM_EPS)
+            step_fn = train_step.make_train_step(model, oc, microbatches=2)
+            runs = []
+            for where in (dev, "cpu"):
+                params = model.init_params(
+                    torch.Generator().manual_seed(SEED), device=where)
+                leaves = transformer.leaf_map(cfg, params)
+                opt_state = optimizer.init_opt(oc, leaves)
+                losses = []
+                for s in range(steps):
+                    params, opt_state, _, m = step_fn(
+                        params, opt_state, None,
+                        train_batch(torch, pipe, s, where))
+                    losses.append(float(m["loss"]))
+                runs.append((losses, leaves))
+            (card, card_leaves), (host, host_leaves) = runs
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+            param_err = leaf_errors(torch, card_leaves, host_leaves)
+            check(loss_err <= tol and param_err <= tol,
+                  f"{arch} {kind}: card against CPU, loss {loss_err:.3e}, "
+                  f"params {param_err:.3e} (bound {tol})")
+            line.append(f"{kind} loss {loss_err:.2e}, params "
+                        f"{param_err:.2e}")
+        print(f"  {cfg.name} ({cfg.family}): {'; '.join(line)} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+
+
+def restart_check() -> None:
+    """Phase 41's first half, in its own process (``CUBLAS_WORKSPACE_CONFIG``
+    must be set before cuBLAS starts): under deterministic algorithms, a
+    run interrupted before the steps of ``RESTART_FAIL_AT`` ≡ an
+    uninterrupted one, bit for bit."""
+    import dataclasses
+    import tempfile
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import fault_tolerance
+    from repro_torch.train import data, optimizer, train_step
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(registry.reduced_config(registry.get(
+        TRAIN_ARCH)), dtype="bfloat16")
+    model = Model(cfg)
+    oc = optimizer.OptConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    pipe = data.SyntheticLM(cfg.vocab, 64, 4, seed=SEED + 11)
+    step_fn = train_step.make_train_step(model, oc)
+
+    def init_state():
+        p, o, _ = train_step.init_train_state(
+            model, oc, torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)
+        return {"params": p, "opt": o}
+
+    def one_step(step, state):
+        p, o, _, _ = step_fn(state["params"], state["opt"], None,
+                             train_batch(torch, pipe, step, dev))
+        return {"params": p, "opt": o}
+
+    t0 = time.time()
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for name, fail_at in (("a", RESTART_FAIL_AT), ("b", ())):
+            out.append(fault_tolerance.run_with_restarts(
+                ckpt_dir=os.path.join(d, name), total_steps=12,
+                init_state=init_state, step_fn=one_step, save_every=4,
+                failure_plan=fault_tolerance.FailurePlan(fail_at=fail_at)))
+    (a, restarts), (b, none) = out
+    check((restarts, none) == (2, 0), f"restarts {restarts}, {none}")
+    same = all(torch.equal(x, y) for x, y in zip(
+        a["params"].state_dict().values(), b["params"].state_dict().values()))
+    same = same and all(torch.equal(a["opt"].mu[k], b["opt"].mu[k]) and
+                        torch.equal(a["opt"].nu[k], b["opt"].nu[k])
+                        for k in a["opt"].mu)
+    check(same, "the restarted run differs from the uninterrupted one")
+    print(f"  restart: {cfg.name} in {cfg.dtype} on "
+          f"{torch.cuda.get_device_name(0)}, 12 steps, failures before "
+          f"steps {RESTART_FAIL_AT}: {restarts} restarts, params and AdamW "
+          f"state ≡ the uninterrupted run bit for bit, deterministic "
+          f"algorithms on ({time.time() - t0:.1f} s)", flush=True)
+
+
+def phase_restarts(torch):
+    """Phase 41: ``restart_check`` in a subprocess, then the training CLI
+    on cuda, checkpointed and resumed."""
+    import tempfile
+    from repro_torch.launch import train
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.restart_check()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"restart check: rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--reduced", "--ckpt-dir", d, "--save-every", "10"]
+        first = train.main(argv + ["--steps", "20"])
+        again = train.main(argv + ["--steps", "30", "--resume"])
+    check(first["start_step"] == 0 and again["start_step"] == 20,
+          f"resume: started at {again['start_step']}")
+    check(np.isfinite([first["last_loss"], again["last_loss"]]).all() and
+          first["last_loss"] < first["first_loss"],
+          f"the CLI's losses: {first}, {again}")
+    print(f"  launch.train on cuda: loss {first['first_loss']:.4f} → "
+          f"{first['last_loss']:.4f} in 20 steps; --resume from step "
+          f"{again['start_step']} → {again['last_loss']:.4f} at step 30",
+          flush=True)
 
 
 def main() -> None:
@@ -4244,6 +4606,43 @@ def main() -> None:
                 torch.cuda.empty_cache()
         print(f"  phase {n}: {time.time() - t0:.1f} s on {name} ({smi})",
               flush=True)
+
+    from repro_torch.configs import base
+    seq = base.get_shape(TRAIN_SHAPE).seq_len
+    train_cfg = registry.get(TRAIN_ARCH)
+    t0 = time.time()
+    print(f"[38] training {TRAIN_ARCH} at its published widths "
+          f"({train_cfg.n_layers} layers, d_model {train_cfg.d_model}, "
+          f"{train_cfg.n_heads} heads, {train_cfg.n_kv} KV heads, d_ff "
+          f"{train_cfg.d_ff}, vocab {train_cfg.vocab}), {train_cfg.dtype}, "
+          f"AdamW, remat, {TRAIN_STEPS} steps of {TRAIN_BATCH} × {seq} "
+          f"tokens ({TRAIN_SHAPE}'s length; its batch of "
+          f"{base.get_shape(TRAIN_SHAPE).global_batch} cut to "
+          f"{TRAIN_BATCH}), weights from seed {SEED}", flush=True)
+    phase_train(torch, dev, train_cfg, TRAIN_BATCH, seq, TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    print(f"  phase 38: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print("[39] the flash backward at phase 38's shapes", flush=True)
+    phase_flash_bwd(torch, dev, train_cfg, TRAIN_BATCH, seq, FLASH_F32_TOL)
+    torch.cuda.empty_cache()
+    print(f"  phase 39: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print("[40] float32 train steps, card against CPU, every layer pattern",
+          flush=True)
+    phase_train_f32(torch, dev, TRAIN_PATTERN_ARCHS, TRAIN_F32_TOL)
+    print(f"  phase 40: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
+
+    t0 = time.time()
+    print("[41] restarts and launch.train --resume on cuda", flush=True)
+    phase_restarts(torch)
+    print(f"  phase 41: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which

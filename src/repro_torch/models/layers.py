@@ -1,14 +1,16 @@
-"""Core transformer layers of the port, forward only: RMSNorm, RoPE,
-chunked flash attention (prefill), decode attention over a KV cache (full
-or sliding-window ring buffer), SwiGLU MLP, and the SSMs' depthwise causal
-conv.
+"""Core transformer layers of the port: RMSNorm, RoPE, chunked flash
+attention with its recompute backward (train and prefill), decode
+attention over a KV cache (full or sliding-window ring buffer), SwiGLU
+MLP, and the SSMs' depthwise causal conv.
 
 The reference's ``models/layers.py`` in PyTorch ops, with its arithmetic:
 scores and the online-softmax state in float32, ``p`` cast to v's dtype
 before the PV product, the q-chunk × kv-chunk blocks of ``_pick_chunk``
 and the blocks that the causal mask or the window rule out skipped (here
-a Python ``continue``; the reference's ``lax.cond``).  No library
-attention: the products are ``torch.einsum`` over the same blocks.
+a Python ``continue``; the reference's ``lax.cond``).  The backward is
+the reference's ``custom_vjp`` as a ``torch.autograd.Function``.  No
+library attention: the products are ``torch.einsum`` over the same
+blocks.
 """
 from __future__ import annotations
 
@@ -77,20 +79,10 @@ def _chunk_needed(q_lo, k_lo, qc, kc, causal, window) -> bool:
     return needed
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0,
-                    chunk: Optional[int] = None) -> torch.Tensor:
-    """Blockwise online-softmax attention, forward.  q: (B, Sq, H, D); k,
-    v: (B, Sk, K, D) (GQA: H a multiple of K).  ``q_offset``: absolute
-    position of q[0] relative to k[0].  ``window`` > 0: position i attends
-    to (i-window, i].  The peak live tensor is one (B, K, rep, qc, kc)
-    block of float32 scores."""
+def _flash_fwd(q, k, v, causal, window, q_offset, qc, kc):
+    """→ (out (B, Sq, H, D) in q's dtype, lse (B, K, rep, Sq) float32)."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
-    qc = chunk or _pick_chunk(sq)
-    kc = chunk or _pick_chunk(sk)
-    if sq % qc or sk % kc:
-        raise ValueError(f"chunks {qc}, {kc} do not divide {sq}, {sk}")
     rep = h // kh
     nq, nk = sq // qc, sk // kc
     scale = 1.0 / math.sqrt(d)
@@ -98,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kr = k.reshape(b, nk, kc, kh, d)
     vr = v.reshape(b, nk, kc, kh, d)
     f32 = dict(dtype=torch.float32, device=q.device)
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         q_blk = (qr[:, iq] * scale).float()            # (B, qc, K, rep, D)
         q_lo = iq * qc + q_offset
@@ -120,9 +112,101 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               vr[:, jk].float())
             acc = acc * corr[..., None] + pv
             m = m_new
-        out = acc / l.clamp(min=1e-30)[..., None]     # (B, K, rep, qc, D)
+        l = l.clamp(min=1e-30)
+        out = acc / l[..., None]                       # (B, K, rep, qc, D)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
-    return torch.cat(outs, dim=1).reshape(b, sq, h, d)
+        lses.append(m + torch.log(l))                  # (B, K, rep, qc)
+    return (torch.cat(outs, dim=1).reshape(b, sq, h, d),
+            torch.cat(lses, dim=-1))
+
+
+def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
+    """The reference's FlashAttention-2-style recompute backward: ``p`` is
+    rebuilt for each (q-chunk, kv-chunk) tile from the saved log-sum-exp,
+    every product in float32, ``delta = rowsum(do ⊙ o)``; the blocks that
+    the mask rules out are skipped, as in the forward.  → (dq, dk, dv) in
+    the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    rep = h // kh
+    nq, nk = sq // qc, sk // kc
+    scale = 1.0 / math.sqrt(d)
+    qr = q.reshape(b, nq, qc, kh, rep, d)
+    kr = k.reshape(b, nk, kc, kh, d)
+    vr = v.reshape(b, nk, kc, kh, d)
+    dor = do.reshape(b, nq, qc, kh, rep, d)
+    lser = lse.reshape(b, kh, rep, nq, qc)
+    delta = torch.einsum("bnqkrd,bnqkrd->bkrnq", dor.float(),
+                         out.reshape(b, nq, qc, kh, rep, d).float())
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, nk, kc, kh, d), **f32)
+    dv = torch.zeros((b, nk, kc, kh, d), **f32)
+    dqs = []
+    for iq in range(nq):
+        q_blk = qr[:, iq].float() * scale              # (B, qc, K, rep, D)
+        do_blk = dor[:, iq].float()
+        lse_blk = lser[:, :, :, iq, :, None]           # (B, K, rep, qc, 1)
+        dl_blk = delta[:, :, :, iq, :, None]
+        q_lo = iq * qc + q_offset
+        dq = torch.zeros((b, qc, kh, rep, d), **f32)
+        for jk in range(nk):
+            k_lo = jk * kc
+            if not _chunk_needed(q_lo, k_lo, qc, kc, causal, window):
+                continue
+            k_blk, v_blk = kr[:, jk].float(), vr[:, jk].float()
+            s = torch.einsum("bqkrd,bskd->bkrqs", q_blk, k_blk)
+            mask = _block_mask(qc, kc, q_lo, k_lo, causal, window, q.device)
+            p = torch.exp(torch.where(mask, s, NEG_INF) - lse_blk)
+            dv[:, jk] += torch.einsum("bkrqs,bqkrd->bskd", p, do_blk)
+            dp = torch.einsum("bqkrd,bskd->bkrqs", do_blk, v_blk)
+            ds = p * (dp - dl_blk)                     # (B, K, rep, qc, kc)
+            dq += torch.einsum("bkrqs,bskd->bqkrd", ds, k_blk) * scale
+            # q_blk is already scaled, so no extra factor here
+            dk[:, jk] += torch.einsum("bkrqs,bqkrd->bskd", ds, q_blk)
+        dqs.append(dq)
+    return (torch.stack(dqs, dim=1).reshape(b, sq, h, d).to(q.dtype),
+            dk.reshape(b, sk, kh, d).to(k.dtype),
+            dv.reshape(b, sk, kh, d).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_fwd`` with ``_flash_bwd`` as its backward (the reference's
+    ``custom_vjp``): it saves only (q, k, v, out, lse), never the
+    per-tile probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, qc, kc):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_offset, qc, kc)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, window, q_offset, qc, kc)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, *ctx.blocks)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    chunk: Optional[int] = None) -> torch.Tensor:
+    """Blockwise online-softmax attention.  q: (B, Sq, H, D); k, v: (B, Sk,
+    K, D) (GQA: H a multiple of K).  ``q_offset``: absolute position of
+    q[0] relative to k[0].  ``window`` > 0: position i attends to
+    (i-window, i].  The peak live tensor is one (B, K, rep, qc, kc) block
+    of float32 scores.  With grad enabled it runs as ``_FlashAttention``,
+    whose backward recomputes each block's probabilities from the saved
+    log-sum-exp; the output is the same either way."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    qc = chunk or _pick_chunk(sq)
+    kc = chunk or _pick_chunk(sk)
+    if sq % qc or sk % kc:
+        raise ValueError(f"chunks {qc}, {kc} do not divide {sq}, {sk}")
+    if torch.is_grad_enabled():
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset, qc,
+                                     kc)
+    return _flash_fwd(q, k, v, causal, window, q_offset, qc, kc)[0]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

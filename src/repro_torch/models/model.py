@@ -1,11 +1,12 @@
-"""Model facade of the port: embedding, the decoder stack, the head,
-prefill and decode for every family of the registry (the reference's
-``models/model.py``, serving side; ``loss_fn`` is training, ROADMAP item
-A14c).
+"""Model facade of the port: embedding, the decoder stack, the head, the
+training loss, prefill and decode for every family of the registry (the
+reference's ``models/model.py``).
 
 Batch contract: ``{"tokens": (B, S) integer}`` and, for the frontend
 families, ``"frontend": (B, P, d)`` precomputed embeddings that precede
-the tokens.  ``params`` is the ``transformer.Transformer`` module of
+the tokens; training adds ``"labels": (B, S) integer``, already
+next-token aligned, with -100 (``IGNORE``) for positions without a
+target.  ``params`` is the ``transformer.Transformer`` module of
 ``init_params`` or ``transformer.params_from_jax``.
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 
 from . import frontends, transformer
 from .layers import rms_norm
+
+IGNORE = -100
 
 
 class Model:
@@ -47,6 +50,30 @@ class Model:
         if self.cfg.tie_embeddings:
             return h @ params.embed.t()
         return h @ params.lm_head
+
+    # -- training loss -------------------------------------------------------
+    def loss_fn(self, params, batch, *, remat: bool = True,
+                aux_weight: float = 0.01, z_weight: float = 1e-4):
+        """→ (loss, metrics ``ce``, ``aux``, ``z``, ``tokens``, ``loss``):
+        the cross entropy of the float32 logits over the token region's
+        labels that are not ``IGNORE``, plus ``aux_weight`` × the MoE
+        layers' load-balance loss and ``z_weight`` × the mean squared
+        log-partition (z-loss).  ``remat``: ``transformer.forward``'s."""
+        x, p0 = self._embed_batch(params, batch)
+        h, aux, _ = transformer.forward(self.cfg, params, x, _positions(x),
+                                        remat=remat)
+        logits = self.logits(params, h[:, p0:]).float()
+        labels = batch["labels"].long()
+        mask = (labels != IGNORE).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        # the reference's iota-select sums the one matching logit: a gather
+        gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        denom = mask.sum().clamp(min=1.0)
+        ce = ((lse - gold) * mask).sum() / denom
+        z = ((lse * mask) ** 2).sum() / denom
+        loss = ce + aux_weight * aux + z_weight * z
+        return loss, {"ce": ce, "aux": aux, "z": z, "tokens": mask.sum(),
+                      "loss": loss}
 
     # -- serving -----------------------------------------------------------
     @torch.no_grad()

@@ -13,18 +13,23 @@ layers' parameters under ``lax.scan``s over layers or units:
                          n_layers % attn_every tail layers
 
 Parameters keep the reference's orientation (``x @ w``, (in, out)), so a
-reference parameter tree maps onto the modules one array for one
-parameter (``params_from_jax``).  Training (remat, the flash backward) is
-ROADMAP item A14c.
+leaf of the reference's stacked parameter tree is a list of the modules'
+parameters along its stacked axes (``leaf_map``): ``params_from_jax``
+unstacks a reference tree onto the modules, ``stack`` puts the
+parameters (or their grads) back into a leaf's stacked shape, and the
+optimizer (``train/optimizer.py``) decides decay and factoring by the
+leaves' stacked shapes, as the reference does.  Training recomputes each
+layer (each unit of the reference's scans) in the backward (``remat``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (apply_rope, decode_attention, flash_attention, rms_norm,
                      swiglu)
@@ -50,10 +55,6 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 # a parameter's start, as the reference's ``init`` draws it: N(0, 1/fan_in)
 # for an int, that constant for a float, log(1..N) along the last axis for
 # LOG_ARANGE (Mamba1's A)
@@ -71,7 +72,7 @@ class Layer(nn.Module):
     def __init__(self, cfg, dtype: torch.dtype, device):
         super().__init__()
         for name, (shape, _, f32) in self.spec(cfg).items():
-            setattr(self, name, _frozen(torch.zeros(
+            setattr(self, name, nn.Parameter(torch.zeros(
                 shape, dtype=torch.float32 if f32 else dtype, device=device)))
 
 
@@ -247,13 +248,14 @@ class Transformer(nn.Module):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         d = cfg.d_model
-        self.embed = _frozen(torch.zeros((cfg.vocab, d), dtype=dt,
-                                         device=device))
-        self.final_norm = _frozen(torch.zeros((d,), dtype=dt, device=device))
-        self.lm_head = None if cfg.tie_embeddings else _frozen(
+        self.embed = nn.Parameter(torch.zeros((cfg.vocab, d), dtype=dt,
+                                              device=device))
+        self.final_norm = nn.Parameter(torch.zeros((d,), dtype=dt,
+                                                   device=device))
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             torch.zeros((d, cfg.vocab), dtype=dt, device=device))
-        self.frontend_norm = None if cfg.frontend == "none" else _frozen(
-            torch.zeros((d,), dtype=dt, device=device))
+        self.frontend_norm = None if cfg.frontend == "none" else \
+            nn.Parameter(torch.zeros((d,), dtype=dt, device=device))
         self.blocks = nn.ModuleList(cls(cfg, dt, device)
                                     for cls in layer_classes(cfg))
         self.shared_attn = Block(cfg, dt, device) \
@@ -303,53 +305,128 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Transformer:
     return net
 
 
-def _ref_layers(cfg, params: Mapping) -> List[Dict[str, object]]:
-    """The reference tree's arrays of each layer, in layer order, by the
-    port's parameter names (the shared block last)."""
-    def flat(tree, idx):
-        out = {}
-        for key, val in tree.items():
-            if isinstance(val, Mapping):
-                out.update(flat(val, idx))
-            else:
-                out[key] = val[idx] if idx is not None else val
-        return out
+class Leaf(NamedTuple):
+    """A leaf of the reference's parameter tree: its path, the port's
+    parameters along its stacked axes (in their order), and those axes'
+    sizes (``()`` for a leaf that is not stacked)."""
+    path: Tuple[str, ...]
+    params: List[nn.Parameter]
+    lead: Tuple[int, ...]
 
-    blocks, fam = params["blocks"], cfg.family
-    if fam == "moe" and cfg.moe_every == 2:
-        out = []
-        for u in range(cfg.n_layers // 2):
-            out.append(flat({"ln1": blocks["ln1"], "ln2": blocks["ln2"],
-                             "attn": blocks["attn1"], "mlp": blocks["mlp"]},
-                            u))
-            out.append(flat({"ln1": blocks["ln3"], "ln2": blocks["ln4"],
-                             "attn": blocks["attn2"], "moe": blocks["moe"]},
-                            u))
-        return out
+    @property
+    def key(self) -> str:
+        return ".".join(self.path)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The stacked shape: the reference's leaf's."""
+        return self.lead + tuple(self.params[0].shape)
+
+
+_ATTN_NAMES = ("wq", "wk", "wv", "wo")
+_NAMES = {"attn": "attn", "ln1": "ln1", "ln2": "ln2"}
+
+
+def _layer_places(cfg, net: Transformer):
+    """(layer, the tree's path to its unit, the index along the stacked
+    axes, the tree's names for its attention and norms) for each layer:
+    the reference's ``init`` layout, which stacks the layers (dense, moe,
+    ssm), the (dense, moe) pairs (llama4) or the hybrid's (unit, layer in
+    unit) under ``blocks``, the hybrid's remainder under ``tail``, and
+    keeps one ``shared_attn``."""
+    fam = cfg.family
     if fam == "hybrid":
         period = cfg.attn_every
-        out = [flat(blocks, (u, j))
-               for u in range(cfg.n_layers // period)
-               for j in range(period)]
-        if "tail" in params:
-            out += [flat(params["tail"], r)
-                    for r in range(cfg.n_layers % period)]
-        return out + [flat(params["shared_attn"], None)]
-    return [flat(blocks, li) for li in range(cfg.n_layers)]
+        units = cfg.n_layers // period
+        for li, layer in enumerate(net.blocks):
+            u, j = divmod(li, period)
+            yield (layer, ("blocks",), (u, j), _NAMES) if u < units else \
+                (layer, ("tail",), (li - units * period,), _NAMES)
+        yield net.shared_attn, ("shared_attn",), (), _NAMES
+    elif fam == "moe" and cfg.moe_every == 2:
+        pair = ({"attn": "attn1", "ln1": "ln1", "ln2": "ln2"},
+                {"attn": "attn2", "ln1": "ln3", "ln2": "ln4"})
+        for li, layer in enumerate(net.blocks):
+            u, j = divmod(li, 2)
+            yield layer, ("blocks",), (u,), pair[j]
+    else:
+        for li, layer in enumerate(net.blocks):
+            yield layer, ("blocks",), (li,), _NAMES
+
+
+def _sub_path(layer, name: str, names) -> Tuple[str, ...]:
+    """A layer parameter's path within its unit of the reference's tree."""
+    if isinstance(layer, (Mamba1Layer, Mamba2Layer)):
+        return (name,) if name == "ln" else ("mixer", name)
+    if name in _ATTN_NAMES:
+        return (names["attn"], name)
+    if name in ("ln1", "ln2"):
+        return (names[name],)
+    return ("moe" if isinstance(layer, MoEBlock) else "mlp", name)
+
+
+def leaf_map(cfg, net: Transformer) -> List[Leaf]:
+    """Every leaf of the reference's parameter tree for ``cfg``, in its
+    flattening order (paths sorted), each with the parameters of ``net``
+    it stacks: the inverse of the reference's layer stacking.  Every
+    parameter of ``net`` is in one leaf."""
+    found: Dict[Tuple[str, ...], list] = {}
+
+    def add(path, idx, p):
+        found.setdefault(path, []).append((idx, p))
+
+    for name in ("embed", "final_norm", "lm_head", "frontend_norm"):
+        if getattr(net, name) is not None:
+            add((name,), (), getattr(net, name))
+    for layer, prefix, idx, names in _layer_places(cfg, net):
+        for name, p in layer.named_parameters():
+            add(prefix + _sub_path(layer, name, names), idx, p)
+    leaves = []
+    for path in sorted(found):
+        items = sorted(found[path], key=lambda t: t[0])
+        lead = tuple(i + 1 for i in items[-1][0])
+        leaves.append(Leaf(path, [p for _, p in items], lead))
+    return leaves
+
+
+def rows(leaf: Leaf, t: torch.Tensor) -> List[torch.Tensor]:
+    """A tensor led by the leaf's stacked axes as views, one a parameter
+    (the whole tensor for a leaf that is not stacked)."""
+    if not leaf.lead:
+        return [t]
+    return list(t.view((-1,) + tuple(t.shape[len(leaf.lead):])).unbind(0))
+
+
+def stack(leaf: Leaf, tensors) -> torch.Tensor:
+    """One tensor a parameter → the leaf's stacked shape."""
+    if not leaf.lead:
+        return tensors[0]
+    return torch.stack(list(tensors)).reshape(leaf.shape)
+
+
+def _tree_paths(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], object]:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out.update(_tree_paths(val, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = val
+    return out
 
 
 def params_from_jax(cfg, params: Mapping, device="cuda") -> Transformer:
     """The reference's parameter tree (``transformer.init``'s, leaves as
-    numpy arrays) as the port's modules: the stacked layer (or unit) axes
-    unstacked into layers; ``lm_head`` absent when the embeddings are
-    tied; ``frontend_norm`` where the config has a frontend; the hybrid's
-    shared block.  Every leaf of the tree lands in one parameter."""
+    numpy arrays) as the port's modules: each leaf unstacked along its
+    stacked axes into its parameters (``leaf_map``).  Every leaf of the
+    tree lands in one parameter."""
     net = Transformer(cfg, device)
+    leaves = leaf_map(cfg, net)
+    arrays = _tree_paths(params)
+    if set(arrays) != {leaf.path for leaf in leaves}:
+        raise ValueError(f"tree leaves {sorted(arrays)} for the parameters "
+                         f"{sorted(leaf.path for leaf in leaves)}")
 
     def put(p: nn.Parameter, a) -> None:
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"shape {a.shape} for a parameter of "
-                             f"{tuple(p.shape)}")
         a = np.array(a)                     # a writable, contiguous copy
         if a.dtype.name == "bfloat16":      # ml_dtypes: carried as bits
             t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -358,24 +435,15 @@ def params_from_jax(cfg, params: Mapping, device="cuda") -> Transformer:
         p.copy_(t.to(p.dtype))
 
     with torch.no_grad():
-        put(net.embed, params["embed"])
-        put(net.final_norm, params["final_norm"])
-        if net.lm_head is not None:
-            put(net.lm_head, params["lm_head"])
-        if net.frontend_norm is not None:
-            put(net.frontend_norm, params["frontend_norm"])
-        layers = net.layers()
-        arrays = _ref_layers(cfg, params)
-        if len(arrays) != len(layers):
-            raise ValueError(f"{len(arrays)} layers in the tree for "
-                             f"{len(layers)}")
-        for layer, arrs in zip(layers, arrays):
-            names = {name for name, _ in layer.named_parameters()}
-            if set(arrs) != names:
-                raise ValueError(f"tree names {sorted(arrs)} for the "
-                                 f"parameters {sorted(names)}")
-            for name, a in arrs.items():
-                put(getattr(layer, name), a)
+        for leaf in leaves:
+            a = arrays[leaf.path]
+            if tuple(a.shape) != leaf.shape:
+                raise ValueError(f"{leaf.key}: shape {a.shape} for a leaf "
+                                 f"of {leaf.shape}")
+            rows_ = np.reshape(a, (-1,) + leaf.shape[len(leaf.lead):]) \
+                if leaf.lead else [a]
+            for p, row in zip(leaf.params, rows_):
+                put(p, row)
     return net
 
 
@@ -389,8 +457,39 @@ def _stack_states(states, cls, lead: Tuple[int, ...]):
                  for parts in zip(*states)))
 
 
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward instead of stored (the reference's ``jax.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _attn_unit(layers, x, positions, cfg):
+    """Attention blocks in order → (x, their k, their v, their summed MoE
+    aux loss or None)."""
+    ks, vs, aux = [], [], None
+    for blk in layers:
+        x, k, v, metrics = blk(x, positions, cfg)
+        ks.append(k)
+        vs.append(v)
+        if metrics is not None:
+            aux = metrics.aux_loss if aux is None else aux + metrics.aux_loss
+    return x, ks, vs, aux
+
+
+def _hybrid_unit(layers, shared, x, positions, cfg):
+    """A hybrid unit: its Mamba2 layers, then the shared block → (x, the
+    layers' states, k, v)."""
+    states = []
+    for layer in layers:
+        x, st = layer(x, cfg)
+        states.append(st)
+    x, k, v, _ = shared(x, positions, cfg)
+    return x, states, k, v
+
+
 def forward(cfg, params: Transformer, embeds: torch.Tensor,
-            positions: torch.Tensor, *, want_cache: bool = False):
+            positions: torch.Tensor, *, want_cache: bool = False,
+            remat: bool = True):
     """Run the layers on (B, S, d) embeddings → (hidden (B, S, d), the MoE
     layers' summed aux loss (float32; 0 without MoE), cache or None).
 
@@ -399,14 +498,19 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
     ``window`` positions at their ring slots); ssm a ``Mamba1State``
     stacked (L, ...); hybrid ``{"mamba": Mamba2State (U, attn_every,
     ...), "tail": Mamba2State (R, ...) or None, "k", "v": (U, B, S, K,
-    hd)}``, one KV cache for each application of the shared block."""
+    hd)}``, one KV cache for each application of the shared block.
+
+    ``remat``, when grad is enabled: each unit of the reference's scans (a
+    layer; llama4's (dense, MoE) pair; a hybrid unit with its shared
+    block, and each tail layer) is recomputed in the backward."""
     x = embeds
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     fam = cfg.family
     if fam == "ssm":
         states = []
         for layer in params.blocks:
-            x, st = layer(x, cfg)
+            x, st = _run(remat, layer, x, cfg)
             states.append(st)
         cache = _stack_states(states, Mamba1State, (cfg.n_layers,)) \
             if want_cache else None
@@ -415,13 +519,16 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
         period = cfg.attn_every
         units, tail = divmod(cfg.n_layers, period)
         states, ks, vs = [], [], []
-        for li, layer in enumerate(params.blocks):
-            x, st = layer(x, cfg)
+        for u in range(units):
+            x, sts, k, v = _run(remat, _hybrid_unit,
+                                params.blocks[u * period:(u + 1) * period],
+                                params.shared_attn, x, positions, cfg)
+            states += sts
+            ks.append(k)
+            vs.append(v)
+        for layer in params.blocks[units * period:]:
+            x, st = _run(remat, layer, x, cfg)
             states.append(st)
-            if li < units * period and li % period == period - 1:
-                x, k, v, _ = params.shared_attn(x, positions, cfg)
-                ks.append(k)
-                vs.append(v)
         cache = None
         if want_cache:
             cache = _kv_cache_from_layers(ks, vs, cfg)
@@ -431,14 +538,16 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
                                           Mamba2State, (tail,)) \
                 if tail else None
         return x, aux, cache
+    step = 2 if fam == "moe" and cfg.moe_every == 2 else 1
     ks, vs = [], []
-    for blk in params.blocks:
-        x, k, v, metrics = blk(x, positions, cfg)
-        if metrics is not None:
-            aux = aux + metrics.aux_loss
+    for i in range(0, cfg.n_layers, step):
+        x, k, v, a = _run(remat, _attn_unit, params.blocks[i:i + step], x,
+                          positions, cfg)
+        if a is not None:
+            aux = aux + a
         if want_cache:
-            ks.append(k)
-            vs.append(v)
+            ks += k
+            vs += v
     cache = _kv_cache_from_layers(ks, vs, cfg) if want_cache else None
     return x, aux, cache
 

@@ -1,5 +1,6 @@
-"""Seeded, deterministic fault injection for the serving stack (a copy of
-the reference's ``runtime/faults.py``: host threads, no tensors).
+"""Seeded, deterministic fault injection for the serving stack and the
+training loop (a copy of the reference's ``runtime/faults.py``: host
+threads, no tensors).
 
 The robustness machinery (runtime/health.py circuit breaking, the serve
 queue's retry/degradation paths, the straggler pool's re-issue) is only
@@ -34,6 +35,11 @@ global batches — ``kill:r1@5`` kills replica 1 on its own 6th dispatch
 regardless of how round-robin interleaved the fleet.  Randomized clauses
 (flaky/spike) draw from ``random.Random(f"{seed}:{clause}:{replica}:{n}")``,
 so the outcome at any dispatch is independent of thread interleaving.
+
+``FailurePlan`` in runtime/fault_tolerance.py (the training-side step-
+indexed crash schedule) is a thin wrapper over a ``FaultPlan`` of
+``crash`` clauses (``FaultPlan.crash_at_steps``): one schedule engine for
+serving and training alike.
 """
 from __future__ import annotations
 
@@ -118,6 +124,13 @@ class FaultPlan:
         if not clauses:
             raise ValueError(f"empty fault spec {spec!r}")
         return cls(clauses, seed=seed)
+
+    @classmethod
+    def crash_at_steps(cls, steps: Sequence[int],
+                       replica: int = 0) -> "FaultPlan":
+        """The training-side schedule: crash once at each given step index
+        (``FailurePlan``'s contract, as crash clauses)."""
+        return cls(tuple(FaultClause("crash", replica, at=s) for s in steps))
 
     def __str__(self) -> str:
         return ",".join(str(c) for c in self.clauses)

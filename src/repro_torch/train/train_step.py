@@ -1,0 +1,93 @@
+"""The training step (the reference's ``train/train_step.py``): loss →
+grad → (optional int8 error-feedback compression) → clip → AdamW /
+Adafactor, the parameters and the optimizer state updated in place (what
+the reference's donation does).
+
+Microbatching (gradient accumulation) runs the microbatches one after the
+other and sums their grads in float32 buffers, as the reference's scan
+sums into its float32 ``zero`` accumulator; the optimizer then sees their
+mean in float32.  With one microbatch it sees the grads in the
+parameters' dtype, as the reference's does.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..models import transformer
+from ..models.model import Model
+from . import compression as comp
+from . import optimizer as opt
+
+
+def _grads(model: Model, params, leaves, batch, remat: bool):
+    """→ (loss, metrics, grads per leaf), every tensor detached."""
+    loss, metrics = model.loss_fn(params, batch, remat=remat)
+    flat = torch.autograd.grad(loss, [p for leaf in leaves
+                                      for p in leaf.params])
+    it = iter(flat)
+    grads = [[next(it) for _ in leaf.params] for leaf in leaves]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(model: Model, oc: opt.OptConfig, *,
+                    microbatches: int = 1, compress: bool = False,
+                    remat: bool = True):
+    """→ step(params, opt_state, err_state, batch) → (params, opt_state,
+    err_state, metrics): ``params`` (the ``Transformer``) and the states
+    updated in place.  ``err_state`` is None unless ``compress``.  The
+    batch's leading axis splits into ``microbatches`` equal parts."""
+
+    def step(params, opt_state, err_state, batch: Dict[str, torch.Tensor]):
+        leaves = transformer.leaf_map(model.cfg, params)
+        if microbatches == 1:
+            loss, metrics, grads = _grads(model, params, leaves, batch, remat)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % microbatches:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches")
+            n = b // microbatches
+            grads = [[torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device) for p in leaf.params]
+                     for leaf in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            ms = []
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, m, g = _grads(model, params, leaves, mb, remat)
+                for acc, new in zip(grads, g):
+                    for a, x in zip(acc, new):
+                        a.add_(x)
+                loss = loss + l
+                ms.append(m)
+            grads = [[a / microbatches for a in acc] for acc in grads]
+            loss = loss / microbatches
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        if compress:
+            grads, err_state = comp.apply(leaves, grads, err_state)
+        opt_state, om = opt.update(oc, leaves, grads, opt_state)
+        metrics.update(om)
+        metrics["loss"] = loss
+        return params, opt_state, err_state, metrics
+
+    return step
+
+
+# the reference's un-jitted builder (its dry run adds shardings to it);
+# here both are the same eager step
+make_train_step_fn = make_train_step
+
+
+def init_train_state(model: Model, oc: opt.OptConfig,
+                     generator: torch.Generator, *, device="cuda",
+                     compress: bool = False):
+    """→ (params from ``generator`` on ``device``, optimizer state, error
+    state or None)."""
+    params = model.init_params(generator, device=device)
+    leaves = transformer.leaf_map(model.cfg, params)
+    err_state = comp.init_error(leaves) if compress else None
+    return params, opt.init_opt(oc, leaves), err_state

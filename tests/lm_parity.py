@@ -34,7 +34,7 @@ def jbf16(a):
 def bit_share(got, want) -> float:
     """Share of ``got``'s elements bit-equal to ``want``'s."""
     want = np.asarray(jnp.asarray(want, jnp.float32))
-    return float((got.float().numpy() == want).mean())
+    return float((got.detach().float().numpy() == want).mean())
 
 
 def pair(arch, batch: int, prompt: int, new: int, seed: int = 7):

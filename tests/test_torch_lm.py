@@ -345,7 +345,7 @@ def test_init_and_kv_cache_helpers():
     nets = [TT.init(cfg, torch.Generator().manual_seed(s), device="cpu")
             for s in (0, 0)]
     blk = nets[0].blocks[0]
-    assert blk.wq.dtype == torch.bfloat16 and not blk.wq.requires_grad
+    assert blk.wq.dtype == torch.bfloat16 and blk.wq.requires_grad
     assert torch.equal(blk.w_down, nets[1].blocks[0].w_down)
     assert float(blk.ln1.abs().max()) == 0.0
     # 16,384 draws: the sample std lies within 5% of 1/sqrt(fan_in)

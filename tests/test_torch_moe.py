@@ -175,14 +175,14 @@ def test_params_equal_reference(arch):
     assert TT.param_count(tp) == JT.param_count(jp) == cfg.param_count()
     blocks = jp["blocks"]
     if cfg.moe_every == 2:
-        np.testing.assert_array_equal(tp.blocks[2].wq.numpy(),
+        np.testing.assert_array_equal(tp.blocks[2].wq.detach().numpy(),
                                       np.asarray(blocks["attn1"]["wq"][1]))
-        np.testing.assert_array_equal(tp.blocks[3].ln1.numpy(),
+        np.testing.assert_array_equal(tp.blocks[3].ln1.detach().numpy(),
                                       np.asarray(blocks["ln3"][1]))
-        np.testing.assert_array_equal(tp.blocks[3].w_down.numpy(),
+        np.testing.assert_array_equal(tp.blocks[3].w_down.detach().numpy(),
                                       np.asarray(blocks["moe"]["w_down"][1]))
     else:
-        np.testing.assert_array_equal(tp.blocks[3].router.numpy(),
+        np.testing.assert_array_equal(tp.blocks[3].router.detach().numpy(),
                                       np.asarray(blocks["moe"]["router"][3]))
     blk = tp.blocks[1]
     assert blk.router.dtype == torch.float32

@@ -257,7 +257,7 @@ def test_params_equal_reference(arch):
             q = getattr(layer, name)
             assert q.shape == p.shape and q.dtype == p.dtype, name
             if name == "a_log":                  # log: within an ulp
-                assert rel(q, p.numpy()) < 1e-6
+                assert rel(q, p.detach().numpy()) < 1e-6
             elif name in ("dt_bias", "d_skip", "conv_b", "norm_w", "ln",
                           "ln1", "ln2"):
                 assert torch.equal(q, p), name
