@@ -264,7 +264,24 @@ Phases, each of which fails the run loudly:
    failures before steps 6 and 9) ≡ an uninterrupted run bit for bit
    (params, optimizer state); then ``launch.train`` on cuda (its
    default) with ``--ckpt-dir``, and again with ``--resume``, which starts
-   from the latest committed step.
+   from the latest committed step;
+42. the dry run's memory table: ``python -m repro_torch.launch.dryrun
+   --all --both-meshes --out <temp>`` in a subprocess (no card, no process
+   group): 34 runnable cells × 2 meshes report and 6 × 2 long_500k cells
+   are skipped, as ``cell_runnable`` rules; a line per cell of per-device
+   GiB (parameters, optimizer state, inputs, cache) and whether the total
+   fits this card's ``total_memory``;
+43. the sharding hooks on the card, in a subprocess with an NCCL process
+   group of world size 1 over loopback and ``make_mesh((1, 1), ("data",
+   "model"))``, deterministic algorithms on and ``CUBLAS_WORKSPACE_CONFIG``
+   set: tinyllama-1.1b at its published widths in bfloat16 from the seed;
+   (a) every parameter placed by ``distribute_params`` (FSDP off), the
+   hooks active, ``generate`` over phase 32's traffic ≡ the plain path's
+   tokens bit for bit; a decode step's host ms and device ms with and
+   without DTensor; (b) one AdamW step with FSDP on, remat, ``act_shard``,
+   ``logit_shard`` and ``grad_shardings`` at phase 38's 4 × 4,096 tokens:
+   its loss and every updated parameter ≡ the plain step's bit for bit.
+   Neither phase launches a kernel of the port.
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -741,6 +758,9 @@ TRAIN_PATTERN_ARCHS = ("tinyllama-1.1b", "h2o-danube-1.8b", "musicgen-large",
                        "zamba2-7b")
 # phase 41: failures injected before these steps of a 12-step run
 RESTART_FAIL_AT = (6, 9)
+# phase 42: the dry run's cells (10 archs × 4 shapes on each of the two
+# production meshes; the 6 full-attention archs skip long_500k)
+DRYRUN_CELLS, DRYRUN_SKIPS = 34, 6
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -4259,6 +4279,172 @@ def phase_restarts(torch):
           flush=True)
 
 
+def phase_dryrun(torch, smi):
+    """Phase 42: the dry run's CLI in a subprocess over every cell and both
+    production meshes; the cells' count, and a line per cell against this
+    card's memory."""
+    import tempfile
+    total = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "dryrun.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--out", out], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0, f"dry run: rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            cells = json.load(f)
+    done = [c for c in cells if "bytes_per_device" in c]
+    skipped = [c for c in cells if "skipped" in c]
+    check(len(done) == 2 * DRYRUN_CELLS and
+          len(skipped) == 2 * DRYRUN_SKIPS and
+          len(cells) == len(done) + len(skipped),
+          f"dry run: {len(done)} cells reported, {len(skipped)} skipped, "
+          f"{len(cells)} in all")
+    check(all(c["shape"] == "long_500k" for c in skipped),
+          "dry run: a cell other than long_500k skipped")
+    for c in done:
+        gib = {k: v / 2**30 for k, v in c["bytes_per_device"].items()}
+        fits = c["bytes_per_device"]["total"] <= total
+        print(f"  {c['arch']} × {c['shape']} × {c['mesh']}-pod: params "
+              f"{gib['params']:.3f}, opt {gib['opt_state']:.3f}, inputs "
+              f"{gib['inputs']:.3f}, cache {gib['cache']:.3f}, total "
+              f"{gib['total']:.3f} GiB a device: "
+              f"{'fits' if fits else 'does not fit'} {smi}", flush=True)
+    print(f"  {len(done)} cell-meshes reported, {len(skipped)} skipped "
+          f"(long_500k of the full-attention archs); against "
+          f"{total / 2**30:.2f} GiB of {smi}", flush=True)
+
+
+def hooks_check() -> None:
+    """Phase 43's body, in its own process (``CUBLAS_WORKSPACE_CONFIG``
+    must be set before cuBLAS starts): the sharding hooks on a 1×1 mesh of
+    an NCCL process group, against the plain path bit for bit."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import base, registry
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.train import data, optimizer, train_step
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = registry.get(LM_ARCH)
+        model = Model(cfg)
+
+        def fresh():
+            return model.init_params(
+                torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+        def decode_ms(params, batch, hooks):
+            cache, _, p0 = model.prefill(params, batch,
+                                         max_len=LM_PROMPT + LM_NEW, **hooks)
+            tok = batch["tokens"][:, -1]
+
+            def step():
+                return model.decode(params, cache, tok, p0, **hooks)
+            dev_ms, items, _ = device_step(torch, step, iters=3)
+            return host_ms(step, 5), dev_ms, items
+
+        smi = smi_line()
+        batch = lm_batch(torch, cfg, LM_BATCH, LM_PROMPT, SEED, dev)
+        t0 = time.perf_counter()
+        plain = fresh()
+        want = generate(model, plain, batch, LM_NEW)
+        plain_ms = decode_ms(plain, batch, {})
+        del plain
+        params = sharding.distribute_params(cfg, mesh, fresh())
+        check(all(isinstance(p, DTensor) for p in params.parameters()),
+              "distribute_params left a plain parameter")
+        hooks = dict(act_shard=sharding.make_act_shard(mesh),
+                     moe_cap_shard=sharding.make_moe_cap_shard(mesh))
+        got = generate(model, params, batch, LM_NEW, **hooks)
+        check(isinstance(got, DTensor), f"generate gave {type(got)}")
+        check(torch.equal(got.full_tensor(), want),
+              "DTensor generate's tokens differ from the plain path's")
+        dt_ms = decode_ms(params, batch, hooks)
+        del params
+        torch.cuda.empty_cache()
+        print(f"  serving: {cfg.name} {cfg.dtype}, {LM_BATCH} prompts × "
+              f"{LM_PROMPT} tokens, {LM_NEW} new: DTensor generate (FSDP "
+              f"off, act_shard and moe_cap_shard) ≡ the plain tokens bit for "
+              f"bit ({time.perf_counter() - t0:.1f} s); a decode step "
+              f"{plain_ms[0]:.3f} ms host, {plain_ms[1]:.3f} ms device in "
+              f"{plain_ms[2]:.0f} items plain; {dt_ms[0]:.3f} ms host, "
+              f"{dt_ms[1]:.3f} ms device in {dt_ms[2]:.0f} items with "
+              f"DTensor, on {smi}", flush=True)
+
+        t0 = time.perf_counter()
+        seq = base.get_shape(TRAIN_SHAPE).seq_len
+        oc = optimizer.OptConfig(warmup_steps=TRAIN_WARMUP,
+                                 total_steps=TRAIN_STEPS)
+        b = train_batch(torch, data.SyntheticLM(cfg.vocab, seq, TRAIN_BATCH,
+                                                seed=SEED), 0, dev)
+        plain = fresh()
+        state = optimizer.init_opt(oc, transformer.leaf_map(cfg, plain))
+        _, state, _, m = train_step.make_train_step(model, oc)(
+            plain, state, None, b)
+        want_loss = m["loss"]
+        del state, m
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = sharding.distribute_params(cfg, mesh, fresh(), fsdp=True)
+        state = optimizer.init_opt(oc, transformer.leaf_map(cfg, params))
+        step = train_step.make_train_step(
+            model, oc, act_shard=sharding.make_act_shard(mesh),
+            logit_shard=sharding.make_logit_shard(mesh),
+            grad_shardings=sharding.param_placements(cfg, mesh, params,
+                                                     fsdp=True))
+        _, state, _, m = step(params, state, None, b)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        check(torch.equal(m["loss"].full_tensor(), want_loss),
+              f"DTensor train step's loss {m['loss'].full_tensor()} against "
+              f"{want_loss}")
+        differ = [n for (n, p), (_, q) in zip(plain.named_parameters(),
+                                              params.named_parameters())
+                  if not torch.equal(p.detach(), q.detach().full_tensor())]
+        check(not differ, f"DTensor train step: {len(differ)} parameters "
+              f"differ from the plain step's, first {differ[:3]}")
+        print(f"  training: one AdamW step of {TRAIN_BATCH} × {seq} tokens "
+              f"(FSDP on, remat, act_shard, logit_shard, grad_shardings): "
+              f"loss {float(want_loss):.6f} and all "
+              f"{len(list(plain.parameters()))} updated parameters ≡ the "
+              f"plain step's bit for bit; the step with its weights' draw "
+              f"{plain_s:.1f} s plain, {dt_s:.1f} s with DTensor",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_hooks():
+    """Phase 43: ``hooks_check`` in a subprocess."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               NCCL_SOCKET_IFNAME="lo")
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.hooks_check()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"hooks check: rc {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4643,6 +4829,21 @@ def main() -> None:
     phase_restarts(torch)
     print(f"  phase 41: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
+
+    t0 = time.time()
+    print("[42] the dry run's per-device memory, every cell, both meshes",
+          flush=True)
+    phase_dryrun(torch, smi)
+    t42 = time.time() - t0
+    print(f"  phase 42: {t42:.1f} s on {name} ({smi})", flush=True)
+
+    t0 = time.time()
+    print(f"[43] the sharding hooks on a 1×1 NCCL mesh: {LM_ARCH} served "
+          f"and trained against the plain path", flush=True)
+    phase_hooks()
+    t43 = time.time() - t0
+    print(f"  phase 43: {t43:.1f} s on {name} ({smi}); phases 42-43 "
+          f"{t42 + t43:.1f} s", flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which

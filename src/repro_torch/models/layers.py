@@ -55,6 +55,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def _heads_replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor of (B, S, ...) activations with its shards on dims past
+    the sequence (heads over 'model') replicated; its batch's shards,
+    and a plain tensor, as they are."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor) or not any(
+            p.is_shard() and p.dim >= 2 for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_shard() and p.dim >= 2 else p
+        for p in t.placements])
+
+
+def split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(B, S, n_heads·hd) → (B, S, n_heads, hd).  A DTensor sharded on its
+    last dim (heads over 'model') is replicated there first: the
+    attention's einsums flatten (batch, KV head) into one dim, which
+    DTensor refuses for a sharded dim behind the first (torch 2.11), and
+    where the shards cut a head it refuses the view itself; GSPMD
+    reshards there unasked.  So the attention itself runs replicated over
+    the axis that shards the heads."""
+    b, s = t.shape[:2]
+    return _heads_replicated(t).reshape(b, s, n_heads, hd)
+
+
 def _pick_chunk(s: int, target: int = 512) -> int:
     return max(math.gcd(s, target), 1)
 
@@ -138,9 +165,10 @@ def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
     lser = lse.reshape(b, kh, rep, nq, qc)
     delta = torch.einsum("bnqkrd,bnqkrd->bkrnq", dor.float(),
                          out.reshape(b, nq, qc, kh, rep, d).float())
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dk = torch.zeros((b, nk, kc, kh, d), **f32)
-    dv = torch.zeros((b, nk, kc, kh, d), **f32)
+    # accumulators like q: DTensors where q is one, as the in-place sums
+    # into them need
+    dk = q.new_zeros((b, nk, kc, kh, d), dtype=torch.float32)
+    dv = q.new_zeros((b, nk, kc, kh, d), dtype=torch.float32)
     dqs = []
     for iq in range(nq):
         q_blk = qr[:, iq].float() * scale              # (B, qc, K, rep, D)
@@ -148,7 +176,7 @@ def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
         lse_blk = lser[:, :, :, iq, :, None]           # (B, K, rep, qc, 1)
         dl_blk = delta[:, :, :, iq, :, None]
         q_lo = iq * qc + q_offset
-        dq = torch.zeros((b, qc, kh, rep, d), **f32)
+        dq = q.new_zeros((b, qc, kh, rep, d), dtype=torch.float32)
         for jk in range(nk):
             k_lo = jk * kc
             if not _chunk_needed(q_lo, k_lo, qc, kc, causal, window):
@@ -183,7 +211,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, *ctx.blocks)
+        # a DTensor grad arrives with its heads sharded as the output
+        # projection's backward leaves them (see ``split_heads``)
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, _heads_replicated(do),
+                                *ctx.blocks)
         return dq, dk, dv, None, None, None, None, None
 
 

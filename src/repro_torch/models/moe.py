@@ -30,15 +30,20 @@ class MoEMetrics(NamedTuple):
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
-            capacity_factor: Optional[float] = 1.25, n_groups: int = 1):
+            capacity_factor: Optional[float] = 1.25, n_groups: int = 1,
+            group_shard=None, cap_shard=None):
     """x: (T, d) tokens; router_w: (d, E); w_*: (E, d, f) / (E, f, d)
     → (y (T, d), MoEMetrics).  The router is float32; the experts' products
-    are in x's dtype."""
+    are in x's dtype.  The sharding hooks, as the reference applies them:
+    ``group_shard`` on the (G, S, d) grouped tokens, ``cap_shard`` on the
+    (G, S, E, C) dispatch and combine tensors."""
     t, d = x.shape
     e = router_w.shape[1]
     g = n_groups if t % max(n_groups, 1) == 0 else 1
     s = t // g
     xg = x.reshape(g, s, d)
+    if group_shard is not None:
+        xg = group_shard(xg)
 
     logits = torch.einsum("gsd,de->gse", xg.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
@@ -69,6 +74,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     dispatch = torch.einsum("gske,gskc->gsec", oh, pos_oh)
     combine = torch.einsum("gske,gskc->gsec", oh * gate_vals[..., None],
                            pos_oh)
+    if cap_shard is not None:
+        dispatch = cap_shard(dispatch)
+        combine = cap_shard(combine)
 
     buf = torch.einsum("gsd,gsec->gecd", xg, dispatch.to(x.dtype))
     h_g = torch.einsum("gecd,edf->gecf", buf, w_gate)

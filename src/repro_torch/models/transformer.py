@@ -32,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .layers import (apply_rope, decode_attention, flash_attention, rms_norm,
-                     swiglu)
+                     split_heads, swiglu)
 from .moe import MoEFFN
 from .ssm import Mamba1State, Mamba2State, mamba1_forward, mamba2_forward
 
@@ -92,29 +92,30 @@ class Block(Layer):
         return dict(_attn_spec(cfg), w_gate=((d, f), d, False),
                     w_up=((d, f), d, False), w_down=((f, d), f, False))
 
-    def ffn(self, h, cfg, capacity):
+    def ffn(self, h, cfg, capacity, group_shard=None, cap_shard=None):
         """The channel mixer on the normed stream → (out, MoEMetrics or
-        None)."""
+        None); the hooks are the MoE FFN's."""
         return swiglu(h, self.w_gate, self.w_up, self.w_down), None
 
     def attention(self, x, positions, cfg):
         """→ (out (B, S, d), k (B, S, K, hd), v)."""
         b, s, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        q = (x @ self.wq).reshape(b, s, h, hd)
-        k = (x @ self.wk).reshape(b, s, kv, hd)
-        v = (x @ self.wv).reshape(b, s, kv, hd)
+        q = split_heads(x @ self.wq, h, hd)
+        k = split_heads(x @ self.wk, kv, hd)
+        v = split_heads(x @ self.wv, kv, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = flash_attention(q, k, v, causal=True, window=cfg.window)
         return o.reshape(b, s, h * hd) @ self.wo, k, v
 
-    def forward(self, x, positions, cfg):
+    def forward(self, x, positions, cfg, group_shard=None, cap_shard=None):
         """→ (x, k, v, MoEMetrics or None); the MoE FFN at the config's
         capacity (prefill)."""
         a, k, v = self.attention(rms_norm(x, self.ln1), positions, cfg)
         x = x + a
-        y, metrics = self.ffn(rms_norm(x, self.ln2), cfg, cfg.moe_capacity)
+        y, metrics = self.ffn(rms_norm(x, self.ln2), cfg, cfg.moe_capacity,
+                              group_shard, cap_shard)
         return x + y, k, v, metrics
 
     def attend_decode(self, x, cache_k, cache_v, pos: int, cfg):
@@ -122,9 +123,9 @@ class Block(Layer):
         new token's slot.  → out (B, 1, d)."""
         b = x.shape[0]
         h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        q = (x @ self.wq).reshape(b, 1, h, hd)
-        k = (x @ self.wk).reshape(b, 1, kv, hd)
-        v = (x @ self.wv).reshape(b, 1, kv, hd)
+        q = split_heads(x @ self.wq, h, hd)
+        k = split_heads(x @ self.wk, kv, hd)
+        v = split_heads(x @ self.wv, kv, hd)
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posb, cfg.rope_theta)
         k = apply_rope(k, posb, cfg.rope_theta)
@@ -141,11 +142,13 @@ class Block(Layer):
                              window=max(cfg.window, 0))
         return o.reshape(b, 1, h * hd) @ self.wo
 
-    def decode(self, x, cache_k, cache_v, pos: int, cfg):
+    def decode(self, x, cache_k, cache_v, pos: int, cfg, group_shard=None,
+               cap_shard=None):
         """The MoE FFN dropless (decode)."""
         x = x + self.attend_decode(rms_norm(x, self.ln1), cache_k, cache_v,
                                    pos, cfg)
-        y, _ = self.ffn(rms_norm(x, self.ln2), cfg, None)
+        y, _ = self.ffn(rms_norm(x, self.ln2), cfg, None, group_shard,
+                        cap_shard)
         return x + y
 
 
@@ -164,12 +167,13 @@ class MoEBlock(Block):
         super().__init__(cfg, dtype, device)
         self.moe = MoEFFN()
 
-    def ffn(self, h, cfg, capacity):
+    def ffn(self, h, cfg, capacity, group_shard=None, cap_shard=None):
         b, s, d = h.shape
         y, metrics = self.moe(h.reshape(b * s, d), self.router, self.w_gate,
                               self.w_up, self.w_down, top_k=cfg.top_k,
                               capacity_factor=capacity,
-                              n_groups=cfg.moe_groups)
+                              n_groups=cfg.moe_groups,
+                              group_shard=group_shard, cap_shard=cap_shard)
         return y.reshape(b, s, d), metrics
 
 
@@ -463,12 +467,18 @@ def _run(remat: bool, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
-def _attn_unit(layers, x, positions, cfg):
-    """Attention blocks in order → (x, their k, their v, their summed MoE
-    aux loss or None)."""
+def _same(t):
+    return t
+
+
+def _attn_unit(layers, x, positions, cfg, act_shard, cap_shard):
+    """Attention blocks in order, ``act_shard`` after each → (x, their k,
+    their v, their summed MoE aux loss or None)."""
+    constrain = act_shard or _same
     ks, vs, aux = [], [], None
     for blk in layers:
-        x, k, v, metrics = blk(x, positions, cfg)
+        x, k, v, metrics = blk(x, positions, cfg, act_shard, cap_shard)
+        x = constrain(x)
         ks.append(k)
         vs.append(v)
         if metrics is not None:
@@ -476,20 +486,25 @@ def _attn_unit(layers, x, positions, cfg):
     return x, ks, vs, aux
 
 
-def _hybrid_unit(layers, shared, x, positions, cfg):
-    """A hybrid unit: its Mamba2 layers, then the shared block → (x, the
-    layers' states, k, v)."""
+def _hybrid_unit(layers, shared, x, positions, cfg, constrain):
+    """A hybrid unit: its Mamba2 layers, then the shared block, then
+    ``constrain`` → (x, the layers' states, k, v)."""
     states = []
     for layer in layers:
         x, st = layer(x, cfg)
         states.append(st)
     x, k, v, _ = shared(x, positions, cfg)
-    return x, states, k, v
+    return constrain(x), states, k, v
+
+
+def _ssm_unit(layer, x, cfg, constrain):
+    x, st = layer(x, cfg)
+    return constrain(x), st
 
 
 def forward(cfg, params: Transformer, embeds: torch.Tensor,
             positions: torch.Tensor, *, want_cache: bool = False,
-            remat: bool = True):
+            remat: bool = True, act_shard=None, moe_cap_shard=None):
     """Run the layers on (B, S, d) embeddings → (hidden (B, S, d), the MoE
     layers' summed aux loss (float32; 0 without MoE), cache or None).
 
@@ -502,7 +517,14 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
 
     ``remat``, when grad is enabled: each unit of the reference's scans (a
     layer; llama4's (dense, MoE) pair; a hybrid unit with its shared
-    block, and each tail layer) is recomputed in the backward."""
+    block, and each tail layer) is recomputed in the backward.
+
+    The sharding hooks (``distributed/sharding.py``), at the reference's
+    points: ``act_shard`` on the (B, S, d) stream after each block, Mamba
+    layer and hybrid unit (not after the hybrid's tail layers) and on the
+    MoE's grouped tokens; ``moe_cap_shard`` on the MoE's dispatch and
+    combine tensors.  None leaves the path as it is."""
+    constrain = act_shard or _same
     x = embeds
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
@@ -510,7 +532,7 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
     if fam == "ssm":
         states = []
         for layer in params.blocks:
-            x, st = _run(remat, layer, x, cfg)
+            x, st = _run(remat, _ssm_unit, layer, x, cfg, constrain)
             states.append(st)
         cache = _stack_states(states, Mamba1State, (cfg.n_layers,)) \
             if want_cache else None
@@ -522,7 +544,8 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
         for u in range(units):
             x, sts, k, v = _run(remat, _hybrid_unit,
                                 params.blocks[u * period:(u + 1) * period],
-                                params.shared_attn, x, positions, cfg)
+                                params.shared_attn, x, positions, cfg,
+                                constrain)
             states += sts
             ks.append(k)
             vs.append(v)
@@ -542,7 +565,7 @@ def forward(cfg, params: Transformer, embeds: torch.Tensor,
     ks, vs = [], []
     for i in range(0, cfg.n_layers, step):
         x, k, v, a = _run(remat, _attn_unit, params.blocks[i:i + step], x,
-                          positions, cfg)
+                          positions, cfg, act_shard, moe_cap_shard)
         if a is not None:
             aux = aux + a
         if want_cache:
@@ -560,8 +583,7 @@ def _clip_window(kv: torch.Tensor, cfg) -> torch.Tensor:
     s, w = kv.shape[2], cfg.window
     start = s - w
     slots = (start + torch.arange(w, device=kv.device)) % w
-    out = torch.zeros(kv.shape[:2] + (w,) + kv.shape[3:], dtype=kv.dtype,
-                      device=kv.device)
+    out = kv.new_zeros(kv.shape[:2] + (w,) + kv.shape[3:])
     out[:, :, slots] = kv[:, :, start:]
     return out
 
@@ -585,18 +607,20 @@ def _decode_mamba(layer, x, cfg, state):
 
 
 def decode_step(cfg, params: Transformer, embeds: torch.Tensor, cache,
-                pos: int):
+                pos: int, *, act_shard=None, moe_cap_shard=None):
     """One-token decode.  embeds: (B, 1, d); ``cache`` from ``forward`` (or
     ``serve.kv_cache.init_cache``), updated in place (the reference
     returns a new one): the KV caches at ``pos``, the SSM states whole.
-    MoE FFNs run dropless.  → (hidden (B, 1, d), cache)."""
+    MoE FFNs run dropless.  The hooks are ``forward``'s, at its points.
+    → (hidden (B, 1, d), cache)."""
+    constrain = act_shard or _same
     pos = int(pos)
     x = embeds
     fam = cfg.family
     if fam == "ssm":
         for li, layer in enumerate(params.blocks):
-            x = _decode_mamba(layer, x, cfg, Mamba1State(cache.conv[li],
-                                                         cache.ssm[li]))
+            x = constrain(_decode_mamba(layer, x, cfg, Mamba1State(
+                cache.conv[li], cache.ssm[li])))
         return x, cache
     if fam == "hybrid":
         period = cfg.attn_every
@@ -608,15 +632,16 @@ def decode_step(cfg, params: Transformer, embeds: torch.Tensor, cache,
                 x = _decode_mamba(layer, x, cfg, Mamba2State(
                     mamba.conv[u, j], mamba.ssm[u, j]))
                 if j == period - 1:
-                    x = params.shared_attn.decode(x, cache["k"][u],
-                                                  cache["v"][u], pos, cfg)
+                    x = constrain(params.shared_attn.decode(
+                        x, cache["k"][u], cache["v"][u], pos, cfg))
             else:
                 r = li - units * period
                 x = _decode_mamba(layer, x, cfg, Mamba2State(
                     tail.conv[r], tail.ssm[r]))
         return x, cache
     for li, blk in enumerate(params.blocks):
-        x = blk.decode(x, cache["k"][li], cache["v"][li], pos, cfg)
+        x = constrain(blk.decode(x, cache["k"][li], cache["v"][li], pos, cfg,
+                                 act_shard, moe_cap_shard))
     return x, cache
 
 

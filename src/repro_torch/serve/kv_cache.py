@@ -1,8 +1,8 @@
 """Decode caches of the port's LM serving, as ``transformer.decode_step``
 consumes them: KV ring buffers (bounded at ``window`` for the SWA archs),
 Mamba1 states (ssm), and the hybrid's Mamba2 states beside one KV cache
-for each application of its shared block.  ``cache_specs`` (the dry run's
-shapes without allocation) is ROADMAP item A14d."""
+for each application of its shared block.  ``cache_specs`` gives the dry
+run the same tree on the meta device: shapes and dtypes, no memory."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +20,12 @@ def cache_seq_len(cfg, seq_len: int) -> int:
 
 def _kv_shape(cfg, n: int, batch: int, sc: int):
     return (n, batch, sc, cfg.n_kv, cfg.hd)
+
+
+def cache_specs(cfg, batch: int, seq_len: int, dtype=None):
+    """``init_cache``'s tree on the meta device: its structure, shapes and
+    dtypes, with no memory (the reference returns ``ShapeDtypeStruct``s)."""
+    return init_cache(cfg, batch, seq_len, dtype=dtype, device="meta")
 
 
 def pad_cache(cfg, cache, max_len: int):

@@ -14,7 +14,10 @@ layer (a leaf whose parameters are matrices), each parameter is updated
 alone through views of the stacked state; otherwise the leaf's tensors
 are stacked for the update.  Parameters are updated in place (the
 reference donates them); the schedule and the bias corrections are
-float32 tensors, as ``jnp`` computes them.
+float32 tensors, as ``jnp`` computes them.  Where the parameters are
+DTensors the state is too: a moment shards like its parameter, and a
+factored one keeps the placements of the dims it keeps (the reference's
+dry run, ``_opt_specs``).
 """
 from __future__ import annotations
 
@@ -84,8 +87,22 @@ def clip_by_global_norm(grads: Grads, max_norm: float
             for gs in grads], gn
 
 
-def _zeros(shape, device) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=device)
+def _zeros(leaf: Leaf, shape) -> torch.Tensor:
+    """Float32 zeros of ``shape`` for a leaf's state, led by its stacked
+    axes: a DTensor where the leaf's parameters are one, each of their
+    shards moved past the stacked axes and dropped where ``shape`` ends
+    first."""
+    p = leaf.params[0]
+    if type(p) not in (torch.Tensor, torch.nn.Parameter):
+        from torch.distributed.tensor import DTensor, Replicate, Shard, zeros
+        if isinstance(p, DTensor):
+            n = len(leaf.lead)
+            return zeros(shape, dtype=torch.float32,
+                         device_mesh=p.device_mesh,
+                         placements=[Shard(pl.dim + n) if pl.is_shard() and
+                                     pl.dim + n < len(shape) else Replicate()
+                                     for pl in p.placements])
+    return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
 
 def _step0(leaves: Sequence[Leaf]) -> torch.Tensor:
@@ -99,8 +116,7 @@ def _step0(leaves: Sequence[Leaf]) -> torch.Tensor:
 
 def adamw_init(leaves: Sequence[Leaf]) -> AdamWState:
     def z():
-        return {leaf.key: _zeros(leaf.shape, leaf.params[0].device)
-                for leaf in leaves}
+        return {leaf.key: _zeros(leaf, leaf.shape) for leaf in leaves}
     return AdamWState(step=_step0(leaves), mu=z(), nu=z())
 
 
@@ -136,10 +152,11 @@ def adamw_update(oc: OptConfig, leaves: Sequence[Leaf], grads: Grads,
 def adafactor_init(leaves: Sequence[Leaf]) -> AdafactorState:
     vr, vc = {}, {}
     for leaf in leaves:
-        shape, dev = leaf.shape, leaf.params[0].device
-        vr[leaf.key] = _zeros(shape[:-1] if len(shape) >= 2 else shape, dev)
-        vc[leaf.key] = _zeros(shape[:-2] + shape[-1:]
-                              if len(shape) >= 2 else (), dev)
+        shape = leaf.shape
+        vr[leaf.key] = _zeros(leaf, shape[:-1] if len(shape) >= 2
+                              else shape)
+        vc[leaf.key] = _zeros(leaf, shape[:-2] + shape[-1:]
+                              if len(shape) >= 2 else ())
     return AdafactorState(step=_step0(leaves), vr=vr, vc=vc)
 
 

@@ -8,6 +8,13 @@ other and sums their grads in float32 buffers, as the reference's scan
 sums into its float32 ``zero`` accumulator; the optimizer then sees their
 mean in float32.  With one microbatch it sees the grads in the
 parameters' dtype, as the reference's does.
+
+The sharding hooks (``distributed/sharding.py``): ``act_shard``,
+``logit_shard`` and ``moe_cap_shard`` go to ``Model.loss_fn``;
+``grad_shardings`` (``sharding.param_placements``: ``Leaf.key`` → the
+placements of its parameters) redistributes each grad to them as soon as
+it is produced.  With DTensor parameters the step, backward and update
+included, runs under ``implicit_replication()``.
 """
 from __future__ import annotations
 
@@ -15,49 +22,65 @@ from typing import Dict
 
 import torch
 
+from ..distributed.sharding import replicating
 from ..models import transformer
 from ..models.model import Model
 from . import compression as comp
 from . import optimizer as opt
 
 
-def _grads(model: Model, params, leaves, batch, remat: bool):
+def _grads(model: Model, params, leaves, batch, remat: bool, hooks,
+           grad_shardings):
     """→ (loss, metrics, grads per leaf), every tensor detached."""
-    loss, metrics = model.loss_fn(params, batch, remat=remat)
+    loss, metrics = model.loss_fn(params, batch, remat=remat, **hooks)
     flat = torch.autograd.grad(loss, [p for leaf in leaves
                                       for p in leaf.params])
     it = iter(flat)
     grads = [[next(it) for _ in leaf.params] for leaf in leaves]
+    if grad_shardings is not None:
+        grads = [[g.redistribute(g.device_mesh, grad_shardings[leaf.key])
+                  for g in gs] for leaf, gs in zip(leaves, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(model: Model, oc: opt.OptConfig, *,
-                    microbatches: int = 1, compress: bool = False,
+                    microbatches: int = 1, act_shard=None,
+                    logit_shard=None, grad_shardings=None,
+                    moe_cap_shard=None, compress: bool = False,
                     remat: bool = True):
     """→ step(params, opt_state, err_state, batch) → (params, opt_state,
     err_state, metrics): ``params`` (the ``Transformer``) and the states
     updated in place.  ``err_state`` is None unless ``compress``.  The
     batch's leading axis splits into ``microbatches`` equal parts."""
+    hooks = dict(act_shard=act_shard, logit_shard=logit_shard,
+                 moe_cap_shard=moe_cap_shard)
 
     def step(params, opt_state, err_state, batch: Dict[str, torch.Tensor]):
+        with replicating(params):
+            return run(params, opt_state, err_state, batch)
+
+    def run(params, opt_state, err_state, batch):
         leaves = transformer.leaf_map(model.cfg, params)
         if microbatches == 1:
-            loss, metrics, grads = _grads(model, params, leaves, batch, remat)
+            loss, metrics, grads = _grads(model, params, leaves, batch, remat,
+                                          hooks, grad_shardings)
         else:
             b = batch["tokens"].shape[0]
             if b % microbatches:
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             n = b // microbatches
-            grads = [[torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in leaf.params]
-                     for leaf in leaves]
+            # like their parameters: a DTensor's accumulator carries its
+            # placements
+            grads = [[torch.zeros_like(p, dtype=torch.float32)
+                      for p in leaf.params] for leaf in leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             ms = []
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, m, g = _grads(model, params, leaves, mb, remat)
+                l, m, g = _grads(model, params, leaves, mb, remat, hooks,
+                                 grad_shardings)
                 for acc, new in zip(grads, g):
                     for a, x in zip(acc, new):
                         a.add_(x)
@@ -77,8 +100,8 @@ def make_train_step(model: Model, oc: opt.OptConfig, *,
     return step
 
 
-# the reference's un-jitted builder (its dry run adds shardings to it);
-# here both are the same eager step
+# the reference's un-jitted builder (its dry run lowers it with explicit
+# shardings); here both are the same eager step
 make_train_step_fn = make_train_step
 
 
