@@ -281,7 +281,18 @@ Phases, each of which fails the run loudly:
    without DTensor; (b) one AdamW step with FSDP on, remat, ``act_shard``,
    ``logit_shard`` and ``grad_shardings`` at phase 38's 4 × 4,096 tokens:
    its loss and every updated parameter ≡ the plain step's bit for bit.
-   Neither phase launches a kernel of the port.
+   Neither phase launches a kernel of the port;
+44. the traced cost model, in a subprocess started after phase 38 at the
+   lowest priority (host work only, beside phases 39-43; no kernel, no
+   process group on the card): (a) the dry run's ``run_cell`` of tinyllama-1.1b
+   train_4k, llama4-maverick-400b-a17b decode_32k (MoE) and zamba2-7b
+   train_4k (Mamba2 and the shared attention block), each step traced on
+   meta-device DTensors over a fake process group's (16, 16) mesh under
+   this torch's own DTensor rules, a line per cell; (b) phase 32's decode
+   step and phase 38's train step traced on one device at their shapes:
+   the roofline's max(compute, memory) with the ideal bytes must not
+   exceed the device time those phases measured in this run (printed with
+   the eager bytes' term beside it).
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -735,8 +746,9 @@ LM_WITNESS_DEPTH, LM_WITNESS_SEEDS = 22, (SEED, SEED + 3)
 # (configs/base.py SHAPES "train_4k", 4,096 tokens) with train_4k's global
 # batch of 256 sequences cut to 4 (16,384 tokens a step): one card's 80 GB
 # and the run's time force it; TRAIN_STEPS steps of ~3.9 s on an H100
-# keep the whole run inside its 1,200 s; AdamW at the reference's
-# defaults but for a warmup of 5 steps
+# keep the whole run inside its 1,200 s; at 10 the last 5 steps' mean
+# loss stood above the first 5's (warmup 5: lr at its peak there); AdamW
+# at the reference's defaults but for a warmup of 5 steps
 TRAIN_ARCH, TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS = \
     "tinyllama-1.1b", "train_4k", 4, 12
 TRAIN_WARMUP = 5
@@ -761,6 +773,10 @@ RESTART_FAIL_AT = (6, 9)
 # phase 42: the dry run's cells (10 archs × 4 shapes on each of the two
 # production meshes; the 6 full-attention archs skip long_500k)
 DRYRUN_CELLS, DRYRUN_SKIPS = 34, 6
+# phase 44(a): the dry-run cells traced over the fake (16, 16) mesh
+TRACE_CELLS = (("tinyllama-1.1b", "train_4k"),
+               ("llama4-maverick-400b-a17b", "decode_32k"),
+               ("zamba2-7b", "train_4k"))
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -965,13 +981,16 @@ def kernel_times(kfn, tfn, kernels, iters: int = 20, twin_iters: int = 5):
     return ms, call_ms, cuda_ms(tfn, twin_iters)
 
 
-def profile_batches(fn, iters: int = 3, top: int = 6) -> str:
+def profile_batches(fn, iters: int = 3, top: int = 6,
+                    warm: bool = True) -> str:
     """Device kernel time by name over ``iters`` calls of ``fn`` with
-    torch.profiler, and the device's busy share of the host-clock window."""
+    torch.profiler, and the device's busy share of the host-clock window;
+    ``warm``: one call first (False: the caller has just run it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2457,7 +2476,7 @@ def counts_of(mods) -> dict:
     return {k: v for m in mods for k, v in m.launch_counts().items() if v}
 
 
-def mesh_cell(torch, fn, mods, iters: int = 3):
+def mesh_cell(torch, fn, mods, iters: int = 2):
     """One engine call ``fn``, warm: (its launches by kernel, ms per call on
     the host clock, peak device MiB and the MiB above what was resident
     before, the profiler's busy share and top device items)."""
@@ -2473,7 +2492,7 @@ def mesh_cell(torch, fn, mods, iters: int = 3):
     ms = host_ms(fn, iters, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     return (launches, ms, peak / 2 ** 20, (peak - base) / 2 ** 20,
-            profile_batches(fn, iters=iters))
+            profile_batches(fn, iters=iters, warm=False))
 
 
 def print_cells(what, mesh, host) -> None:
@@ -2678,9 +2697,10 @@ def phase_mesh_engines(torch, dev, mods, serve, SpatialShards, traversal,
           "mesh join: differs from the host path")
     print(f"  join: {len(got)} pairs ≡ twin program and the host path; "
           f"counters {ctr.asdict()}", flush=True)
+    # a join takes 3-6 s a call: one timed and one profiled
     print_cells("join", mesh_cell(torch, lambda: shards.join(
-        probe_tree, **kw), mods, iters=2), mesh_cell(
-        torch, lambda: host.join(probe_tree, **kw), mods, iters=2))
+        probe_tree, **kw), mods, iters=1), mesh_cell(
+        torch, lambda: host.join(probe_tree, **kw), mods, iters=1))
     return heights
 
 
@@ -4289,7 +4309,7 @@ def phase_dryrun(torch, smi):
         out = os.path.join(d, "dryrun.json")
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--both-meshes", "--out", out], cwd=ROOT,
+             "--both-meshes", "--memory-only", "--out", out], cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
             text=True, timeout=300)
         check(proc.returncode == 0, f"dry run: rc {proc.returncode}: "
@@ -4443,6 +4463,96 @@ def phase_hooks():
     print(proc.stdout, end="", flush=True)
     check(proc.returncode == 0, f"hooks check: rc {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
+
+
+def cost_trace() -> None:
+    """Phase 44's traces, in their own process (a fake process group is
+    one per process), started after phase 38 so that the host work
+    overlaps phases 39-43: ``TRACE_CELLS`` on the fake (16, 16) mesh,
+    a line each, then as the last line the one-device bounds of phase
+    32's decode step and phase 38's train step (JSON)."""
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.base import ShapeSpec, get_shape
+    from repro_torch.launch import dryrun
+    for arch, shape in TRACE_CELLS:
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape, multi_pod=False)
+        check("error" not in res and "skipped" not in res,
+              f"trace {arch} × {shape}: {res}")
+        check(0 < res["useful_flop_fraction"] <= 1,
+              f"trace {arch} × {shape}: useful FLOP fraction "
+              f"{res['useful_flop_fraction']}")
+        print(f"  (a) {dryrun.describe_cost(res)} "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    train = get_shape(TRAIN_SHAPE)
+    bounds = {}
+    for key, arch, shp, mb in (
+            ("decode", LM_ARCH,
+             ShapeSpec("phase32", LM_PROMPT + LM_NEW, LM_BATCH, "decode"),
+             None),
+            ("train", TRAIN_ARCH,
+             ShapeSpec(TRAIN_SHAPE, train.seq_len, TRAIN_BATCH, "train"), 1)):
+        t0 = time.perf_counter()
+        rep, cfg, shp = dryrun.cell_cost(arch, shp, None, microbatches=mb)
+        t = dryrun.analyse(rep, cfg, shp, 1)["terms"]
+        bounds[key] = {
+            "arch": arch, "batch": shp.global_batch, "seq": shp.seq_len,
+            "secs": time.perf_counter() - t0, "tflop": rep.flops / 1e12,
+            "bf16_tflop": rep.matmul_flops_lowp / 1e12,
+            "ideal_gb": rep.bytes_ideal / 1e9, "eager_gb": rep.bytes / 1e9,
+            "compute_ms": t["compute_s"] * 1e3,
+            "memory_ms": t["memory_s"] * 1e3,
+            "eager_ms": rep.bytes / dryrun.HBM_BW * 1e3}
+    print(json.dumps({"bounds": bounds}), flush=True)
+
+
+def start_cost() -> subprocess.Popen:
+    """``cost_trace`` in a subprocess at the lowest priority (``nice``
+    19), its stderr into a temporary file (DTensor's warnings would fill
+    a pipe that nobody reads until phase 44); killed at exit if still
+    running."""
+    import atexit
+    import tempfile
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import os, chip_smoke; os.nice(19); "
+         "chip_smoke.cost_trace()"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=err, text=True)
+    proc.err_file = err
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase_cost(proc: subprocess.Popen, decode_ms: float,
+               train_ms: float) -> None:
+    """Phase 44: ``cost_trace``'s lines, and its bounds against the device
+    ms that phases 32 and 38 measured: max(compute, memory) with the ideal
+    bytes must not exceed them (TF32 stays off, PyTorch's default: the
+    float32 products at 67 TFLOP/s)."""
+    out, _ = proc.communicate(timeout=600)
+    proc.err_file.seek(0)
+    check(proc.returncode == 0, f"cost trace: rc {proc.returncode}: "
+          f"{proc.err_file.read()[-3000:]}")
+    lines = out.rstrip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    bounds = json.loads(lines[-1])["bounds"]
+    for key, what, measured in (("decode", "phase 32's decode step",
+                                 decode_ms),
+                                ("train", "phase 38's train step",
+                                 train_ms)):
+        b = bounds[key]
+        bound_ms = max(b["compute_ms"], b["memory_ms"])
+        print(f"  (b) {what} ({b['arch']}, {b['batch']} × {b['seq']}) "
+              f"traced on one device in {b['secs']:.1f} s: "
+              f"{b['tflop']:.3f} TFLOP ({b['bf16_tflop']:.3f} in bf16 "
+              f"matmuls), {b['ideal_gb']:.3f} GB ideal / "
+              f"{b['eager_gb']:.3f} GB eager; bound max(compute "
+              f"{b['compute_ms']:.3f}, memory {b['memory_ms']:.3f}) = "
+              f"{bound_ms:.3f} ms against {measured:.3f} ms of device time "
+              f"measured ({bound_ms / measured:.1%}); the eager bytes' term "
+              f"{b['eager_ms']:.3f} ms", flush=True)
+        check(bound_ms <= measured, f"{what}: bound {bound_ms:.3f} ms above "
+              f"the {measured:.3f} ms measured: the count is wrong")
 
 
 def main() -> None:
@@ -4746,8 +4856,8 @@ def main() -> None:
           f"layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
           f"{lm_cfg.n_kv} KV heads, d_ff {lm_cfg.d_ff}, vocab "
           f"{lm_cfg.vocab}), weights from seed {SEED}", flush=True)
-    phase_lm_bf16(torch, dev, lm_cfg, LM_BATCH, LM_PROMPT, LM_NEW,
-                  LM_BF16_TOL)
+    lm32 = phase_lm_bf16(torch, dev, lm_cfg, LM_BATCH, LM_PROMPT, LM_NEW,
+                         LM_BF16_TOL)
     torch.cuda.empty_cache()
     phase_lm_f32(torch, dev, lm_cfg, LM_F32_BATCH, LM_F32_PROMPT,
                  LM_F32_NEW, LM_F32_TOL)
@@ -4805,10 +4915,13 @@ def main() -> None:
           f"tokens ({TRAIN_SHAPE}'s length; its batch of "
           f"{base.get_shape(TRAIN_SHAPE).global_batch} cut to "
           f"{TRAIN_BATCH}), weights from seed {SEED}", flush=True)
-    phase_train(torch, dev, train_cfg, TRAIN_BATCH, seq, TRAIN_STEPS)
+    tr38 = phase_train(torch, dev, train_cfg, TRAIN_BATCH, seq, TRAIN_STEPS)
     torch.cuda.empty_cache()
     print(f"  phase 38: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
+    # phase 44's traces: host work, at the lowest priority, beside phases
+    # 39-43 (whose host times PERF.md tracks less than 1-38's)
+    cost_proc = start_cost()
 
     t0 = time.time()
     print("[39] the flash backward at phase 38's shapes", flush=True)
@@ -4844,6 +4957,16 @@ def main() -> None:
     t43 = time.time() - t0
     print(f"  phase 43: {t43:.1f} s on {name} ({smi}); phases 42-43 "
           f"{t42 + t43:.1f} s", flush=True)
+
+    t0 = time.time()
+    print("[44] the traced cost model: three dry-run cells over a fake "
+          "(16, 16) mesh, and the one-device bound of phases 32 and 38",
+          flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: phase 44's float32 rate assumes it off")
+    phase_cost(cost_proc, lm32["dev_ms"], tr38["dev_ms"])
+    print(f"  phase 44: {time.time() - t0:.1f} s on {name} ({smi})",
+          flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths
     # (phases 5, 8, 11, 15 and 19); B2, B4, B6, B7, B9, B10 and B12, which

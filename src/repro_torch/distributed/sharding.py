@@ -262,21 +262,27 @@ def local_shape(mesh, spec: Spec, shape: Sequence[int]) -> Tuple[int, ...]:
 
 def distribute_params(cfg, mesh, params: transformer.Transformer, *,
                       fsdp: bool = False,
-                      moe_ep_axis: Optional[str] = "auto"
+                      moe_ep_axis: Optional[str] = "auto",
+                      by_leaf: Optional[Dict[str, tuple]] = None
                       ) -> transformer.Transformer:
     """Every parameter of ``params`` replaced, in place, by a DTensor on
     the ``DeviceMesh`` ``mesh`` with its spec's placements (each rank
-    holds the same full tensors before the call) → ``params``."""
+    holds the same full tensors before the call) → ``params``.
+    ``by_leaf``: the placements by ``Leaf.key`` to use instead (the dry
+    run places a model cut in depth as its whole depth is placed).
+    Parameters on the meta device are placed without communication."""
     from torch.distributed.tensor import distribute_tensor
-    by_leaf = param_placements(cfg, mesh, params, fsdp=fsdp,
-                               moe_ep_axis=moe_ep_axis)
+    if by_leaf is None:
+        by_leaf = param_placements(cfg, mesh, params, fsdp=fsdp,
+                                   moe_ep_axis=moe_ep_axis)
     where = {id(p): by_leaf[leaf.key]
              for leaf in transformer.leaf_map(cfg, params)
              for p in leaf.params}
     for module in params.modules():
         for name, p in list(module.named_parameters(recurse=False)):
+            src = {"src_data_rank": None} if p.device.type == "meta" else {}
             module.register_parameter(name, nn.Parameter(
-                distribute_tensor(p.detach(), mesh, where[id(p)]),
+                distribute_tensor(p.detach(), mesh, where[id(p)], **src),
                 requires_grad=p.requires_grad))
     return params
 

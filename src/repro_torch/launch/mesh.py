@@ -26,6 +26,7 @@ gives the replica axis.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -57,6 +58,25 @@ def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return ShapeMesh(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over a fake process
+    group (``torch.testing``'s ``FakeStore``: this process is rank 0 and
+    no other rank exists; collectives return at once), for as long as
+    the context lasts: what the dry run traces a cell's step over on the
+    meta device.  No other process group may be initialized."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_mesh(shape, axes, device_type: str = "cuda"):

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed import shards, trace_cost
+
 NEG_INF = -1e30
 
 
@@ -55,31 +57,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _heads_replicated(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor of (B, S, ...) activations with its shards on dims past
-    the sequence (heads over 'model') replicated; its batch's shards,
-    and a plain tensor, as they are."""
-    if type(t) is torch.Tensor:
-        return t
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(t, DTensor) or not any(
-            p.is_shard() and p.dim >= 2 for p in t.placements):
-        return t
-    return t.redistribute(t.device_mesh, [
-        Replicate() if p.is_shard() and p.dim >= 2 else p
-        for p in t.placements])
-
-
-def split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+def split_heads(t: torch.Tensor, n_heads: int, hd: int,
+                n_groups: Optional[int] = None) -> torch.Tensor:
     """(B, S, n_heads·hd) → (B, S, n_heads, hd).  A DTensor sharded on its
-    last dim (heads over 'model') is replicated there first: the
-    attention's einsums flatten (batch, KV head) into one dim, which
-    DTensor refuses for a sharded dim behind the first (torch 2.11), and
-    where the shards cut a head it refuses the view itself; GSPMD
-    reshards there unasked.  So the attention itself runs replicated over
-    the axis that shards the heads."""
+    last dim (the heads over 'model') keeps the heads sharded where the
+    shards hold whole groups of ``n_groups`` (the KV heads: by default
+    ``n_heads``), as the reference's ``attn/w*`` specs place them; where
+    they do not (4 KV heads over 16 devices), the heads are replicated
+    first (an all-gather the trace counts): the shards would cut a head or
+    a KV group."""
     b, s = t.shape[:2]
-    return _heads_replicated(t).reshape(b, s, n_heads, hd)
+    if shards.shards_of(t, 2) > 1 and \
+            (n_groups or n_heads) % shards.shards_of(t, 2):
+        t = shards.replicate_dims(t, (2,))
+    return t.reshape(b, s, n_heads, hd)
 
 
 def _pick_chunk(s: int, target: int = 512) -> int:
@@ -106,6 +97,30 @@ def _chunk_needed(q_lo, k_lo, qc, kc, causal, window) -> bool:
     return needed
 
 
+def alike(items, weight: Optional[float] = None):
+    """Iterate ``items``: a loop's alike iterations (the same ops on the
+    same shapes: flash attention's blocks, an SSM scan's chunks).  Under
+    a sampling cost trace (``trace_cost.sampling``) only the first runs,
+    each of its ops counted ``weight`` times (default: as many as the
+    items), so that a trace at a long sequence stays short; the caller
+    repeats what the iteration returned to the loop's length."""
+    items = list(items)
+    if not items or not trace_cost.sampling():
+        yield from items
+        return
+    with trace_cost.weight(len(items) if weight is None else weight):
+        yield items[0]
+
+
+def _blocks(nq, nk, qc, kc, q_offset, causal, window):
+    """[(q-chunk, the kv-chunks it needs)] and the blocks' mean count a
+    q-chunk (the sampled q-chunk's blocks count that many times)."""
+    plan = [(iq, [jk for jk in range(nk) if _chunk_needed(
+        iq * qc + q_offset, jk * kc, qc, kc, causal, window)])
+        for iq in range(nq)]
+    return plan, sum(len(jks) for _, jks in plan) / nq
+
+
 def _flash_fwd(q, k, v, causal, window, q_offset, qc, kc):
     """→ (out (B, Sq, H, D) in q's dtype, lse (B, K, rep, Sq) float32)."""
     b, sq, h, d = q.shape
@@ -118,16 +133,15 @@ def _flash_fwd(q, k, v, causal, window, q_offset, qc, kc):
     vr = v.reshape(b, nk, kc, kh, d)
     f32 = dict(dtype=torch.float32, device=q.device)
     outs, lses = [], []
-    for iq in range(nq):
+    plan, per_q = _blocks(nq, nk, qc, kc, q_offset, causal, window)
+    for iq, jks in alike(plan):
         q_blk = (qr[:, iq] * scale).float()            # (B, qc, K, rep, D)
         q_lo = iq * qc + q_offset
         m = torch.full((b, kh, rep, qc), NEG_INF, **f32)
         l = torch.zeros((b, kh, rep, qc), **f32)
         acc = torch.zeros((b, kh, rep, qc, d), **f32)
-        for jk in range(nk):
+        for jk in alike(jks, per_q):
             k_lo = jk * kc
-            if not _chunk_needed(q_lo, k_lo, qc, kc, causal, window):
-                continue
             s = torch.einsum("bqkrd,bskd->bkrqs", q_blk, kr[:, jk].float())
             mask = _block_mask(qc, kc, q_lo, k_lo, causal, window, q.device)
             s = torch.where(mask, s, NEG_INF)
@@ -143,8 +157,9 @@ def _flash_fwd(q, k, v, causal, window, q_offset, qc, kc):
         out = acc / l[..., None]                       # (B, K, rep, qc, D)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
         lses.append(m + torch.log(l))                  # (B, K, rep, qc)
-    return (torch.cat(outs, dim=1).reshape(b, sq, h, d),
-            torch.cat(lses, dim=-1))
+    reps = nq // len(outs)              # a sampling trace ran one q-chunk
+    return (torch.cat(outs * reps, dim=1).reshape(b, sq, h, d),
+            torch.cat(lses * reps, dim=-1))
 
 
 def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
@@ -165,22 +180,19 @@ def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
     lser = lse.reshape(b, kh, rep, nq, qc)
     delta = torch.einsum("bnqkrd,bnqkrd->bkrnq", dor.float(),
                          out.reshape(b, nq, qc, kh, rep, d).float())
-    # accumulators like q: DTensors where q is one, as the in-place sums
-    # into them need
     dk = q.new_zeros((b, nk, kc, kh, d), dtype=torch.float32)
     dv = q.new_zeros((b, nk, kc, kh, d), dtype=torch.float32)
     dqs = []
-    for iq in range(nq):
+    plan, per_q = _blocks(nq, nk, qc, kc, q_offset, causal, window)
+    for iq, jks in alike(plan):
         q_blk = qr[:, iq].float() * scale              # (B, qc, K, rep, D)
         do_blk = dor[:, iq].float()
         lse_blk = lser[:, :, :, iq, :, None]           # (B, K, rep, qc, 1)
         dl_blk = delta[:, :, :, iq, :, None]
         q_lo = iq * qc + q_offset
         dq = q.new_zeros((b, qc, kh, rep, d), dtype=torch.float32)
-        for jk in range(nk):
+        for jk in alike(jks, per_q):
             k_lo = jk * kc
-            if not _chunk_needed(q_lo, k_lo, qc, kc, causal, window):
-                continue
             k_blk, v_blk = kr[:, jk].float(), vr[:, jk].float()
             s = torch.einsum("bqkrd,bskd->bkrqs", q_blk, k_blk)
             mask = _block_mask(qc, kc, q_lo, k_lo, causal, window, q.device)
@@ -192,7 +204,8 @@ def _flash_bwd(q, k, v, out, lse, do, causal, window, q_offset, qc, kc):
             # q_blk is already scaled, so no extra factor here
             dk[:, jk] += torch.einsum("bkrqs,bqkrd->bskd", ds, q_blk)
         dqs.append(dq)
-    return (torch.stack(dqs, dim=1).reshape(b, sq, h, d).to(q.dtype),
+    reps = nq // len(dqs)               # a sampling trace ran one q-chunk
+    return (torch.stack(dqs * reps, dim=1).reshape(b, sq, h, d).to(q.dtype),
             dk.reshape(b, sk, kh, d).to(k.dtype),
             dv.reshape(b, sk, kh, d).to(v.dtype))
 
@@ -211,10 +224,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        # a DTensor grad arrives with its heads sharded as the output
-        # projection's backward leaves them (see ``split_heads``)
-        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, _heads_replicated(do),
-                                *ctx.blocks)
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, *ctx.blocks)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -225,19 +235,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     K, D) (GQA: H a multiple of K).  ``q_offset``: absolute position of
     q[0] relative to k[0].  ``window`` > 0: position i attends to
     (i-window, i].  The peak live tensor is one (B, K, rep, qc, kc) block
-    of float32 scores.  With grad enabled it runs as ``_FlashAttention``,
-    whose backward recomputes each block's probabilities from the saved
-    log-sum-exp; the output is the same either way."""
+    of float32 scores.  DTensor inputs run on each device's shards of the
+    batch and heads (``shards.local_map``).  With grad enabled it runs as
+    ``_FlashAttention``, whose backward recomputes each block's
+    probabilities from the saved log-sum-exp; the output is the same
+    either way."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     qc = chunk or _pick_chunk(sq)
     kc = chunk or _pick_chunk(sk)
     if sq % qc or sk % kc:
         raise ValueError(f"chunks {qc}, {kc} do not divide {sq}, {sk}")
-    if torch.is_grad_enabled():
-        return _FlashAttention.apply(q, k, v, causal, window, q_offset, qc,
-                                     kc)
-    return _flash_fwd(q, k, v, causal, window, q_offset, qc, kc)[0]
+
+    def attend(q, k, v):
+        if torch.is_grad_enabled():
+            return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                         qc, kc)
+        return _flash_fwd(q, k, v, causal, window, q_offset, qc, kc)[0]
+    # DTensors: each device attends its batch rows and heads
+    # (q's heads and the KV heads split alike: ``split_heads`` keeps them
+    # sharded only where the shards hold whole KV groups)
+    return shards.local_map(attend, ((q, "bshd"), (k, "bthd"), (v, "bthd")),
+                            ("bshd",), keep="bh")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -253,7 +272,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     rep = h // kh
     scale = 1.0 / math.sqrt(d)
     qr = (q.reshape(b, kh, rep, d) * scale).float()
-    s = torch.einsum("bkrd,bskd->bkrs", qr, k_cache.float())
+    s = shards.einsum("bkrd,bskd->bkrs", qr, k_cache.float())
     slot = torch.arange(sc, device=q.device)
     if window > 0:
         tok_age = torch.remainder(pos - slot, sc)       # 0 = current token
@@ -264,8 +283,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = p / p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkrs,bskd->bkrd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    out = shards.einsum("bkrs,bskd->bkrd", p.to(v_cache.dtype).float(),
+                        v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -280,7 +299,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP; every product in x's dtype."""
-    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+    mm = shards.matmul
+    return mm(silu(mm(x, w_gate)) * mm(x, w_up), w_down)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..distributed.sharding import replicating
+from ..distributed.shards import embed_rows, matmul
 from . import frontends, transformer
 from .layers import rms_norm
 
@@ -37,7 +38,9 @@ class Model:
 
     # -- embedding / head ----------------------------------------------------
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params.embed[tokens.long()]
+        # a vocabulary-sharded table: each device gathers its own rows and
+        # the partial sums are all-reduced (``shards.embed_rows``)
+        return embed_rows(params.embed, tokens.long())
 
     def _embed_batch(self, params, batch) -> Tuple[torch.Tensor, int]:
         """→ (embeds (B, S_total, d), start of the token region)."""
@@ -53,8 +56,8 @@ class Model:
         float32, as the reference does)."""
         h = rms_norm(hidden, params.final_norm)
         if self.cfg.tie_embeddings:
-            return h @ params.embed.t()
-        return h @ params.lm_head
+            return matmul(h, params.embed.t())
+        return matmul(h, params.lm_head)
 
     # -- training loss -------------------------------------------------------
     def loss_fn(self, params, batch, *, remat: bool = True, act_shard=None,

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from torch import nn
 
+from ..distributed.shards import einsum
 from .layers import silu
 
 
@@ -45,7 +46,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     if group_shard is not None:
         xg = group_shard(xg)
 
-    logits = torch.einsum("gsd,de->gse", xg.float(), router_w.float())
+    logits = einsum("gsd,de->gse", xg.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k breaks ties to the lower index; a stable sort does too
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -71,18 +72,18 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     # zeros; F.one_hot raises on it, so those rows are masked
     pos_oh = F.one_hot(torch.where(keep, pos, 0).long(), cap).float() * \
         keep[..., None]                                     # (G, S, k, C)
-    dispatch = torch.einsum("gske,gskc->gsec", oh, pos_oh)
-    combine = torch.einsum("gske,gskc->gsec", oh * gate_vals[..., None],
+    dispatch = einsum("gske,gskc->gsec", oh, pos_oh)
+    combine = einsum("gske,gskc->gsec", oh * gate_vals[..., None],
                            pos_oh)
     if cap_shard is not None:
         dispatch = cap_shard(dispatch)
         combine = cap_shard(combine)
 
-    buf = torch.einsum("gsd,gsec->gecd", xg, dispatch.to(x.dtype))
-    h_g = torch.einsum("gecd,edf->gecf", buf, w_gate)
-    h_u = torch.einsum("gecd,edf->gecf", buf, w_up)
-    h = torch.einsum("gecf,efd->gecd", silu(h_g) * h_u, w_down)
-    y = torch.einsum("gecd,gsec->gsd", h, combine.to(x.dtype))
+    buf = einsum("gsd,gsec->gecd", xg, dispatch.to(x.dtype))
+    h_g = einsum("gecd,edf->gecf", buf, w_gate)
+    h_u = einsum("gecd,edf->gecf", buf, w_up)
+    h = einsum("gecf,efd->gecd", silu(h_g) * h_u, w_down)
+    y = einsum("gecd,gsec->gsd", h, combine.to(x.dtype))
 
     frac_tokens = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
     aux = e * (frac_tokens * probs.mean(dim=(0, 1))).sum()

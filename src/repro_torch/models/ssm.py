@@ -21,7 +21,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .layers import causal_conv1d, rms_norm, silu
+from ..distributed import shards
+from .layers import alike, causal_conv1d, rms_norm, silu
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +84,7 @@ def selective_scan(decay: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor,
     s = decay.shape[1]
     ch = chunk_len(s, chunk)
     h, ys = h0, []
-    for c0 in range(0, s, ch):
+    for c0 in alike(range(0, s, ch)):
         a_cum, b_cum = associative_scan((decay[:, c0:c0 + ch],
                                          inp[:, c0:c0 + ch]))
         h_all = a_cum * h[:, None] + b_cum               # (B, ch, D, N)
@@ -91,7 +92,8 @@ def selective_scan(decay: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor,
         # a copy: a view would keep the chunk's (B, ch, D, N) states alive
         # in every layer's cache
         h = h_all[:, -1].contiguous()
-    return torch.cat(ys, dim=1), h
+    # a sampling trace ran one chunk for all (``alike``)
+    return torch.cat(ys * (s // ch // len(ys)), dim=1), h
 
 
 class Mamba1State(NamedTuple):
@@ -104,22 +106,27 @@ def mamba1_forward(p, x: torch.Tensor, *, d_inner: int, n_state: int,
                    chunk: int = 256) -> Tuple[torch.Tensor, Mamba1State]:
     """The Mamba1 mixer.  x: (B, S, d) → (y (B, S, d), state)."""
     b = x.shape[0]
-    xi, z = (x @ p.in_proj).split(d_inner, dim=-1)
+    mm = shards.matmul
+    xi, z = mm(x, p.in_proj).split(d_inner, dim=-1)
     xi, conv_state = causal_conv1d(xi, p.conv_w, p.conv_b,
                                    None if state is None else state.conv)
     xi = silu(xi)
-    dt, b_t, c_t = (xi @ p.x_proj).split([dt_rank, n_state, n_state],
+    dt, b_t, c_t = mm(xi, p.x_proj).split([dt_rank, n_state, n_state],
                                          dim=-1)
-    dt = softplus(dt @ p.dt_proj + p.dt_bias)            # (B, S, d_inner)
+    dt = softplus(mm(dt, p.dt_proj) + p.dt_bias)        # (B, S, d_inner)
     a = -torch.exp(p.a_log.float())                      # (d_inner, N)
     decay = torch.exp(dt.float()[..., None] * a)         # (B, S, di, N)
     inp = (dt * xi).float()[..., None] * b_t.float()[:, :, None, :]
     h0 = x.new_zeros((b, d_inner, n_state), dtype=torch.float32) \
         if state is None else state.ssm
-    y, h_last = selective_scan(decay, inp, h0, c_t.float(), chunk)
+    # on DTensors, each device scans its batch rows and channels
+    y, h_last = shards.local_map(
+        lambda *t: selective_scan(*t, chunk),
+        ((decay, "bsdn"), (inp, "bsdn"), (h0, "bdn"), (c_t.float(), "bsn")),
+        ("bsd", "bdn"), keep="bd")
     y = y.to(x.dtype) + p.d_skip * xi
     y = y * silu(z)
-    return y @ p.out_proj, Mamba1State(conv=conv_state, ssm=h_last)
+    return mm(y, p.out_proj), Mamba1State(conv=conv_state, ssm=h_last)
 
 
 def mamba1_decode(p, x: torch.Tensor, state: Mamba1State, *, d_inner: int,
@@ -152,7 +159,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ch = chunk_len(s, chunk)
     tri = torch.ones((ch, ch), dtype=torch.bool, device=xh.device).tril()
     h_in, ys = h0, []
-    for c0 in range(0, s, ch):
+    for c0 in alike(range(0, s, ch)):
         xc, dtc, bc, cc = (t[:, c0:c0 + ch] for t in (xh, dt, b_t, c_t))
         cum = torch.cumsum(dtc.float() * a, dim=1)       # L_t, (B, ch, H)
         # intra-chunk: exp(L_t - L_s') · dt_s' · (C_t·B_s') for s' ≤ t
@@ -170,7 +177,8 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                              bc.float())
         h_in = torch.exp(cum[:, -1])[:, :, None, None] * h_in + h_new
         ys.append(y_intra + y_cross)
-    return torch.cat(ys, dim=1), h_in
+    # a sampling trace ran one chunk for all (``alike``)
+    return torch.cat(ys * (s // ch // len(ys)), dim=1), h_in
 
 
 # the reference's gated norm has rms_norm's arithmetic (scale 1 + w); the
@@ -184,7 +192,8 @@ def mamba2_forward(p, x: torch.Tensor, *, d_inner: int, n_state: int,
                    chunk: int = 128) -> Tuple[torch.Tensor, Mamba2State]:
     """The Mamba2 mixer.  x: (B, S, d) → (y (B, S, d), state)."""
     b, s, _ = x.shape
-    xi, z, bc, dt = (x @ p.in_proj).split(
+    mm = shards.matmul
+    xi, z, bc, dt = mm(x, p.in_proj).split(
         [d_inner, d_inner, 2 * n_state, n_heads], dim=-1)
     xbc, conv_state = causal_conv1d(torch.cat([xi, bc], dim=-1), p.conv_w,
                                     p.conv_b,
@@ -195,10 +204,14 @@ def mamba2_forward(p, x: torch.Tensor, *, d_inner: int, n_state: int,
     xh = xi.reshape(b, s, n_heads, head_dim)
     h0 = x.new_zeros((b, n_heads, head_dim, n_state), dtype=torch.float32) \
         if state is None else state.ssm
-    y, h_last = ssd_chunked(xh, dt, a, b_t, c_t, h0, chunk)
+    # on DTensors, each device scans its batch rows and heads
+    y, h_last = shards.local_map(
+        lambda *t: ssd_chunked(*t, chunk),
+        ((xh, "bshd"), (dt, "bsh"), (a, "h"), (b_t, "bsn"), (c_t, "bsn"),
+         (h0, "bhdn")), ("bshd", "bhdn"), keep="bh")
     y = y + p.d_skip[None, None, :, None] * xh
     y = rms_norm_gated(y.reshape(b, s, d_inner) * silu(z), p.norm_w)
-    return y @ p.out_proj, Mamba2State(conv=conv_state, ssm=h_last)
+    return mm(y, p.out_proj), Mamba2State(conv=conv_state, ssm=h_last)
 
 
 def ssd_sequential_ref(xh, dt, a, b_t, c_t, h0):

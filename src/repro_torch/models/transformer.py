@@ -31,6 +31,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.shards import (matmul, merge_dims, reduce_partial,
+                                  write_at)
 from .layers import (apply_rope, decode_attention, flash_attention, rms_norm,
                      split_heads, swiglu)
 from .moe import MoEFFN
@@ -101,13 +103,13 @@ class Block(Layer):
         """→ (out (B, S, d), k (B, S, K, hd), v)."""
         b, s, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        q = split_heads(x @ self.wq, h, hd)
-        k = split_heads(x @ self.wk, kv, hd)
-        v = split_heads(x @ self.wv, kv, hd)
+        q = split_heads(matmul(x, self.wq), h, hd, kv)
+        k = split_heads(matmul(x, self.wk), kv, hd)
+        v = split_heads(matmul(x, self.wv), kv, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = flash_attention(q, k, v, causal=True, window=cfg.window)
-        return o.reshape(b, s, h * hd) @ self.wo, k, v
+        return reduce_partial(matmul(merge_dims(o, 2), self.wo)), k, v
 
     def forward(self, x, positions, cfg, group_shard=None, cap_shard=None):
         """→ (x, k, v, MoEMetrics or None); the MoE FFN at the config's
@@ -116,16 +118,16 @@ class Block(Layer):
         x = x + a
         y, metrics = self.ffn(rms_norm(x, self.ln2), cfg, cfg.moe_capacity,
                               group_shard, cap_shard)
-        return x + y, k, v, metrics
+        return x + reduce_partial(y), k, v, metrics
 
     def attend_decode(self, x, cache_k, cache_v, pos: int, cfg):
         """x: (B, 1, d); cache_k/v: (B, Sc, K, hd), written in place at the
         new token's slot.  → out (B, 1, d)."""
         b = x.shape[0]
         h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        q = split_heads(x @ self.wq, h, hd)
-        k = split_heads(x @ self.wk, kv, hd)
-        v = split_heads(x @ self.wv, kv, hd)
+        q = split_heads(matmul(x, self.wq), h, hd, kv)
+        k = split_heads(matmul(x, self.wk), kv, hd)
+        v = split_heads(matmul(x, self.wv), kv, hd)
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posb, cfg.rope_theta)
         k = apply_rope(k, posb, cfg.rope_theta)
@@ -136,11 +138,11 @@ class Block(Layer):
         # position the cache cannot hold is refused here instead
         if not 0 <= slot < sc:
             raise ValueError(f"position {pos} past the cache's {sc} slots")
-        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        write_at(cache_k, 1, slot, k[:, 0].to(cache_k.dtype))
+        write_at(cache_v, 1, slot, v[:, 0].to(cache_v.dtype))
         o = decode_attention(q, cache_k, cache_v, pos,
                              window=max(cfg.window, 0))
-        return o.reshape(b, 1, h * hd) @ self.wo
+        return reduce_partial(matmul(o.reshape(b, 1, h * hd), self.wo))
 
     def decode(self, x, cache_k, cache_v, pos: int, cfg, group_shard=None,
                cap_shard=None):
@@ -149,7 +151,7 @@ class Block(Layer):
                                    pos, cfg)
         y, _ = self.ffn(rms_norm(x, self.ln2), cfg, None, group_shard,
                         cap_shard)
-        return x + y
+        return x + reduce_partial(y)
 
 
 class MoEBlock(Block):
@@ -201,7 +203,7 @@ class Mamba1Layer(Layer):
                                   d_inner=cfg.d_inner, n_state=cfg.ssm_state,
                                   dt_rank=cfg.dt_rank, state=state,
                                   chunk=chunk)
-        return x + y, state
+        return x + reduce_partial(y), state
 
 
 class Mamba2Layer(Layer):
@@ -228,7 +230,7 @@ class Mamba2Layer(Layer):
                                   n_heads=cfg.ssm_heads,
                                   head_dim=cfg.ssm_head_dim, state=state,
                                   chunk=chunk)
-        return x + y, state
+        return x + reduce_partial(y), state
 
 
 def layer_classes(cfg) -> List[type]:

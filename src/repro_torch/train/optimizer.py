@@ -22,7 +22,9 @@ dry run, ``_opt_specs``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -72,9 +74,12 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(grads: Grads) -> torch.Tensor:
     """sqrt of the leaves' float32 sums of squares."""
-    leaves = [sum(torch.sum(torch.square(g.float())) for g in gs)
-              for gs in grads]
-    return torch.sqrt(sum(leaves))
+    # summed from the first term on (Python's sum would start at 0, which a
+    # DTensor's partial sum first reduces): the same values, and every
+    # layer's grads add alike
+    leaves = [functools.reduce(operator.add, (
+        torch.sum(torch.square(g.float())) for g in gs)) for gs in grads]
+    return torch.sqrt(functools.reduce(operator.add, leaves))
 
 
 def clip_by_global_norm(grads: Grads, max_norm: float
@@ -94,14 +99,24 @@ def _zeros(leaf: Leaf, shape) -> torch.Tensor:
     first."""
     p = leaf.params[0]
     if type(p) not in (torch.Tensor, torch.nn.Parameter):
-        from torch.distributed.tensor import DTensor, Replicate, Shard, zeros
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
         if isinstance(p, DTensor):
             n = len(leaf.lead)
-            return zeros(shape, dtype=torch.float32,
-                         device_mesh=p.device_mesh,
-                         placements=[Shard(pl.dim + n) if pl.is_shard() and
-                                     pl.dim + n < len(shape) else Replicate()
-                                     for pl in p.placements])
+            mesh = p.device_mesh
+            place = [Shard(pl.dim + n) if pl.is_shard() and
+                     pl.dim + n < len(shape) else Replicate()
+                     for pl in p.placements]
+            # the local shard on the parameters' own device (the meta
+            # device in the dry run), not on the mesh's device type
+            local, _ = compute_local_shape_and_global_offset(
+                tuple(shape), mesh, place)
+            z = torch.zeros(local, dtype=torch.float32,
+                            device=p.to_local().device)
+            return DTensor.from_local(
+                z, mesh, place, run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
     return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
 

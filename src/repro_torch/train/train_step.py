@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from ..distributed.sharding import replicating
+from ..distributed.shards import like, reduce_partial, replicate_dims
 from ..models import transformer
 from ..models.model import Model
 from . import compression as comp
@@ -40,7 +41,10 @@ def _grads(model: Model, params, leaves, batch, remat: bool, hooks,
     if grad_shardings is not None:
         grads = [[g.redistribute(g.device_mesh, grad_shardings[leaf.key])
                   for g in gs] for leaf, gs in zip(leaves, grads)]
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    # a DTensor loss summed over its shards (a scalar's all-reduce), so
+    # that every microbatch adds alike into the running loss
+    return reduce_partial(loss.detach()), \
+        {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(model: Model, oc: opt.OptConfig, *,
@@ -77,8 +81,14 @@ def make_train_step(model: Model, oc: opt.OptConfig, *,
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             ms = []
+            # a DTensor batch's rows (over 'data') gathered once, so that a
+            # microbatch is a local slice, which then takes the batch's
+            # placements again (slicing a sharded dim would gather the
+            # whole batch for every microbatch)
+            rows = {k: replicate_dims(v, (0,)) for k, v in batch.items()}
             for i in range(microbatches):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb = {k: like(v[i * n:(i + 1) * n], batch[k])
+                      for k, v in rows.items()}
                 l, m, g = _grads(model, params, leaves, mb, remat, hooks,
                                  grad_shardings)
                 for acc, new in zip(grads, g):

@@ -210,11 +210,13 @@ def test_cells_equal_reference(arch, ref_cells):
 
 
 def test_cli_reports_every_cell(tmp_path):
-    """``main(["--all", "--both-meshes", "--out", ...])``: 34 runnable
-    cells × 2 meshes with their bytes, the 6 long_500k cells of the
-    full-attention archs × 2 skipped with ``cell_runnable``'s reason."""
+    """``main(["--all", "--both-meshes", "--memory-only", "--out", ...])``:
+    34 runnable cells × 2 meshes with their bytes, the 6 long_500k cells
+    of the full-attention archs × 2 skipped with ``cell_runnable``'s
+    reason (the traced cost of a cell: ``tests/test_torch_dryrun_cost.py``)."""
     out = tmp_path / "dryrun.json"
-    assert dryrun.main(["--all", "--both-meshes", "--out", str(out)]) == 0
+    assert dryrun.main(["--all", "--both-meshes", "--memory-only", "--out",
+                        str(out)]) == 0
     cells = json.loads(out.read_text())
     done = [c for c in cells if "bytes_per_device" in c]
     skipped = [c for c in cells if "skipped" in c]
@@ -224,5 +226,5 @@ def test_cli_reports_every_cell(tmp_path):
         a for a, cfg in registry.all_archs().items() if not cfg.subquadratic}
     assert all(c["bytes_per_device"]["total"] > 0 for c in done)
     assert dryrun.main(["--arch", "zamba2-7b", "--shape", "long_500k",
-                        "--multi-pod", "--no-split-kv"]) == 0
+                        "--multi-pod", "--no-split-kv", "--memory-only"]) == 0
     assert get_shape("long_500k").global_batch == 1

@@ -17,9 +17,13 @@ shapes where they can.
 On a (1, 2) mesh of two gloo ranks (tensor parallelism 2): the reduced
 tinyllama config's float32 loss and every grad against the plain path,
 within ``TP_TOL`` relative (per leaf, max |diff| over max |plain|): the
-vocabulary-sharded embedding and logits and the head-sharded projections
-reduce in another order.  The largest difference seen was 2.9e-6 (the
-grads; the loss equal).
+vocabulary-sharded embedding (each rank gathers its own rows, the partial
+sums all-reduced) and logits and the head-sharded projections reduce in
+another order.  The largest difference seen was 2.9e-6 (the grads; the
+loss equal).  Its single KV head does not split over two ranks, so the
+attention runs replicated there; the same config with 2 KV heads runs
+head-parallel (each rank attends 2 of the 4 heads), held to the same
+bound.
 """
 import dataclasses
 import json
@@ -191,34 +195,60 @@ def child_one_by_one(port: int) -> None:
         dist.destroy_process_group()
 
 
+def _tp2_case(mesh, n_kv=None) -> dict:
+    """The reduced tinyllama config (``n_kv`` KV heads where given) on the
+    (1, 2) mesh against the plain path: the largest relative differences,
+    the sharded parameters, and the heads that a rank's attention saw."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as TT
+    cfg, model, batch, fresh = _setup("tinyllama-1.1b")
+    if n_kv:
+        cfg = dataclasses.replace(cfg, n_kv=n_kv)
+        model = type(model)(cfg)
+
+        def fresh():
+            return model.init_params(torch.Generator().manual_seed(0),
+                                     device="cpu")
+    plain = fresh()
+    dist_p = sharding.distribute_params(cfg, mesh, fresh())
+    hooks = dict(act_shard=sharding.make_act_shard(mesh),
+                 logit_shard=sharding.make_logit_shard(mesh))
+    pl, dl = TT.leaf_map(cfg, plain), TT.leaf_map(cfg, dist_p)
+    la, ga = _grads(model, plain, batch, {}, pl, remat=False)
+    heads, fwd = [], layers._flash_fwd
+
+    def seen(q, *a):
+        heads.append(q.shape[2])
+        return fwd(q, *a)
+    layers._flash_fwd = seen
+    try:
+        lb, gb = _grads(model, dist_p, batch, hooks, dl, remat=False)
+    finally:
+        layers._flash_fwd = fwd
+    shards = sum(any(p.is_shard() for p in q.placements)
+                 for q in dist_p.parameters())
+    rel = [float((a - _full(b)).abs().max() / a.abs().max())
+           for a, b in zip(ga, gb)]
+    return {"loss": float(abs(la - _full(lb)) / abs(la)), "grad": max(rel),
+            "leaves": len(rel), "sharded": shards,
+            "heads": sorted(set(heads)), "n_heads": cfg.n_heads}
+
+
 def child_tp2(rank: int, port: int) -> None:
     """One rank of the (1, 2) case; rank 0 prints the largest relative
-    differences as JSON."""
+    differences as JSON, for the reduced config and its 2-KV-head twin."""
     import torch.distributed as dist
-    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer as TT
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     try:
         mesh = make_mesh((1, 2), ("data", "model"), device_type="cpu")
-        cfg, model, batch, fresh = _setup("tinyllama-1.1b")
-        plain = fresh()
-        dist_p = sharding.distribute_params(cfg, mesh, fresh())
-        hooks = dict(act_shard=sharding.make_act_shard(mesh),
-                     logit_shard=sharding.make_logit_shard(mesh))
-        pl, dl = TT.leaf_map(cfg, plain), TT.leaf_map(cfg, dist_p)
-        la, ga = _grads(model, plain, batch, {}, pl, remat=False)
-        lb, gb = _grads(model, dist_p, batch, hooks, dl, remat=False)
-        shards = sum(any(p.is_shard() for p in q.placements)
-                     for q in dist_p.parameters())
-        rel = [float((a - _full(b)).abs().max() / a.abs().max())
-               for a, b in zip(ga, gb)]
-        loss = float(abs(la - _full(lb)) / abs(la))
+        got = _tp2_case(mesh)
+        got["head_parallel"] = _tp2_case(mesh, n_kv=2)
         if rank == 0:
-            print(json.dumps({"loss": loss, "grad": max(rel),
-                              "leaves": len(rel), "sharded": shards}))
+            print(json.dumps(got))
     finally:
         dist.destroy_process_group()
 
@@ -241,15 +271,32 @@ def test_one_by_one_mesh_equals_plain_path(arch, one_by_one):
     assert len(got) == 7 + (arch == TRAIN_STEP_ARCH), got
 
 
-def test_tensor_parallel_two_ranks_within_tolerance():
-    """TP = 2 over two gloo ranks: the loss and every grad within
-    ``TP_TOL`` of the plain path; most parameters are sharded."""
+@pytest.fixture(scope="module")
+def tp2():
     port = _free_port()
     procs = [_run(f"import test_torch_hooks as t; t.child_tp2({r}, {port})")
              for r in (0, 1)]
     outs = [p.communicate(timeout=600) for p in procs]
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
-    got = json.loads(outs[0][0].strip().splitlines()[-1])
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+def test_tensor_parallel_two_ranks_within_tolerance(tp2):
+    """TP = 2 over two gloo ranks: the loss and every grad within
+    ``TP_TOL`` of the plain path; most parameters are sharded."""
+    got = {k: v for k, v in tp2.items() if k != "head_parallel"}
     assert got["loss"] <= TP_TOL and got["grad"] <= TP_TOL, got
     assert got["sharded"] >= got["leaves"] // 2, got
+
+
+def test_head_parallel_attention_two_ranks_within_tolerance(tp2):
+    """With 2 KV heads over the two ranks each rank attends half the
+    heads (its local q holds 2 of 4), the vocabulary-sharded embedding
+    gathers its own rows, and the loss and every grad stay within
+    ``TP_TOL`` of the plain path."""
+    got = tp2["head_parallel"]
+    assert got["heads"] == [got["n_heads"] // 2], got
+    assert got["loss"] <= TP_TOL and got["grad"] <= TP_TOL, got
+    assert got["sharded"] >= got["leaves"] // 2, got
+    assert tp2["heads"] == [tp2["n_heads"]], tp2     # 1 KV head: replicated
