@@ -286,13 +286,28 @@ Phases, each of which fails the run loudly:
    lowest priority (host work only, beside phases 39-43; no kernel, no
    process group on the card): (a) the dry run's ``run_cell`` of tinyllama-1.1b
    train_4k, llama4-maverick-400b-a17b decode_32k (MoE) and zamba2-7b
-   train_4k (Mamba2 and the shared attention block), each step traced on
-   meta-device DTensors over a fake process group's (16, 16) mesh under
-   this torch's own DTensor rules, a line per cell; (b) phase 32's decode
-   step and phase 38's train step traced on one device at their shapes:
-   the roofline's max(compute, memory) with the ideal bytes must not
-   exceed the device time those phases measured in this run (printed with
-   the eager bytes' term beside it).
+   train_4k (Mamba2 and the shared attention block), and grok-1-314b
+   train_4k without and with the MoE knobs (``MOE_KNOBS``: dispatch groups
+   of 4,096 tokens, the dispatch and combine sharded over 'model', the
+   backward through them), each step traced on meta-device DTensors over
+   a fake process group's (16, 16) mesh under this torch's own DTensor
+   rules, a line per cell; the knob cell's ``moe_groups`` must be the dry
+   run's count, and its collective GiB and TFLOP a device are printed
+   beside the cell's without the knobs; (b) phase 32's decode step and
+   phase 38's train step traced on one device at their shapes: the
+   roofline's max(compute, memory) with the ideal bytes must not exceed
+   the device time those phases measured in this run (printed with the
+   eager bytes' term beside it);
+45. the port's four examples on cuda (``examples/*_torch.py``, each
+   through its ``main`` at its counterpart's sizes): the quickstart's
+   select ≡ the scalar baseline (its own assert) with B1 launched, the
+   served fleet's q/s > 0 with B1 launched, the join analytics' pairs
+   (B3 launched) ≡ a brute-force join of the same 30,000 × 30,000 rects
+   on the card, and the training example at ``EXAMPLE_TRAIN_STEPS``
+   steps: resumed half way, its loss falls across the resume; each
+   example's seconds.  Its time is paid by timing-only cuts of phases 23,
+   24 and 32-37 (each cut's seconds printed from the run's own
+   per-call times).
 
 The kernels' line (JSON) and nvidia-smi's line come before the last line,
 which is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -770,13 +785,30 @@ TRAIN_PATTERN_ARCHS = ("tinyllama-1.1b", "h2o-danube-1.8b", "musicgen-large",
                        "zamba2-7b")
 # phase 41: failures injected before these steps of a 12-step run
 RESTART_FAIL_AT = (6, 9)
+# timing-only repeats, cut to pay for phase 45 (the counts before in the
+# comments; ``main`` collects each cut's seconds from the run's own
+# per-call times): (a) phase 23's join cells make no warm-up or separate
+# counted call (the checks' calls warm them); (b) phase 24 serves 2 joins
+# a path (3); (c) the LM phases 32 and 34-37 time the prefill over 3 calls
+# (5), profile 5 decode steps (10) and time 5 on the host clock (20)
+MESH_SERVE_JOINS = 2
+LM_PREFILL_ITERS, LM_PROFILE_ITERS, LM_STEP_ITERS = 3, 5, 5
+# phase 45: the port's four examples on the card, the training example cut
+# to this many steps (its default 200: the loss falls across the resume
+# at 20 on the CPU)
+EXAMPLE_TRAIN_STEPS = 60
 # phase 42: the dry run's cells (10 archs × 4 shapes on each of the two
 # production meshes; the 6 full-attention archs skip long_500k)
 DRYRUN_CELLS, DRYRUN_SKIPS = 34, 6
-# phase 44(a): the dry-run cells traced over the fake (16, 16) mesh
-TRACE_CELLS = (("tinyllama-1.1b", "train_4k"),
-               ("llama4-maverick-400b-a17b", "decode_32k"),
-               ("zamba2-7b", "train_4k"))
+# phase 44(a): the dry-run cells traced over the fake (16, 16) mesh, each
+# with the dry run's knobs given (grok-1-314b train_4k without and with
+# the MoE knobs: the backward through the cap-sharded dispatch)
+MOE_KNOBS = {"cap_shard": True, "moe_group_tokens": 4096}
+TRACE_CELLS = (("tinyllama-1.1b", "train_4k", {}),
+               ("llama4-maverick-400b-a17b", "decode_32k", {}),
+               ("zamba2-7b", "train_4k", {}),
+               ("grok-1-314b", "train_4k", {}),
+               ("grok-1-314b", "train_4k", MOE_KNOBS))
 # operations per lane: MINDIST 13, MINMAXDIST 29 (subtractions, min/max,
 # selects, products and FMAs counted one each), for point and rect queries
 # alike
@@ -2476,20 +2508,27 @@ def counts_of(mods) -> dict:
     return {k: v for m in mods for k, v in m.launch_counts().items() if v}
 
 
-def mesh_cell(torch, fn, mods, iters: int = 2):
+def mesh_cell(torch, fn, mods, iters: int = 2, warm: bool = True):
     """One engine call ``fn``, warm: (its launches by kernel, ms per call on
     the host clock, peak device MiB and the MiB above what was resident
-    before, the profiler's busy share and top device items)."""
-    fn()
-    torch.cuda.synchronize()
+    before, the profiler's busy share and top device items).
+    ``warm=False``: a check has just run ``fn``, so no warm-up call, and
+    the one timed call (``iters`` 1) is the call whose launches count."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     for m in mods:
         m.reset_launch_counts()
-    fn()
-    torch.cuda.synchronize()
-    launches = counts_of(mods)
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+        launches = counts_of(mods)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(fn, iters, warmup=0)
+    if not warm:
+        check(iters == 1, "a cold mesh cell counts one timed call")
+        launches = counts_of(mods)
     peak = torch.cuda.max_memory_allocated()
     return (launches, ms, peak / 2 ** 20, (peak - base) / 2 ** 20,
             profile_batches(fn, iters=iters, warm=False))
@@ -2556,7 +2595,7 @@ def mesh_distance_cell(torch, shards, traversal, mods, op, queries, k,
 
 
 def phase_mesh_engines(torch, dev, mods, serve, SpatialShards, traversal,
-                       knn_browse, rtree, elevate):
+                       knn_browse, rtree, elevate, cuts):
     """Phase 23: the mesh programs over the 9-partition fleet of 2M points
     (``serve --partitions 8``), D1 and D3: select, kNN and kNN-join (k in
     MESH_KS), filtered kNN (k = 8), the distributed browse (k = 8, 4
@@ -2564,7 +2603,8 @@ def phase_mesh_engines(torch, dev, mods, serve, SpatialShards, traversal,
     counter but dispatches) and ≡ the host path on the same fleet; B5 a
     kNN batch is 2 × the forest's height, also over 4 partitions;
     launches, ms per batch, busy share and peak memory of the mesh and
-    host calls.  Returns {layout: forest height}."""
+    host calls.  Returns {layout: forest height}; the seconds cut (a) saves
+    go into ``cuts``."""
     rects = serve.make_rects(N_RECTS, SEED)
     sel_q = torch.from_numpy(serve.make_queries(
         1, BATCH, SELECTIVITY, SEED + 1)[0]).to(dev)
@@ -2697,17 +2737,24 @@ def phase_mesh_engines(torch, dev, mods, serve, SpatialShards, traversal,
           "mesh join: differs from the host path")
     print(f"  join: {len(got)} pairs ≡ twin program and the host path; "
           f"counters {ctr.asdict()}", flush=True)
-    # a join takes 3-6 s a call: one timed and one profiled
-    print_cells("join", mesh_cell(torch, lambda: shards.join(
-        probe_tree, **kw), mods, iters=1), mesh_cell(
-        torch, lambda: host.join(probe_tree, **kw), mods, iters=1))
+    # a join takes 3-6 s a call: the checks' calls just above warmed both
+    # paths, so one timed call, whose launches count, and one profiled
+    cells = (mesh_cell(torch, lambda: shards.join(probe_tree, **kw), mods,
+                       iters=1, warm=False),
+             mesh_cell(torch, lambda: host.join(probe_tree, **kw), mods,
+                       iters=1, warm=False))
+    print_cells("join", *cells)
+    # the calls that cut (a) no longer makes: each path's warm-up and its
+    # separate counted call
+    cuts["23: join cells' warm-up and counted calls"] = \
+        2 * sum(c[1] for c in cells) / 1e3
     return heights
 
 
 MESH_SERVE_MODES = (
     ("spatial", ["--batches", "20"]),
     ("join", ["--join-cap", str(JOIN_CAP), "--query-eps", str(QUERY_EPS),
-              "--batches", "3"]),
+              "--batches", str(MESH_SERVE_JOINS)]),
     ("knn", ["--k", str(KNN_K)]),
     ("knn-join", ["--k", str(KNN_K), "--query-eps", str(QUERY_EPS)]),
     ("knn-filtered", ["--k", str(KNN_K), "--filter-eps", str(FILTER_EPS)]),
@@ -2715,13 +2762,14 @@ MESH_SERVE_MODES = (
 )
 
 
-def phase_mesh_serve(mods, serve, heights):
+def phase_mesh_serve(mods, serve, heights, cuts):
     """Phase 24: ``serve.main`` for every fleet mode, D1 and D3 (the join
     D1), with ``--mesh on`` and ``--mesh off`` in turn at 2M points: no
     overflow, the first batch of the two paths equal (the join's last;
     browse: the first session's first k ids, all its distance bits), the
     rates side by side, B5 on the served mesh kNN = (batches + the warm
-    batch) × 2 × height.  Returns {kernel: launches on the mesh path}."""
+    batch) × 2 × height.  Returns {kernel: launches on the mesh path}; the
+    seconds cut (b) saves go into ``cuts``."""
     mesh_launches = {}
     for layout in ("d1", "d3"):
         for mode, argv in MESH_SERVE_MODES:
@@ -2755,6 +2803,9 @@ def phase_mesh_serve(mods, serve, heights):
                                       bd[:, :n]) and same_neighbours(
                           ai, ad, ai, bd),
                       f"served {mode} {layout}: mesh ≠ host first batch")
+            if mode == "join":    # cut (b): one join a path fewer
+                cuts["24: the served join's third join a path"] = \
+                    1 / on["joins_per_s"] + 1 / off["joins_per_s"]
             rate = "joins_per_s" if mode == "join" else "qps"
             unit = {"join": "joins/s", "browse": "sessions·q/s"}.get(mode,
                                                                      "q/s")
@@ -3847,11 +3898,13 @@ def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol,
                                tf_chunk or batch_size, 1,
                                f"{cfg.dtype} {cfg.n_layers} layers")
     prefill_ms = host_ms(lambda: model.prefill(
-        params, batch, max_len=prompt + n_new), 5)
+        params, batch, max_len=prompt + n_new), LM_PREFILL_ITERS)
+    cut_s = (5 - LM_PREFILL_ITERS) * prefill_ms
     dropless = ""
     if moe:
         dropless = host_ms(lambda: check_model.prefill(
-            params, batch, max_len=prompt + n_new), 5)
+            params, batch, max_len=prompt + n_new), LM_PREFILL_ITERS)
+        cut_s += (5 - LM_PREFILL_ITERS) * dropless
         dropless = f" (the dropless copy's {dropless:.3f} ms)"
     cache, _, p0 = model.prefill(params, batch, max_len=prompt + n_new)
     last = p0 + n_new - 2
@@ -3859,8 +3912,12 @@ def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol,
     def step():
         return model.decode(params, cache, out[:, -2], last)
 
-    dev_ms, items, busy = device_step(torch, step)
-    step_ms = host_ms(step, 20)
+    dev_ms, items, busy = device_step(torch, step, LM_PROFILE_ITERS)
+    step_ms = host_ms(step, LM_STEP_ITERS)
+    # cut (c): the profiled steps (each a window of dev_ms / busy) and the
+    # host-clock steps these counts no longer run
+    cut_s += (10 - LM_PROFILE_ITERS) * dev_ms / busy + \
+        (20 - LM_STEP_ITERS) * step_ms
     c_read, c_written = cache_traffic(cache)
     read = w_bytes - params.embed.numel() * params.embed.element_size() \
         + batch_size * cfg.d_model * params.embed.element_size()
@@ -3894,7 +3951,7 @@ def phase_lm_bf16(torch, dev, cfg, batch_size, prompt, n_new, tol,
           f"{routed}", flush=True)
     return dict(tok_s=batch_size * n_new / gen_s, prefill_ms=prefill_ms,
                 step_ms=step_ms, dev_ms=dev_ms, bound_ms=bound_ms, busy=busy,
-                peak=peak, err=err)
+                peak=peak, err=err, cut_s=cut_s / 1e3)
 
 
 def tf32_off(torch) -> None:
@@ -4472,18 +4529,39 @@ def cost_trace() -> None:
     a line each, then as the last line the one-device bounds of phase
     32's decode step and phase 38's train step (JSON)."""
     sys.path.insert(0, SRC)
+    from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeSpec, get_shape
     from repro_torch.launch import dryrun
-    for arch, shape in TRACE_CELLS:
+    from repro_torch.launch.mesh import make_production_mesh
+    plain = {}
+    for arch, shape, knobs in TRACE_CELLS:
         t0 = time.perf_counter()
-        res = dryrun.run_cell(arch, shape, multi_pod=False)
+        res = dryrun.run_cell(arch, shape, multi_pod=False, **knobs)
         check("error" not in res and "skipped" not in res,
-              f"trace {arch} × {shape}: {res}")
+              f"trace {arch} × {shape} {knobs}: {res}")
         check(0 < res["useful_flop_fraction"] <= 1,
               f"trace {arch} × {shape}: useful FLOP fraction "
               f"{res['useful_flop_fraction']}")
         print(f"  (a) {dryrun.describe_cost(res)} "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        if not knobs:
+            plain[arch, shape] = res
+            continue
+        want = dryrun.moe_groups(
+            registry.get(arch), get_shape(shape), make_production_mesh(),
+            moe_group_tokens=knobs["moe_group_tokens"])
+        check(res["moe_groups"] == want and res["cap_shard"] is
+              knobs["cap_shard"], f"trace {arch} × {shape} {knobs}: "
+              f"moe_groups {res.get('moe_groups')} (want {want}), "
+              f"cap_shard {res.get('cap_shard')}")
+        base = plain[arch, shape]
+        gib = [r["collective_bytes_per_device"] / 2**30 for r in (res, base)]
+        tflop = [r["flops_per_device"] / 1e12 for r in (res, base)]
+        print(f"  (a) {arch} × {shape} with {knobs}: moe_groups "
+              f"{res['moe_groups']}; per device {gib[0]:.3f} GiB of "
+              f"collectives against {gib[1]:.3f} without the knobs "
+              f"(moe_groups {base['moe_groups']}), {tflop[0]:.3f} TFLOP "
+              f"against {tflop[1]:.3f}", flush=True)
     train = get_shape(TRAIN_SHAPE)
     bounds = {}
     for key, arch, shp, mb in (
@@ -4553,6 +4631,78 @@ def phase_cost(proc: subprocess.Popen, decode_ms: float,
               f"{b['eager_ms']:.3f} ms", flush=True)
         check(bound_ms <= measured, f"{what}: bound {bound_ms:.3f} ms above "
               f"the {measured:.3f} ms measured: the count is wrong")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def brute_force_join(torch, dev, ra, rb, chunk: int = 4096) -> np.ndarray:
+    """Every (i, j) whose rects ``ra[i]`` and ``rb[j]`` intersect (closed
+    boxes), on the card a chunk of ``ra`` at a time, in row-major order."""
+    a = torch.from_numpy(ra).to(dev)
+    b = torch.from_numpy(rb).to(dev)
+    out = []
+    for lo in range(0, len(a), chunk):
+        x = a[lo:lo + chunk, None]
+        hit = (x[..., 0] <= b[:, 2]) & (x[..., 2] >= b[:, 0]) & \
+            (x[..., 1] <= b[:, 3]) & (x[..., 3] >= b[:, 1])
+        ij = hit.nonzero()
+        ij[:, 0] += lo
+        out.append(ij.cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_examples(torch, dev, mods) -> dict:
+    """Phase 45: the port's four examples (``examples/*_torch.py``) on the
+    card, each through its ``main`` at its counterpart's sizes (the
+    training example at ``EXAMPLE_TRAIN_STEPS`` steps) and its own
+    asserts: the quickstart's select ≡ the scalar baseline, q/s > 0, the
+    join's pairs ≡ a brute-force join of the same rects on the card, the
+    loss falls across the resume; each example's kernel launches (counts
+    reset before it) and seconds.  Returns {example: seconds}."""
+    secs = {}
+    for name, argv, kernel in (
+            ("quickstart", [], "select_level_masks"),
+            ("serve_spatial", [], "select_level_masks"),
+            ("spatial_join_analytics", [], "join_pair_masks"),
+            ("train_lm", ["--steps", str(EXAMPLE_TRAIN_STEPS)], None)):
+        mod = load_example(name)
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches = counts_of(mods)
+        check(kernel is None or launches.get(kernel, 0) > 0,
+              f"{name}_torch.py: no {kernel} launch on the card ({launches})")
+        what = ""
+        if name == "spatial_join_analytics":
+            _, ra, rb = mod.datasets(30_000)
+            want = brute_force_join(torch, dev, ra, rb)
+            got = out["pairs"]
+            got = got[np.lexsort((got[:, 1], got[:, 0]))]
+            check(np.array_equal(got, want), f"{name}_torch.py: "
+                  f"{len(got)} pairs against {len(want)} brute force")
+            what = f"; {len(got)} pairs ≡ brute force on the card"
+        elif name == "train_lm":
+            check(out["start_step"] == EXAMPLE_TRAIN_STEPS // 2 and
+                  out["last_loss"] < out["first_loss"],
+                  f"{name}_torch.py: {out}")
+            what = (f"; resumed at step {out['start_step']}, loss "
+                    f"{out['first_loss']:.4f} → {out['last_loss']:.4f}")
+        elif name == "serve_spatial":
+            what = f"; {out['qps']:,.1f} q/s"
+        print(f"  {name}_torch.py on cuda: {secs[name]:.1f} s, launches "
+              f"{launches}{what}", flush=True)
+    return secs
 
 
 def main() -> None:
@@ -4769,18 +4919,20 @@ def main() -> None:
         + f"; phase 22: {time.time() - t0:.1f} s", flush=True)
 
     mods = (kern, jkern, kkern, kjkern)
+    cuts = {}        # the seconds each timing-only cut saves (phase 45)
     t0 = time.time()
     print(f"[23] mesh engines over the {N_RECTS} points in "
           f"{MESH_PARTITIONS + 1} partitions, D1 and D3", flush=True)
     heights = phase_mesh_engines(torch, dev, mods, serve, SpatialShards,
-                                 traversal, knn_browse, rtree, elevate)
+                                 traversal, knn_browse, rtree, elevate,
+                                 cuts)
     print(f"  phase 23: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
     t0 = time.time()
     print("[24] serve --mesh on / off, every fleet mode, D1 and D3",
           flush=True)
-    mesh_launches = phase_mesh_serve(mods, serve, heights)
+    mesh_launches = phase_mesh_serve(mods, serve, heights, cuts)
     print(f"  phase 24: {time.time() - t0:.1f} s on {name} ({smi})",
           flush=True)
 
@@ -4858,6 +5010,7 @@ def main() -> None:
           f"{lm_cfg.vocab}), weights from seed {SEED}", flush=True)
     lm32 = phase_lm_bf16(torch, dev, lm_cfg, LM_BATCH, LM_PROMPT, LM_NEW,
                          LM_BF16_TOL)
+    cuts[f"32: {LM_ARCH}'s LM timing repeats"] = lm32["cut_s"]
     torch.cuda.empty_cache()
     phase_lm_f32(torch, dev, lm_cfg, LM_F32_BATCH, LM_F32_PROMPT,
                  LM_F32_NEW, LM_F32_TOL)
@@ -4880,9 +5033,10 @@ def main() -> None:
         print(f"[{n}] {arch} at its published widths "
               f"({lm_widths(cfg, full.n_layers)}), weights from seed {SEED}",
               flush=True)
-        phase_lm_bf16(torch, dev, cfg, LM_BATCH, LM_PROMPT, LM_NEW, tol,
-                      tf_chunk=LM_MOE_TF_CHUNK
-                      if cfg.family == "moe" else None)
+        lm = phase_lm_bf16(torch, dev, cfg, LM_BATCH, LM_PROMPT, LM_NEW, tol,
+                           tf_chunk=LM_MOE_TF_CHUNK
+                           if cfg.family == "moe" else None)
+        cuts[f"{n}: {arch}'s LM timing repeats"] = lm["cut_s"]
         torch.cuda.empty_cache()
         phase_lm_f32(torch, dev, registry.reduced_config(full),
                      LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW, LM_F32_TOL)
@@ -4959,13 +5113,27 @@ def main() -> None:
           f"{t42 + t43:.1f} s", flush=True)
 
     t0 = time.time()
-    print("[44] the traced cost model: three dry-run cells over a fake "
-          "(16, 16) mesh, and the one-device bound of phases 32 and 38",
+    print("[44] the traced cost model: five dry-run cells over a fake "
+          "(16, 16) mesh (grok-1-314b train_4k without and with the MoE "
+          "knobs), and the one-device bound of phases 32 and 38",
           flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on: phase 44's float32 rate assumes it off")
     phase_cost(cost_proc, lm32["dev_ms"], tr38["dev_ms"])
-    print(f"  phase 44: {time.time() - t0:.1f} s on {name} ({smi})",
+    t44 = time.time() - t0
+    print(f"  phase 44: {t44:.1f} s on {name} ({smi})", flush=True)
+
+    t0 = time.time()
+    print("[45] the port's four examples on cuda", flush=True)
+    phase_examples(torch, dev, mods)
+    t45 = time.time() - t0
+    cut = sum(cuts.values())
+    print(f"  phase 45: {t45:.1f} s on {name} ({smi})", flush=True)
+    print("  the timing-only cuts that pay for it, from this run's own "
+          "per-call times: " + "; ".join(f"{k} {v:.1f} s"
+                                         for k, v in cuts.items()) +
+          f"; {cut:.1f} s in all against phase 45's {t45:.1f} s and "
+          f"phase 44's wait of {t44:.1f} s (PR 28's run 7: 0.0 s)",
           flush=True)
 
     # launches: B1, B3, B5, B8, B11, B13 and B14 from the served paths

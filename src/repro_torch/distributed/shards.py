@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import inspect
 import math
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -31,20 +31,38 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def _contiguous_stride(shape) -> tuple:
-    out, acc = [], 1
-    for n in reversed(shape):
-        out.append(acc)
-        acc *= max(int(n), 1)
-    return tuple(reversed(out))
+def _contiguous_stride(shape, order=None) -> tuple:
+    """The strides of a dense tensor of ``shape`` whose dims lie in memory
+    in ``order`` (outermost first; default: row-major)."""
+    order = range(len(shape)) if order is None else order
+    out, acc = [0] * len(shape), 1
+    for d in reversed(list(order)):
+        out[d] = acc
+        acc *= max(int(shape[d]), 1)
+    return tuple(out)
+
+
+def _layout(local: torch.Tensor, shape):
+    """(local, global strides) for a DTensor of global ``shape`` built from
+    ``local``: a shard dense in some order of its dims (an einsum's output
+    is often a transposed product) keeps that order in the global strides,
+    so that DTensor copies where a view of the shard would fail, as a
+    reshape of the plain tensor does; any other shard is made contiguous."""
+    if local.is_contiguous():
+        return local, _contiguous_stride(shape)
+    order = sorted(range(local.ndim), key=lambda d: (-local.stride(d), d))
+    if local.permute(order).is_contiguous():
+        return local, _contiguous_stride(shape, order)
+    return local.contiguous(), _contiguous_stride(shape)
 
 
 _FROM_LOCAL_GRAD = None
 
 
 def _from_local(local, mesh, placements, shape, grad_placements=None):
-    """``DTensor.from_local`` of a global ``shape`` (contiguous), passing
-    the grad's placements where this torch takes them."""
+    """``DTensor.from_local`` of a global ``shape`` (laid out as ``local``
+    is: ``_layout``), passing the grad's placements where this torch takes
+    them."""
     from torch.distributed.tensor import DTensor
     global _FROM_LOCAL_GRAD
     if _FROM_LOCAL_GRAD is None:
@@ -53,9 +71,9 @@ def _from_local(local, mesh, placements, shape, grad_placements=None):
     kw = {}
     if grad_placements is not None and _FROM_LOCAL_GRAD:
         kw["grad_placements"] = tuple(grad_placements)
+    local, stride = _layout(local, shape)
     return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
-                              shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape), **kw)
+                              shape=torch.Size(shape), stride=stride, **kw)
 
 
 def _as_dtensor(t, mesh):
@@ -281,21 +299,30 @@ def write_at(dst: torch.Tensor, dim: int, index: int,
         dst.to_local().select(dim, index - lo).copy_(src.to_local())
 
 
-def merge_dims(t: torch.Tensor, start: int) -> torch.Tensor:
-    """``t`` with its dims from ``start`` on merged into one (the heads'
-    (H, hd) into H·hd).  On a DTensor, whose shards may cut only dims
-    before ``start`` and ``start`` itself, the local tensor is reshaped
-    and keeps the placements, and so does the grad on its way back:
-    DTensor's own view would unflatten a sharded dim in the backward,
-    which it refuses where the shards do not hold whole heads."""
-    shape = tuple(t.shape[:start]) + (math.prod(t.shape[start:]),)
+def merge_dims(t: torch.Tensor, start: int,
+               end: Optional[int] = None) -> torch.Tensor:
+    """``t`` with its dims ``start`` .. ``end`` − 1 (default: to the last)
+    merged into one (the heads' (H, hd) into H·hd; the MoE's (G, S) groups
+    back into tokens).  On a DTensor, whose shards may cut only dims
+    outside the group and ``start`` itself, the local tensor is reshaped
+    and keeps the placements (a partial sum stays one), and so does the
+    grad on its way back: DTensor's own view would unflatten a sharded dim
+    in the backward, which it refuses where the shards do not hold whole
+    heads, and would move a partial sum where the merge cannot be a view."""
+    end = t.ndim if end is None else end
+    shape = tuple(t.shape[:start]) + (math.prod(t.shape[start:end]),) + \
+        tuple(t.shape[end:])
     if not is_dtensor(t):
         return t.reshape(shape)
-    mesh, place = t.device_mesh, t.placements
-    grad = [_no_partial(p) for p in place]
-    loc = t.to_local(grad_placements=grad)
-    return _from_local(loc.reshape(tuple(loc.shape[:start]) + (-1,)), mesh,
-                       place, shape, grad)
+    from torch.distributed.tensor import Shard
+    mesh, gone = t.device_mesh, end - start - 1
+    place = [Shard(p.dim - gone) if p.is_shard() and p.dim >= end else p
+             for p in t.placements]
+    loc = t.to_local(grad_placements=[_no_partial(p) for p in t.placements])
+    loc = loc.reshape(tuple(loc.shape[:start]) + (-1,) +
+                      tuple(loc.shape[end:]))
+    return _from_local(loc, mesh, place, shape,
+                       [_no_partial(p) for p in place])
 
 
 def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -171,14 +171,37 @@ def _tree_bytes(mesh, specs, tensors) -> int:
     return sum(sizes)
 
 
-def _choices(cfg, shp, mesh, *, fsdp: bool, moe_ep_axis: str):
+def moe_groups(cfg, shp, mesh, *, moe_group_tokens: int = 0,
+               microbatches: Optional[int] = None) -> int:
+    """The GShard dispatch groups of a MoE cell, as the reference's
+    ``build_lowered`` picks them: the DP extent, or with
+    ``moe_group_tokens`` > 0 about one group per that many tokens of a
+    microbatch (its tokens: batch · sequence, decode's one a sequence;
+    training's split over ``microbatches``, default
+    ``default_microbatches``), rounded down to a multiple of the DP extent
+    and at least that."""
+    dp = sharding.dp_size(mesh)
+    if not moe_group_tokens:
+        return dp
+    b = shp.global_batch
+    tokens = b * shp.seq_len if shp.kind != "decode" else b
+    if shp.kind == "train":
+        tokens //= microbatches or default_microbatches(cfg, shp, mesh)
+    want = max(tokens // moe_group_tokens, dp)
+    return max((want // dp) * dp, dp)
+
+
+def _choices(cfg, shp, mesh, *, fsdp: bool, moe_ep_axis: str,
+             moe_group_tokens: int = 0, microbatches: Optional[int] = None):
     """The reference's per-cell choices on ``mesh``: → (cfg with its MoE
-    dispatch groups aligned to the DP extent, whether the weights go FSDP,
-    the full-depth leaves, their specs by path).  FSDP for training, and
-    for serving only where the TP-only weights pass ``SERVE_FSDP_BYTES``
+    dispatch groups (``moe_groups``), whether the weights go FSDP, the
+    full-depth leaves, their specs by path).  FSDP for training, and for
+    serving only where the TP-only weights pass ``SERVE_FSDP_BYTES``
     (never with experts over 'data')."""
-    if cfg.n_experts:       # dispatch groups aligned to the DP extent
-        cfg = dataclasses.replace(cfg, moe_groups=sharding.dp_size(mesh))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_groups=moe_groups(
+            cfg, shp, mesh, moe_group_tokens=moe_group_tokens,
+            microbatches=microbatches))
     leaves = transformer.leaf_map(cfg, transformer.Transformer(
         cfg, device="meta"))
     msize = sharding.axis_sizes(mesh)[MODEL_AXIS]
@@ -194,13 +217,15 @@ def _choices(cfg, shp, mesh, *, fsdp: bool, moe_ep_axis: str):
 def memory_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 fsdp: bool = True, moe_ep_axis: str = "auto",
                 split_kv: bool = True, opt_kind: Optional[str] = None,
-                microbatches: Optional[int] = None) -> Dict[str, Any]:
+                microbatches: Optional[int] = None,
+                moe_group_tokens: int = 0) -> Dict[str, Any]:
     """One cell's per-device bytes of parameters, optimizer state
     (training), batch inputs and cache (decode), and their total, under
     the reference's choices: FSDP for training, and for serving only
     where the TP-only weights pass ``SERVE_FSDP_BYTES`` (never with
     experts over 'data'); the cache split over 'model' (``split_kv``) and,
-    at batch 1, its sequence over 'data'."""
+    at batch 1, its sequence over 'data'.  The MoE dispatch groups
+    (``moe_group_tokens``) shape no tensor counted here."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     cfg = registry.get(arch)
     shp = get_shape(shape_name)
@@ -210,8 +235,9 @@ def memory_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if not ok:
         out["skipped"] = why
         return out
-    cfg, use_fsdp, leaves, p_spec = _choices(cfg, shp, mesh, fsdp=fsdp,
-                                             moe_ep_axis=moe_ep_axis)
+    cfg, use_fsdp, leaves, p_spec = _choices(
+        cfg, shp, mesh, fsdp=fsdp, moe_ep_axis=moe_ep_axis,
+        moe_group_tokens=moe_group_tokens, microbatches=microbatches)
     parts = {"params": sum(_nbytes(mesh, p_spec[leaf.path],
                                    _meta(leaf.shape, leaf.params[0].dtype))
                            for leaf in leaves),
@@ -288,7 +314,8 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
                units: Optional[int] = None, opt_kind: Optional[str] = None,
                microbatches: Optional[int] = None, remat: bool = True,
                fsdp: bool = True, moe_ep_axis: str = "auto",
-               split_kv: bool = True, cfg=None):
+               moe_group_tokens: int = 0, split_kv: bool = True,
+               cap_shard: bool = False, cfg=None):
     """The cell's step on the meta device, as ``build_lowered`` builds it,
     → (run, cfg, shape): ``run()`` runs the step once.  ``mesh``: a
     ``DeviceMesh`` (a fake process group's, ``launch.mesh.fake_mesh``) on
@@ -301,18 +328,24 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
     prefill: ``prefill`` with ``act_shard``, then the next token; decode:
     one ``decode`` step over ``cache_specs``' cache (``split_kv``; at
     batch 1 the sequence over 'data') at its last position, then the next
-    token.  ``units`` cuts the model to that many layer units, placed as
-    the whole model is: ``cell_cost`` extrapolates from them.  ``cfg``:
-    another config than the registry's (the tests' reduced ones)."""
+    token.  A MoE cell's dispatch groups follow ``moe_group_tokens``
+    (``moe_groups``), and ``cap_shard`` passes
+    ``sharding.make_moe_cap_shard`` to all three as ``moe_cap_shard``.
+    ``units`` cuts the model to that many layer units, placed as the whole
+    model is: ``cell_cost`` extrapolates from them.  ``cfg``: another
+    config than the registry's (the tests' reduced ones)."""
     from ..models.model import Model
     from ..train import train_step as ts
     cfg = cfg or registry.get(arch)
     shp = _shape(shape_name)
     spec_mesh = mesh if mesh is not None else ShapeMesh((1, 1),
                                                         ("data", "model"))
-    cfg, use_fsdp, leaves, p_spec = _choices(cfg, shp, spec_mesh,
-                                             fsdp=fsdp,
-                                             moe_ep_axis=moe_ep_axis)
+    mb = None
+    if shp.kind == "train":
+        mb = microbatches or default_microbatches(cfg, shp, spec_mesh)
+    cfg, use_fsdp, leaves, p_spec = _choices(
+        cfg, shp, spec_mesh, fsdp=fsdp, moe_ep_axis=moe_ep_axis,
+        moe_group_tokens=moe_group_tokens, microbatches=mb)
     run_cfg = cfg if units is None else with_units(cfg, units)
     model = Model(run_cfg)
     params = transformer.Transformer(run_cfg, device="meta")
@@ -322,9 +355,9 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
     if mesh is not None:
         sharding.distribute_params(run_cfg, mesh, params, by_leaf=by_leaf)
     act = sharding.make_act_shard(mesh) if mesh is not None else None
+    moe_cap = sharding.make_moe_cap_shard(spec_mesh) if cap_shard else None
     specs = input_specs(arch, shp, cfg=run_cfg)
     if shp.kind == "train":
-        mb = microbatches or default_microbatches(cfg, shp, spec_mesh)
         batch = _placed(mesh, sharding.batch_pspecs(cfg, spec_mesh, specs),
                         specs)
         oc = opt.OptConfig(kind=opt_kind or default_opt_kind(cfg))
@@ -333,7 +366,8 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
             act_shard=act, logit_shard=sharding.make_logit_shard(mesh),
             grad_shardings=by_leaf)
         step = ts.make_train_step(model, oc, microbatches=mb,
-                                  remat=remat, **hooks)
+                                  remat=remat, moe_cap_shard=moe_cap,
+                                  **hooks)
         return (lambda: step(params, state, None, batch)), cfg, shp
     if shp.kind == "prefill":
         batch = _placed(mesh, sharding.batch_pspecs(cfg, spec_mesh, specs),
@@ -341,7 +375,8 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
 
         def prefill():
             with sharding.replicating(params):
-                _, last, _ = model.prefill(params, batch, act_shard=act)
+                _, last, _ = model.prefill(params, batch, act_shard=act,
+                                           moe_cap_shard=moe_cap)
                 return _next_token(last)
         return prefill, cfg, shp
     seq_shard = shp.global_batch == 1
@@ -356,7 +391,8 @@ def build_step(arch: str, shape_name: str, mesh=None, *,
 
     def decode():
         with sharding.replicating(params):
-            logits, _ = model.decode(params, cache, token, pos)
+            logits, _ = model.decode(params, cache, token, pos,
+                                     moe_cap_shard=moe_cap)
             return _next_token(logits)
     return decode, cfg, shp
 
@@ -465,13 +501,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              opt_kind: Optional[str] = None,
              microbatches: Optional[int] = None, remat: bool = True,
              fsdp: bool = True, moe_ep_axis: str = "auto",
-             split_kv: bool = True) -> Dict[str, Any]:
+             moe_group_tokens: int = 0, split_kv: bool = True,
+             cap_shard: bool = False) -> Dict[str, Any]:
     """One cell on its production mesh: ``memory_cell``'s per-device
     memory, the step traced over a fake process group's mesh of that
-    shape (``cell_cost``), and ``analyse``'s roofline."""
+    shape (``cell_cost``), and ``analyse``'s roofline; a MoE cell also
+    reports its dispatch groups and whether ``cap_shard`` was on."""
     mem = memory_cell(arch, shape_name, multi_pod=multi_pod, fsdp=fsdp,
                       moe_ep_axis=moe_ep_axis, split_kv=split_kv,
-                      opt_kind=opt_kind, microbatches=microbatches)
+                      opt_kind=opt_kind, microbatches=microbatches,
+                      moe_group_tokens=moe_group_tokens)
     if "skipped" in mem:
         return mem
     prod = make_production_mesh(multi_pod=multi_pod)
@@ -480,9 +519,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         rep, cfg, shp = cell_cost(arch, shape_name, mesh, opt_kind=opt_kind,
                                   microbatches=microbatches, remat=remat,
                                   fsdp=fsdp, moe_ep_axis=moe_ep_axis,
-                                  split_kv=split_kv)
+                                  moe_group_tokens=moe_group_tokens,
+                                  split_kv=split_kv, cap_shard=cap_shard)
     res = {k: mem[k] for k in ("arch", "shape", "mesh", "fsdp", "opt",
                                "microbatches")}
+    if cfg.n_experts:
+        res.update(moe_groups=cfg.moe_groups, cap_shard=cap_shard)
     res.update(analyse(rep, cfg, shp, mem["devices"]))
     res.update({"trace_seconds": time.perf_counter() - t0,
                 "memory_per_device": mem["bytes_per_device"],
@@ -496,6 +538,9 @@ def describe_cost(res: Dict[str, Any]) -> str:
     if "skipped" in res or "error" in res:
         return describe(res)
     t = res["terms"]
+    if "moe_groups" in res:
+        head += (f" (moe_groups {res['moe_groups']}, cap_shard "
+                 f"{res['cap_shard']})")
     return (f"{head}: {res['dominant'][:-2]}-bound, step ≥ "
             f"{res['step_time_bound_s'] * 1e3:.3f} ms (compute "
             f"{t['compute_s'] * 1e3:.3f}, memory {t['memory_s'] * 1e3:.3f}, "
@@ -540,8 +585,14 @@ def main(argv=None) -> int:
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--ep-axis", default="auto", choices=["auto", "data"])
+    ap.add_argument("--moe-group-tokens", type=int, default=0,
+                    help="MoE dispatch groups of about this many tokens "
+                         "(0: one a DP rank)")
     ap.add_argument("--no-split-kv", action="store_true",
                     help="head-sharded KV cache instead of sequence-split")
+    ap.add_argument("--cap-shard", action="store_true",
+                    help="shard MoE dispatch/combine over 'model' (the "
+                         "expert dim, else the capacity dim)")
     ap.add_argument("--memory-only", action="store_true",
                     help="each device's memory only, no traced cost")
     ap.add_argument("--out", default=None)
@@ -557,9 +608,10 @@ def main(argv=None) -> int:
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     kw = dict(fsdp=not args.no_fsdp, moe_ep_axis=args.ep_axis,
               split_kv=not args.no_split_kv, opt_kind=args.opt,
-              microbatches=args.microbatches)
+              microbatches=args.microbatches,
+              moe_group_tokens=args.moe_group_tokens)
     if not args.memory_only:
-        kw["remat"] = not args.no_remat
+        kw.update(remat=not args.no_remat, cap_shard=args.cap_shard)
 
     results, failures = [], 0
     t0 = time.perf_counter()

@@ -70,6 +70,7 @@ import time
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import rtree, str_pack, traversal
 from ..core.counters import Counters
 from ..core.layouts import layout_names
@@ -675,9 +676,7 @@ def main(argv=None):
                     help="tiny sizes: the smoke that runs serve end to end")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available; pass "
-                           "--device cpu to serve on the CPU")
+    resolve_device(args.device)
     if args.dryrun:
         args.n = min(args.n, 2000)
         args.partitions = min(args.partitions, 2)

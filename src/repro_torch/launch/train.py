@@ -17,6 +17,7 @@ import time
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.models.model import Model
 from repro_torch.runtime import checkpoint as ckpt
@@ -62,10 +63,7 @@ def main(argv=None):
                     help="where the model trains")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available; pass "
-                           "--device cpu to train on the CPU")
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
     cfg, model, oc, pipe, step_fn = build(
         args.arch, reduced=args.reduced, seq=args.seq, batch=args.batch,
         steps=args.steps, lr=args.lr, microbatches=args.microbatches,

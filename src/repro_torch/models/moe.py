@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from torch import nn
 
-from ..distributed.shards import einsum
+from ..distributed.shards import einsum, merge_dims
 from .layers import silu
 
 
@@ -87,8 +87,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
 
     frac_tokens = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
     aux = e * (frac_tokens * probs.mean(dim=(0, 1))).sum()
-    return y.reshape(t, d), MoEMetrics(aux_loss=aux, dropped_frac=dropped,
-                                       gate_idx=gate_idx.reshape(t, top_k))
+    return merge_dims(y, 0, 2), MoEMetrics(
+        aux_loss=aux, dropped_frac=dropped,
+        gate_idx=gate_idx.reshape(t, top_k))
 
 
 class MoEFFN(nn.Module):

@@ -32,8 +32,18 @@ from repro_torch.train import optimizer as opt
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
+# the MoE dispatch groups: ``build_lowered``'s own count for every MoE
+# arch, serving and training shape, production mesh, token cap (0: one
+# group a DP rank) and microbatch override (None: the default)
+GROUP_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
+GROUP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+GROUP_TOKENS = (0, 512, 4096, 65536)
+GROUP_MICROBATCHES = (None, 4)
+
 REF_CODE = r"""
 import json, math
+GROUP_ARCHS, GROUP_SHAPES = %r, %r
+GROUP_TOKENS, GROUP_MICROBATCHES = %r, %r
 from repro.launch import dryrun
 import jax, jax.numpy as jnp
 from repro.configs import registry
@@ -118,19 +128,48 @@ for arch, cfg in registry.all_archs().items():
                 cell["cache"] = held(ins["cache"], sharding.cache_pspecs(
                     cfg, mesh, ins["cache"],
                     seq_shard=shp.global_batch == 1, split_kv=True))
-print(json.dumps(cells))
-"""
+
+
+class Stop(Exception):
+    pass
+
+
+def stand_in(cfg):          # build_lowered's Model: the groups, then stop
+    groups.append(cfg.moe_groups)
+    raise Stop
+
+
+groups, group_cells = [], []
+dryrun.Model = stand_in
+for arch in GROUP_ARCHS:
+    for shape in GROUP_SHAPES:
+        for mname, mesh in MESHES.items():
+            for n in GROUP_TOKENS:
+                for m in GROUP_MICROBATCHES:
+                    try:
+                        dryrun.build_lowered(arch, shape, mesh,
+                                             moe_group_tokens=n,
+                                             microbatches=m)
+                    except Stop:
+                        group_cells.append([arch, shape, mname, n, m,
+                                            groups[-1]])
+print(json.dumps({"cells": cells, "groups": group_cells}))
+""" % (GROUP_ARCHS, GROUP_SHAPES, GROUP_TOKENS, GROUP_MICROBATCHES)
 
 
 @pytest.fixture(scope="module")
-def ref_cells():
+def ref_out():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", REF_CODE], env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
-    return {(c["arch"], c["shape"], c["mesh"]): c
-            for c in json.loads(r.stdout.strip().splitlines()[-1])}
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def ref_cells(ref_out):
+    return {(c["arch"], c["shape"], c["mesh"]): c for c in ref_out["cells"]}
 
 
 def _spec(entries):
@@ -228,3 +267,20 @@ def test_cli_reports_every_cell(tmp_path):
     assert dryrun.main(["--arch", "zamba2-7b", "--shape", "long_500k",
                         "--multi-pod", "--no-split-kv", "--memory-only"]) == 0
     assert get_shape("long_500k").global_batch == 1
+
+
+@pytest.mark.parametrize("shape", GROUP_SHAPES)
+@pytest.mark.parametrize("arch", GROUP_ARCHS)
+def test_moe_groups_equal_reference(arch, shape, ref_out):
+    """``moe_groups`` (``--moe-group-tokens``) equals the group count the
+    reference's own ``build_lowered`` gives its model, on both production
+    meshes, for every token cap and microbatch override."""
+    cfg, shp = registry.get(arch), get_shape(shape)
+    want = {tuple(c[:5]): c[5] for c in ref_out["groups"]
+            if c[0] == arch and c[1] == shape}
+    assert len(want) == 2 * len(GROUP_TOKENS) * len(GROUP_MICROBATCHES)
+    for (_, _, mname, n, m), g in want.items():
+        mesh = make_production_mesh(multi_pod=mname == "multi")
+        assert dryrun.moe_groups(cfg, shp, mesh, moe_group_tokens=n,
+                                 microbatches=m) == g, (mname, n, m)
+    assert len(set(want.values())) > 1, want

@@ -15,6 +15,14 @@ In one subprocess (a fake process group is one per process):
 - on a 1×1 mesh, the reduced tinyllama train and decode steps;
 - an all-reduce of f32[64] over the mesh's 'model' group of 4, traced;
 - the dry run's CLI (``main``) on one production cell.
+
+The MoE knobs (``--moe-group-tokens``, ``--cap-shard``) in the same
+subprocess: on the (2, 4) mesh under the flatten rule, the train, prefill
+and decode steps of one layer unit of both MoE patterns with dispatch
+groups of ``GROUP_TOKENS`` tokens and the dispatch and combine sharded
+over 'model', and ``cell_cost`` of the reduced grok-1 train step with both
+knobs against a whole trace of it; ``--memory-only`` output with and
+without the knobs; and the CLI with both on one production MoE cell.
 """
 import json
 import os
@@ -29,9 +37,13 @@ PATTERN_ARCHS = ("tinyllama-1.1b", "h2o-danube-1.8b", "musicgen-large",
                  "paligemma-3b", "grok-1-314b", "llama4-maverick-400b-a17b",
                  "falcon-mamba-7b", "zamba2-7b")
 KINDS = ("train", "prefill", "decode")
+MOE_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
+# tokens a dispatch group: 64 gives the (2, 4) mesh's train step 4 groups
+# (twice its DP extent), the prefill 32 and the decode the DP extent (2)
+GROUP_TOKENS = 64
 
 CODE = r"""
-import dataclasses, json, sys
+import contextlib, dataclasses, io, json, sys
 import torch
 from flatten_rule import strict_flatten
 from repro_torch.configs import registry
@@ -40,7 +52,7 @@ from repro_torch.distributed import trace_cost
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_mesh
 
-ARCHS = %r
+ARCHS, MOE_ARCHS, GROUP_TOKENS = %r, %r, %r
 # serving at 512 tokens: the attention's share of the work is then real,
 # as at the production cells' lengths (at a few dozen tokens the
 # reference's 2·N·D counts the embedding table's rows, which no step
@@ -85,6 +97,28 @@ with fake_mesh((2, 4), ("data", "model")) as mesh:
         out["whole"] = [[getattr(r, f) for f in ("flops", "bytes_ideal",
                                                  "collective_bytes")]
                         for r in (got, whole)]
+        knobs = dict(cap_shard=True, moe_group_tokens=GROUP_TOKENS)
+        for arch in MOE_ARCHS:
+            one = dryrun.with_units(reduced(arch), 1)
+            for kind, shp in SHAPES.items():
+                run, cfg, _ = dryrun.build_step(arch, shp, mesh, cfg=one,
+                                                **knobs)
+                rep, _ = trace_cost.trace(run)
+                c = row(rep, cfg, shp, 8)
+                c["groups"] = [cfg.moe_groups, dryrun.moe_groups(
+                    one, shp, mesh, moe_group_tokens=GROUP_TOKENS)]
+                out["cells"][arch + ":" + kind + ":knobs"] = c
+        # 4 microbatches of 2 sequences: 64 tokens, 16 a group
+        kw = dict(cfg=reduced("grok-1-314b", n_layers=3), microbatches=4,
+                  cap_shard=True, moe_group_tokens=16)
+        got, cfg, _ = dryrun.cell_cost("grok-1-314b", SHAPES["train"], mesh,
+                                       **kw)
+        run, cfg_whole, _ = dryrun.build_step("grok-1-314b", SHAPES["train"],
+                                              mesh, **kw)
+        whole, _ = trace_cost.trace(run)
+        out["whole_knobs"] = [[getattr(r, f) for f in (
+            "flops", "bytes_ideal", "collective_bytes")] + [c.moe_groups]
+            for r, c in ((got, cfg), (whole, cfg_whole))]
     import torch.distributed._functional_collectives as funcol
     x = torch.empty(64, dtype=torch.float32, device="meta")
     rep, _ = trace_cost.trace(funcol.all_reduce, x, "sum",
@@ -99,20 +133,43 @@ with fake_mesh((1, 1), ("data", "model")) as mesh:
         out["cells"]["1x1:" + kind] = row(rep, cfg, SHAPES[kind], 1)
 out["cli_rc"] = dryrun.main(["--arch", "tinyllama-1.1b", "--shape",
                              "decode_32k", "--out", sys.argv[1]])
+out["knobs_rc"] = dryrun.main(["--arch", "grok-1-314b", "--shape",
+                               "decode_32k", "--cap-shard",
+                               "--moe-group-tokens", "4096", "--out",
+                               sys.argv[2]])
+# --memory-only: each MoE cell's output and line, without and with both
+memory = []
+for flags in ([], ["--cap-shard", "--moe-group-tokens", "4096"]):
+    lines = io.StringIO()
+    with contextlib.redirect_stdout(lines):
+        for arch in MOE_ARCHS:
+            for shape in ("train_4k", "prefill_32k", "decode_32k"):
+                rc = dryrun.main(["--arch", arch, "--shape", shape,
+                                  "--both-meshes", "--memory-only", "--out",
+                                  sys.argv[3]] + flags)
+                with open(sys.argv[3]) as f:
+                    memory.append([rc, json.load(f)])
+    # the cells' lines (not the timing line)
+    memory.append([line for line in lines.getvalue().splitlines()
+                   if " × " in line])
+out["memory"] = memory
 print(json.dumps(out))
-""" % (PATTERN_ARCHS,)
+""" % (PATTERN_ARCHS, MOE_ARCHS, GROUP_TOKENS)
 
 
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
-    cli = tmp_path_factory.mktemp("dryrun") / "cell.json"
+    tmp = tmp_path_factory.mktemp("dryrun")
+    cli, knobs = tmp / "cell.json", tmp / "knobs.json"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), HERE]))
-    r = subprocess.run([sys.executable, "-c", CODE, str(cli)], env=env,
+    r = subprocess.run([sys.executable, "-c", CODE, str(cli), str(knobs),
+                        str(tmp / "memory.json")], env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     out["cli"] = json.loads(cli.read_text())
+    out["knobs"] = json.loads(knobs.read_text())
     out["cli_stdout"] = r.stdout
     return out
 
@@ -175,3 +232,56 @@ def test_cli_reports_a_production_cell(traced):
     assert cell["collective_bytes_per_device"] > 0
     assert "tinyllama-1.1b × decode_32k × single-pod: memory-bound" in \
         traced["cli_stdout"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_knobs_trace_on_a_2x4_mesh(arch, kind, traced):
+    """Both MoE patterns with ``cap_shard`` and ``moe_group_tokens`` trace
+    under the flatten rule (train: the backward through the sharded
+    dispatch too), with the dispatch groups ``moe_groups`` gives (more than
+    the DP extent where the tokens allow: each rank then holds several
+    groups, which its local merge back into tokens must keep in order)."""
+    c = traced["cells"][f"{arch}:{kind}:knobs"]
+    got, want = c["groups"]
+    assert got == want == {"train": 4, "prefill": 32, "decode": 2}[kind]
+    assert c["flops_per_device"] > 0 and c["bytes_per_device"] > 0, c
+    assert c["collective_bytes_per_device"] > 0, c
+    assert useful_within_bounds(c), c
+    assert 0 < c["roofline_fraction"] <= 1, c
+
+
+def test_extrapolated_cost_with_moe_knobs_equals_whole_trace(traced):
+    """``cell_cost`` traces the train step at 2 and 3 microbatches over a
+    batch cut to match: the dispatch groups, counted from a microbatch's
+    tokens, are the whole step's (4) in every trace, and the extrapolation
+    equals the whole trace with both knobs on."""
+    got, whole = traced["whole_knobs"]
+    assert got[3] == whole[3] == 4
+    assert got[:3] == pytest.approx(whole[:3], rel=1e-9)
+
+
+def test_memory_only_output_unchanged_by_moe_knobs(traced):
+    """``--memory-only`` reports the same bytes, JSON and lines, with and
+    without ``--cap-shard`` and ``--moe-group-tokens`` (neither changes a
+    tensor the memory counts)."""
+    mem = traced["memory"]
+    n = 3 * len(MOE_ARCHS)
+    without, with_knobs = mem[:n + 1], mem[n + 1:]
+    assert without == with_knobs
+    assert all(rc == 0 and len(cells) == 2 and
+               "bytes_per_device" in cells[0] for rc, cells in without[:n])
+    assert len(without[n]) == 2 * n
+
+
+def test_cli_takes_both_moe_knobs_on_a_production_cell(traced):
+    """``main([... "--cap-shard", "--moe-group-tokens", "4096"])`` on
+    grok-1-314b decode_32k: the cell traces, and its JSON and line carry
+    the dispatch groups (256 sequences, one token each: the DP extent, 16)
+    and ``cap_shard``."""
+    assert traced["knobs_rc"] == 0
+    (cell,) = traced["knobs"]
+    assert cell["moe_groups"] == 16 and cell["cap_shard"] is True
+    assert cell["collective_bytes_per_device"] > 0
+    assert "grok-1-314b × decode_32k × single-pod (moe_groups 16, " \
+        "cap_shard True)" in traced["cli_stdout"]

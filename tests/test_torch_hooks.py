@@ -195,16 +195,23 @@ def child_one_by_one(port: int) -> None:
         dist.destroy_process_group()
 
 
-def _tp2_case(mesh, n_kv=None) -> dict:
-    """The reduced tinyllama config (``n_kv`` KV heads where given) on the
-    (1, 2) mesh against the plain path: the largest relative differences,
-    the sharded parameters, and the heads that a rank's attention saw."""
+def _tp2_case(mesh, n_kv=None, arch="tinyllama-1.1b", cap_shard=False
+              ) -> dict:
+    """The reduced config of ``arch`` (``n_kv`` KV heads where given) on
+    the (1, 2) mesh against the plain path: the largest relative
+    differences, the sharded parameters, and the heads that a rank's
+    attention saw.  ``cap_shard``: a MoE arch in 2 dispatch groups with
+    ``moe_cap_shard`` on, and the placements of the dispatch and combine
+    tensors it made."""
     from repro_torch.distributed import sharding
     from repro_torch.models import layers
     from repro_torch.models import transformer as TT
-    cfg, model, batch, fresh = _setup("tinyllama-1.1b")
-    if n_kv:
-        cfg = dataclasses.replace(cfg, n_kv=n_kv)
+    cfg, model, batch, fresh = _setup(arch)
+    over = {"n_kv": n_kv} if n_kv else {}
+    if cap_shard:
+        over["moe_groups"] = 2
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
         model = type(model)(cfg)
 
         def fresh():
@@ -214,6 +221,15 @@ def _tp2_case(mesh, n_kv=None) -> dict:
     dist_p = sharding.distribute_params(cfg, mesh, fresh())
     hooks = dict(act_shard=sharding.make_act_shard(mesh),
                  logit_shard=sharding.make_logit_shard(mesh))
+    capped = []
+    if cap_shard:
+        put = sharding.make_moe_cap_shard(mesh)
+
+        def cap(x):
+            y = put(x)
+            capped.append(str(tuple(y.placements)))
+            return y
+        hooks["moe_cap_shard"] = cap
     pl, dl = TT.leaf_map(cfg, plain), TT.leaf_map(cfg, dist_p)
     la, ga = _grads(model, plain, batch, {}, pl, remat=False)
     heads, fwd = [], layers._flash_fwd
@@ -232,7 +248,8 @@ def _tp2_case(mesh, n_kv=None) -> dict:
            for a, b in zip(ga, gb)]
     return {"loss": float(abs(la - _full(lb)) / abs(la)), "grad": max(rel),
             "leaves": len(rel), "sharded": shards,
-            "heads": sorted(set(heads)), "n_heads": cfg.n_heads}
+            "heads": sorted(set(heads)), "n_heads": cfg.n_heads,
+            "capped": sorted(set(capped))}
 
 
 def child_tp2(rank: int, port: int) -> None:
@@ -247,6 +264,8 @@ def child_tp2(rank: int, port: int) -> None:
         mesh = make_mesh((1, 2), ("data", "model"), device_type="cpu")
         got = _tp2_case(mesh)
         got["head_parallel"] = _tp2_case(mesh, n_kv=2)
+        got["cap_shard"] = _tp2_case(mesh, arch="grok-1-314b",
+                                     cap_shard=True)
         if rank == 0:
             print(json.dumps(got))
     finally:
@@ -285,7 +304,8 @@ def tp2():
 def test_tensor_parallel_two_ranks_within_tolerance(tp2):
     """TP = 2 over two gloo ranks: the loss and every grad within
     ``TP_TOL`` of the plain path; most parameters are sharded."""
-    got = {k: v for k, v in tp2.items() if k != "head_parallel"}
+    got = {k: v for k, v in tp2.items()
+           if k not in ("head_parallel", "cap_shard")}
     assert got["loss"] <= TP_TOL and got["grad"] <= TP_TOL, got
     assert got["sharded"] >= got["leaves"] // 2, got
 
@@ -300,3 +320,15 @@ def test_head_parallel_attention_two_ranks_within_tolerance(tp2):
     assert got["loss"] <= TP_TOL and got["grad"] <= TP_TOL, got
     assert got["sharded"] >= got["leaves"] // 2, got
     assert tp2["heads"] == [tp2["n_heads"]], tp2     # 1 KV head: replicated
+
+
+def test_cap_sharded_moe_two_ranks_within_tolerance(tp2):
+    """The reduced grok-1 config in 2 dispatch groups with
+    ``moe_cap_shard`` over two ranks: the dispatch and combine tensors
+    shard their expert dim over 'model', so the expert einsums contract a
+    sharded dim into partial sums, and the loss and every grad stay within
+    ``TP_TOL`` of the plain path (the partial sums reduced, nothing
+    dropped or counted twice)."""
+    got = tp2["cap_shard"]
+    assert got["capped"] == ["(Shard(dim=0), Shard(dim=2))"], got
+    assert got["loss"] <= TP_TOL and got["grad"] <= TP_TOL, got
